@@ -15,3 +15,10 @@ except ImportError:
 
     sys.modules["hypothesis"] = _shim
     sys.modules["hypothesis.strategies"] = _shim.strategies
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card; skipped on a host without "
+        "one (run on the card with `PYTHONPATH=src python -m pytest "
+        "tests/test_torch_cuda.py`)")
