@@ -17,9 +17,31 @@ Phases, each printing its own lines and seconds:
      single-threaded oracle run on the CPU through the plain versions;
      partition_pack must have launched in q3, q5, q12 and q14;
   6. structural parity: q3 and q12 at compute_scale=0 on cuda and on cpu
-     give identical latency, cost, GETs, PUTs and task counts.
-It then prints the kernels line and, last, the device line. Any failure
-exits non-zero before the last line; without a card it exits 2 at once.
+     give identical latency, cost, GETs, PUTs and task counts;
+  7. ssd kernel phase: ssd_scan (CUDA) against its plain version
+     (ssd_chunked) on the card at the Pallas kernel test's CASES, the
+     smoke config's chunk, a sequence shorter than its chunk and the serve
+     path's main shape, y and state within rtol = atol = 2e-4 in f32 (and,
+     at the main shape in bf16, y within one bf16 step), with kernel,
+     plain and bound times at the main shape;
+  8. serve phase: the serve cell of launch/serve (mamba2-2.7b at full
+     width and depth, 64 layers, random weights and prompts from
+     serve.random_request), 4 prompts of 512 tokens and 32 new tokens
+     through launch/serve.generate after a short warm-up request:
+     prefill s, decode ms a step, tokens/s, peak memory; ssd_scan must
+     launch once a layer (64) in the prefill; every logit finite; the
+     prompt replayed through decode gives the prefill's last logits, in
+     bf16 as near to the f32 answer as the bf16 prefill is, and in f32
+     (one prompt) within the reference test's 2e-3;
+  9. serve parity phase: the same config at 4 layers, one 256-token
+     prompt, prefill on the card (kernel) against prefill on the CPU
+     (plain versions) on identical weights, in f32 (1e-3) and in bf16
+     (5 % relative L2, the tolerance the CPU tests hold the port's bf16
+     to against the reference).
+Each path runs with every launch count set to 0 just before it and read
+just after. It then prints the kernels line and, last, the device line.
+Any failure exits non-zero before the last line; without a card it exits
+2 at once.
 """
 from __future__ import annotations
 
@@ -34,14 +56,22 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core.engine import make_engine, oracle, run_query  # noqa
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.partition_pack import partition_pack as K  # noqa
 from repro_torch.kernels.partition_pack import ref as pp_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan as SK  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch.steps import make_prefill_step  # noqa: E402
+from repro_torch.models.model import build_model  # noqa: E402
+from repro_torch.models.modules import tree_leaves, tree_map  # noqa: E402
 from repro_torch.relational import ops as OPS  # noqa: E402
 from repro_torch.relational.table import DictColumn, decode_object  # noqa
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
+F32_FLOP_PER_S = 67e12             # H100 SXM f32, no tensor cores (same)
 SF, SEED, TARGET_BYTES = 1.0, 7, 64 << 20
 PALLAS_TEST_SHAPES = [(32, 8, 4, 16), (256, 16, 24, 64), (300, 7, 64, 128),
                       (1024, 64, 24, 256)]
@@ -52,6 +82,30 @@ MULTI = {"shuffle": {"strategy": "multi", "p": 1 / 4, "f": 1 / 4}}
 QUERIES = [("q1", {}), ("q3", {}), ("q5", {}), ("q6", {}), ("q12", {}),
            ("q12", MULTI), ("q14", {})]
 MUST_PACK = {"q3", "q5", "q12", "q14"}
+SSD_CASES = [                      # B, S, H, P, G, N, chunk
+    (1, 128, 2, 32, 1, 32, 64), (2, 256, 4, 64, 2, 64, 128),
+    (1, 256, 2, 64, 1, 128, 128), (2, 64, 2, 16, 1, 16, 32),  # Pallas test
+    (2, 16, 8, 16, 1, 16, 8),                                 # smoke chunk
+    (1, 24, 2, 16, 1, 16, 128)]                               # S < chunk
+SSD_MAIN = (4, 512, 80, 64, 1, 128, 128)   # the serve phase's prefill
+# bf16 keeps 8 significant bits. Prefill (chunked SSD, one GEMM over 2048
+# rows) and decode (recurrence, one row at a time) round at other places in
+# each of 64 layers, and through random layers the rounding grows with
+# depth, for the bf16 prefill against the f32 one as much as for decode
+# against prefill (PERF.md). So the bf16 replay is held against the f32
+# prefill of the same weights and prompts: at most twice as far from it as
+# the bf16 prefill is. A decode that computed something else would land at
+# about 1.41 in relative L2 (two unrelated logit vectors of one norm).
+SERVE_BF16_FACTOR = 2.0
+# the same property in f32 at full depth, at the reference test's 2e-3
+# (tests/test_serve_consistency.py), on one prompt of 256 tokens
+SERVE_F32_PROMPT, SERVE_F32_TOL = 256, 2e-3
+PARITY_LAYERS, PARITY_PROMPT, PARITY_TOL = 4, 256, 1e-3
+# card vs CPU in bf16: each side rounds after its own ops (cuBLAS and the
+# CPU's GEMMs block their sums differently), as the port and the reference
+# do on the CPU, where 4 smoke layers put them 2-4 % apart in relative L2
+# (tests/test_torch_mamba.py); held at the same 5 %
+PARITY_BF16_TOL = 0.05
 
 
 class SmokeFailure(Exception):
@@ -179,7 +233,6 @@ def same_result(got, want, what: str):
 
 def query_phase(coord, tables) -> int:
     expected = {}
-    K.launches = 0                               # the main path's count
     for q, kw in QUERIES:
         before = K.launches
         torch.cuda.reset_peak_memory_stats()
@@ -221,6 +274,197 @@ def parity_phase():
         check(got == want, f"{q}: cuda and cpu runs differ structurally")
 
 
+# -------------------------------------------------------------- ssd kernel
+def ssd_inputs(B, S, H, P, G, N, seed, dev, dtype=torch.float32):
+    """x, dt (post-softplus), A, Bm, Cm from numpy, as the Pallas kernel
+    test draws them."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    x = rng.standard_normal((B, S, H, P)).astype(f)
+    dt = np.logaddexp(rng.standard_normal((B, S, H)) - 1.0, 0).astype(f)
+    A = (-np.exp(rng.standard_normal(H) * 0.3)).astype(f)
+    Bm = (rng.standard_normal((B, S, G, N)) * 0.3).astype(f)
+    Cm = (rng.standard_normal((B, S, G, N)) * 0.3).astype(f)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return (t(x).to(dtype), t(dt), t(A), t(Bm).to(dtype), t(Cm).to(dtype))
+
+
+def ssd_bound(B, S, H, P, G, N, chunk, elem_bytes):
+    """(flops, bytes) the function needs: the causal triangle of C.B^T once
+    per (b, group, chunk), as it does not depend on the head; per (b*h,
+    chunk) the triangle of S.(x*dt), and C.state and B^T.(x*dt) in full;
+    each input read once, each output written once, at model layout."""
+    Q = min(chunk, S)
+    tri = Q * (Q + 1) // 2
+    flops = B * (S // Q) * (G * 2 * tri * N
+                            + H * (2 * tri * P + 4 * Q * N * P))
+    nbytes = (2 * B * S * H * P * elem_bytes          # x read, y written
+              + 4 * B * S * H + 4 * H                 # dt, A
+              + 2 * B * S * G * N * elem_bytes        # Bm, Cm
+              + 4 * B * H * P * N)                    # state written
+    return flops, nbytes
+
+
+def ssd_case(label, shape, dev, dtype=torch.float32, timed=False) -> dict:
+    """Kernel vs plain on the card: y and state within rtol = atol = 2e-4
+    in f32; in bf16 the state so too and y within one bf16 step (2^-7
+    relative: each side rounds its own f32 sum once)."""
+    B, S, H, P, G, N, chunk = shape
+    args = ssd_inputs(B, S, H, P, G, N, S + P, dev, dtype)
+    y, st = SK.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    y_r, st_r = ssd_chunked(*args, chunk)
+    y_tol = (2e-4, 2e-4) if dtype == torch.float32 else (2 ** -7, 2e-4)
+    for what, got, want, (rtol, atol) in (("y", y, y_r, y_tol),
+                                          ("state", st, st_r, (2e-4, 2e-4))):
+        got, want = got.float(), want.float()
+        check(bool(torch.isfinite(got).all()), f"{label}: {what} not finite")
+        check(bool(((got - want).abs() <= atol + rtol * want.abs()).all()),
+              f"{label}: {what} differs from the plain version by "
+              f"{float((got - want).abs().max())}")
+    rec = {"case": label, "shape": shape, "dtype": str(dtype),
+           "max_abs_err_y": float((y.float() - y_r.float()).abs().max()),
+           "max_abs_err_state": float((st - st_r).abs().max())}
+    if timed:
+        flops, nbytes = ssd_bound(*shape, y.element_size())
+        rec.update(
+            kernel_ms=time_ms(lambda: SK.ssd_scan(*args, chunk=chunk)),
+            plain_ms=time_ms(lambda: ssd_chunked(*args, chunk)),
+            flops=flops, bytes=nbytes,
+            bound_ms=max(flops / F32_FLOP_PER_S,
+                         nbytes / HBM_BYTES_PER_S) * 1e3,
+            bound_by="operations" if flops / F32_FLOP_PER_S
+            >= nbytes / HBM_BYTES_PER_S else "bytes")
+    print("[ssd] " + json.dumps(rec), flush=True)
+    return rec
+
+
+def ssd_phase(dev) -> tuple[dict, float]:
+    """-> (the main shape's record in the serve path's bf16, the largest
+    f32 error of any case)."""
+    err = 0.0
+    for shape in SSD_CASES:
+        r = ssd_case(f"case {shape}", shape, dev)
+        err = max(err, r["max_abs_err_y"], r["max_abs_err_state"])
+    r = ssd_case(f"main {SSD_MAIN} f32", SSD_MAIN, dev, timed=True)
+    err = max(err, r["max_abs_err_y"], r["max_abs_err_state"])
+    main_rec = ssd_case(f"main {SSD_MAIN} bf16", SSD_MAIN, dev,
+                        torch.bfloat16, timed=True)
+    return main_rec, err
+
+
+# ------------------------------------------------------------------- serve
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def serve_phase(dev) -> int:
+    """mamba2-2.7b at full width and depth through launch/serve.generate.
+    -> ssd_scan launches in the counted run."""
+    cfg = get_config(serve.CELL_ARCH)
+    B = serve.CELL_BATCH
+    t0 = time.perf_counter()
+    params, tokens = serve.random_request(cfg, B, serve.CELL_PROMPT,
+                                          serve.CELL_SEED, dev)
+    torch.cuda.synchronize()
+    print(f"[serve] {cfg.name}: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {sum(t.numel() for t in tree_leaves(params))} "
+          f"parameters ({cfg.param_dtype}), compute {cfg.compute_dtype}; "
+          f"init {time.perf_counter() - t0:.3f} s", flush=True)
+    serve.generate(cfg, params, tokens[:, :cfg.ssm_chunk], 2,
+                   dev)                                # warm-up request
+
+    K.launches = SK.launches = 0                       # the serve path's count
+    torch.cuda.reset_peak_memory_stats()
+    out = serve.generate(cfg, params, tokens, serve.CELL_NEW, dev)
+    launches, packs = SK.launches, K.launches
+    max_mem = torch.cuda.max_memory_allocated()
+    lp, lr = out.prefill_logits.float(), out.replay_logits.float()
+    # the f32 answer on the same weights and prompts (after the count)
+    cfg32 = cfg.replace(compute_dtype=torch.float32)
+    l32, _ = make_prefill_step(build_model(cfg32))(
+        params, {"tokens": tokens.to(dev)})
+    e_prefill, e_replay = rel_l2(lp, l32), rel_l2(lr, l32)
+    rec = {"arch": cfg.name, "batch": B, "prompt": serve.CELL_PROMPT,
+           "new_tokens": serve.CELL_NEW, "prefill_s": out.prefill_s,
+           "decode_s": out.decode_s, "decode_steps": out.decode_steps,
+           "decode_ms_per_step": out.decode_s / out.decode_steps * 1e3,
+           "tokens_per_s": B * serve.CELL_NEW
+           / (out.prefill_s + out.decode_s),
+           "max_memory_allocated": max_mem,
+           "ssd_scan_launches": launches, "partition_pack_launches": packs,
+           "replay_vs_prefill_rel_l2": rel_l2(lr, lp),
+           "prefill_vs_f32_rel_l2": e_prefill,
+           "replay_vs_f32_rel_l2": e_replay,
+           "logit_scale_max_abs": float(l32.abs().max()),
+           "tokens": out.tokens[0, :8].tolist()}
+    print("[serve] " + json.dumps(rec), flush=True)
+    check(launches == cfg.num_layers,
+          f"ssd_scan launched {launches} times in the prefill, want one a "
+          f"layer ({cfg.num_layers})")
+    check(tuple(lp.shape) == (B, 1, cfg.vocab_size),
+          f"prefill logits of shape {tuple(lp.shape)}")
+    check(bool(torch.isfinite(lp).all() and torch.isfinite(lr).all()
+               and torch.isfinite(l32).all()), "serve logits not finite")
+    check(tuple(out.tokens.shape) == (B, serve.CELL_NEW)
+          and int(out.tokens.min()) >= 0
+          and int(out.tokens.max()) < cfg.vocab_size,
+          f"generated tokens {tuple(out.tokens.shape)} out of range")
+    check(e_replay <= SERVE_BF16_FACTOR * e_prefill,
+          f"bf16 decode replay {e_replay} from the f32 answer, more than "
+          f"{SERVE_BF16_FACTOR} x the bf16 prefill's {e_prefill}")
+
+    # the serve-consistency property in f32 at full depth
+    one = serve.generate(cfg32, params, tokens[:1, :SERVE_F32_PROMPT], 1,
+                         dev)
+    lp, lr = one.prefill_logits, one.replay_logits
+    err = float((lr - lp).abs().max())
+    print("[serve-f32] " + json.dumps({
+        "prompt": SERVE_F32_PROMPT, "replay_vs_prefill_max_abs": err,
+        "replay_vs_prefill_rel_l2": rel_l2(lr, lp),
+        "decode_ms_per_step": one.decode_s / one.decode_steps * 1e3}),
+        flush=True)
+    check(bool(((lr - lp).abs() <= SERVE_F32_TOL
+                + SERVE_F32_TOL * lp.abs()).all()),
+          f"f32 decode replay vs prefill differ by {err}")
+    return launches
+
+
+def serve_parity_phase(dev):
+    """4 layers at full width, in f32 and in bf16: prefill on the card
+    (ssd_scan) and on the CPU (plain versions), identical weights."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(serve.CELL_ARCH).replace(num_layers=PARITY_LAYERS)
+    params, tokens = serve.random_request(cfg, 1, PARITY_PROMPT,
+                                          serve.CELL_SEED, "cpu")
+    on_card = tree_map(lambda t: t.to(dev), params)
+    for dtype in (torch.float32, torch.bfloat16):
+        step = make_prefill_step(build_model(cfg.replace(compute_dtype=dtype)))
+        before = SK.launches
+        got, _ = step(on_card, {"tokens": tokens.to(dev)})
+        got = got.cpu().float()
+        launched = SK.launches - before
+        want, _ = step(params, {"tokens": tokens})
+        want = want.float()
+        err, rel = float((got - want).abs().max()), rel_l2(got, want)
+        print("[parity-serve] " + json.dumps({
+            "layers": PARITY_LAYERS, "prompt": PARITY_PROMPT,
+            "dtype": str(dtype), "ssd_scan_launches": launched,
+            "max_abs_err": err, "rel_l2": rel,
+            "logit_scale_max_abs": float(want.abs().max())}), flush=True)
+        check(launched == PARITY_LAYERS, f"ssd_scan launched {launched} times")
+        check(bool(torch.isfinite(got).all()), "card logits not finite")
+        if dtype == torch.float32:
+            check(bool(((got - want).abs() <= PARITY_TOL
+                        + PARITY_TOL * want.abs()).all()),
+                  f"card vs cpu f32 prefill logits differ by {err}")
+        else:
+            check(rel <= PARITY_BF16_TOL, f"card vs cpu bf16 prefill logits "
+                  f"{rel} apart in relative L2")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -260,12 +504,25 @@ def main() -> int:
     phase("kernel", t0)
 
     t0 = time.perf_counter()
+    K.launches = SK.launches = 0                 # the query path's count
     launches = query_phase(coord, tables)
     phase("query", t0)
 
     t0 = time.perf_counter()
     parity_phase()
     phase("parity", t0)
+
+    t0 = time.perf_counter()
+    ssd_rec, ssd_err = ssd_phase(dev)
+    phase("ssd kernel", t0)
+
+    t0 = time.perf_counter()
+    ssd_launches = serve_phase(dev)
+    phase("serve", t0)
+
+    t0 = time.perf_counter()
+    serve_parity_phase(dev)
+    phase("serve parity", t0)
 
     print(json.dumps({"kernels": [{
         "name": "partition_pack", "route": "cuda",
@@ -276,7 +533,14 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in recs),
         "ms": main_rec["kernel_ms"], "plain_ms": main_rec["plain_ms"],
         "bound_ms": main_rec["bound_ms"], "bound_by": "bytes",
-        "library_ms": main_rec["library_ms"]}]}), flush=True)
+        "library_ms": main_rec["library_ms"]}, {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:65",
+        "launches": ssd_launches, "max_abs_err": ssd_err,
+        "ms": ssd_rec["kernel_ms"], "plain_ms": ssd_rec["plain_ms"],
+        "bound_ms": ssd_rec["bound_ms"], "bound_by": ssd_rec["bound_by"],
+        "library_ms": None}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

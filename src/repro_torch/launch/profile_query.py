@@ -8,13 +8,14 @@ Prints one JSON line: the query's wall seconds (host clock, ending in
 ``torch.cuda.synchronize()``), the device-busy seconds (the union of
 kernel intervals on the card), the idle share 1 - busy / wall, and the
 ten kernels with the most device time (names cut to 80 characters),
-with the device time of the partition_pack kernels (``pp_*``) beside
-them. Runs on CUDA only.
+with the device time of the partition_pack kernels (``pp_*``, the
+template ``pp_gather`` included) beside them. Runs on CUDA only.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import time
 
 import torch
@@ -24,7 +25,7 @@ from repro_torch.core.engine import make_engine, run_query
 from repro_torch.relational.tpch import QUERIES
 
 
-def _busy_s(events) -> float:
+def busy_s(events) -> float:
     """Union of the device-kernel intervals (overlaps counted once)."""
     spans = sorted((e.time_range.start, e.time_range.end) for e in events
                    if e.device_type == torch.autograd.DeviceType.CUDA)
@@ -37,6 +38,22 @@ def _busy_s(events) -> float:
             busy += b - end
             end = b
     return busy * 1e-6                                   # us -> s
+
+
+def device_kernels(prof) -> list[tuple[str, float, int]]:
+    """(name, device ms, count) of each kernel and copy that ran on the
+    card, most device time first; host-side operators are left out."""
+    return sorted(((e.key, e.self_device_time_total * 1e-3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0),
+                  key=lambda r: -r[1])
+
+
+def is_kernel(key: str, prefix: str) -> bool:
+    """Whether a profiler key names a kernel whose function name starts
+    with ``prefix``; template kernels are keyed "void name<T>(...)"."""
+    return re.search(rf"(^|\s){prefix}\w*[<(]", key) is not None
 
 
 def main(argv=None):
@@ -61,11 +78,8 @@ def main(argv=None):
         res = run_query(coord, args.query)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy = _busy_s(prof.events())
-    kernels = sorted(((e.key, e.self_device_time_total * 1e-3, e.count)
-                      for e in prof.key_averages()
-                      if e.self_device_time_total > 0),
-                     key=lambda r: -r[1])
+    busy = busy_s(prof.events())
+    kernels = device_kernels(prof)
     if args.trace:
         prof.export_chrome_trace(args.trace)
     print(json.dumps({
@@ -73,7 +87,7 @@ def main(argv=None):
         "device_busy_s": busy, "idle_share": 1 - busy / wall,
         "latency_s": res.latency_s, "attribution": res.attribution,
         "partition_pack_ms": sum(ms for k, ms, _ in kernels
-                                 if k.startswith("pp_")),
+                                 if is_kernel(k, "pp_")),
         "top_kernels_ms": [{"name": k[:80], "ms": ms, "count": n}
                            for k, ms, n in kernels[:10]]}))
 

@@ -1,0 +1,149 @@
+"""Serving entry point: prefill a batch of prompts, then batched greedy decode
+(PyTorch port of ``repro.launch.serve``), on a torch device.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
+      --smoke --prompt-len 16 --new-tokens 8 --batch 2 [--device cuda|cpu]
+
+``--device`` defaults to cuda and raises without a card. Weights are
+random, drawn from ``--seed``; so are the prompts (numpy, as the reference
+draws them).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig, get_config
+from repro_torch.configs.smoke import smoke_config
+from repro_torch.core.engine import resolve_device
+from repro_torch.launch.steps import make_decode_step, make_prefill_step
+from repro_torch.models.model import build_model, cast_params
+from repro_torch.models.modules import init_params, tree_map
+
+
+@dataclasses.dataclass
+class Generation:
+    tokens: torch.Tensor          # [B, new_tokens] int32, greedy
+    prefill_logits: torch.Tensor  # [B, 1, V] the prefill's last position
+    replay_logits: torch.Tensor   # [B, 1, V] decode's at the last prompt token
+    prefill_s: float              # wall seconds of the prefill
+    decode_s: float               # wall seconds of the decode loop
+    decode_steps: int             # prompt replay + generation steps
+
+
+# The serve cell: what chip_smoke.py serves and launch/profile_serve.py
+# traces. mamba2-2.7b at full width and depth, 4 prompts of 512 tokens, 32
+# new tokens, weights and prompts from seed 0.
+CELL_ARCH, CELL_SEED = "mamba2-2.7b", 0
+CELL_BATCH, CELL_PROMPT, CELL_NEW = 4, 512, 32
+
+
+def _sync(dev: torch.device):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def random_request(cfg: ModelConfig, batch: int, prompt_len: int, seed: int,
+                   device=None):
+    """-> (params, tokens): random weights from ``init_params`` with a torch
+    generator on ``device`` seeded with ``seed``, and prompts [batch,
+    prompt_len] int32 on the CPU from numpy seeded the same (the reference
+    draws its prompts so)."""
+    dev = resolve_device(device)
+    params = init_params(build_model(cfg).param_defs,
+                         torch.Generator(device=dev).manual_seed(seed), dev)
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32))
+    return params, tokens
+
+
+def decode_loop(decode, params, cache, tokens: torch.Tensor,
+                new_tokens: int):
+    """The reference's decode loop: replay ``tokens`` [B, S] through the
+    decode step ``decode`` into ``cache``, then ``new_tokens`` greedy
+    tokens; S + new_tokens - 1 steps. -> (generated [B, new_tokens] int32,
+    the logits at the last prompt token)."""
+    B, S = tokens.shape
+    token = tokens[:, :1]
+    toks, replay = [], None
+    for t in range(S + new_tokens - 1):
+        if t < S:
+            token = tokens[:, t:t + 1]
+        lg, cache = decode(params, cache, {"token": token})
+        nxt = torch.argmax(lg[:, 0, :], dim=-1).to(torch.int32)[:, None]
+        if t == S - 1:
+            replay = lg
+        if t >= S - 1:
+            toks.append(nxt[:, 0])
+            token = nxt
+    gen = torch.stack(toks, 1) if toks else \
+        torch.zeros((B, 0), dtype=torch.int32, device=tokens.device)
+    return gen, replay
+
+
+def generate(cfg: ModelConfig, params, tokens: torch.Tensor, new_tokens: int,
+             device=None) -> Generation:
+    """Prefill ``tokens`` [B, S] int32, then decode greedily as the
+    reference's loop does: a fresh cache sized for the whole generation,
+    the prompt replayed through decode, then ``new_tokens`` greedy tokens.
+    Weights are cast to the compute dtype once (``cast_params``)."""
+    dev = resolve_device(device)
+    bundle = build_model(cfg)
+    params = cast_params(cfg, tree_map(lambda t: t.to(dev), params))
+    tokens = tokens.to(device=dev, dtype=torch.int32)
+    B, S = tokens.shape
+    prefill = make_prefill_step(bundle)
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, _ = prefill(params, {"tokens": tokens})
+    _sync(dev)
+    prefill_s = time.perf_counter() - t0
+
+    # a fresh cache sized for the full generation (prefill replayed into
+    # it), passed without a name here so that each step's update frees the
+    # cache before it
+    decode = make_decode_step(bundle)
+    cache_defs = bundle.cache_defs(B, S + new_tokens)
+    t0 = time.perf_counter()
+    gen, replay = decode_loop(decode, params,
+                              init_params(cache_defs, None, dev), tokens,
+                              new_tokens)
+    _sync(dev)
+    decode_s = time.perf_counter() - t0
+    return Generation(gen, logits, replay, prefill_s, decode_s,
+                      max(S + new_tokens - 1, 0))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="mamba2-2.7b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--new-tokens", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default: cuda)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the random weights and prompts")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    params, tokens = random_request(cfg, args.batch, args.prompt_len,
+                                    args.seed, dev)
+
+    out = generate(cfg, params, tokens, args.new_tokens, dev)
+    print(f"{cfg.name}: generated {out.tokens.shape[1]} tokens/seq on {dev} "
+          f"(prefill {out.prefill_s:.3f} s, decode {out.decode_s:.3f} s "
+          f"over {out.decode_steps} steps)")
+    for b in range(args.batch):
+        print(f"  seq{b}: {out.tokens[b].tolist()}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,200 @@
+"""Parameter-definition module system (PyTorch port of
+``repro.models.modules``).
+
+Models are pure functions over parameter trees: nested dicts (and lists)
+of tensors. Model code declares parameters as ``ParamSpec`` leaves in the
+same nesting; the declaration drives real initialization
+(``init_params``), parameter counts and byte sizes, and, once the port
+shards, the logical-axis placement of each dim (``logical_axes``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+PyTree = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    """Declaration of one parameter tensor."""
+    shape: tuple[int, ...]
+    logical_axes: tuple[str | None, ...]
+    init: str = "normal"        # normal | zeros | ones | embed | small
+    dtype: Any = torch.float32
+    init_scale: float | None = None  # overrides the default fan-in scaling
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.logical_axes), (
+            f"shape {self.shape} vs axes {self.logical_axes}")
+
+
+def is_spec(x) -> bool:
+    return isinstance(x, ParamSpec)
+
+
+def tree_leaves(tree: PyTree, is_leaf: Callable = is_spec) -> list:
+    """Leaves in the reference's flatten order: dict keys sorted, lists in
+    order, ``None`` dropped."""
+    if is_leaf(tree):
+        return [tree]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k], is_leaf)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v, is_leaf)]
+    return [] if tree is None else [tree]
+
+
+def tree_map(fn: Callable, tree: PyTree, is_leaf: Callable = is_spec):
+    """``fn`` on every leaf, in ``tree_leaves`` order, keeping the dict/list
+    nesting."""
+    if is_leaf(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], is_leaf) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, is_leaf) for v in tree)
+    return None if tree is None else fn(tree)
+
+
+def _init_one(spec: ParamSpec, generator: torch.Generator | None,
+              device) -> torch.Tensor:
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=spec.dtype, device=device)
+    if generator is None:
+        raise ValueError(f"init {spec.init!r} draws random numbers: pass a "
+                         "torch.Generator")
+
+    def normal(scale):
+        return (torch.randn(spec.shape, generator=generator,
+                            dtype=torch.float32, device=device) * scale
+                ).to(spec.dtype)
+
+    if spec.init == "embed":
+        return normal(spec.init_scale if spec.init_scale is not None else 1.0)
+    # fan-in scaled normal (truncated-normal-ish via plain normal is fine here)
+    fan_in = spec.shape[0] if len(spec.shape) > 1 else max(spec.shape[-1], 1)
+    if len(spec.shape) >= 3:  # stacked layers / experts: fan-in is the 2nd-to-last dim
+        fan_in = spec.shape[-2]
+    scale = spec.init_scale if spec.init_scale is not None else 1.0 / math.sqrt(fan_in)
+    if spec.init == "small":
+        scale = 0.02
+    return normal(scale)
+
+
+def init_params(defs: PyTree, generator: torch.Generator | None,
+                device) -> PyTree:
+    """Materialize a parameter tree from ParamSpec declarations on
+    ``device``. Same init kinds and scales as the reference; the numbers
+    differ (``jax.random`` vs ``torch.Generator``), so tests that need the
+    reference's weights carry them over with ``models.bridge``.
+    ``generator`` lives on ``device``; it may be ``None`` when every leaf is
+    zeros or ones (caches, batches). Leaves draw in the reference's flatten
+    order."""
+    device = torch.device(device)
+    return tree_map(lambda s: _init_one(s, generator, device), defs)
+
+
+def param_count(defs: PyTree) -> int:
+    return sum(int(np.prod(s.shape)) for s in tree_leaves(defs))
+
+
+def param_bytes(defs: PyTree) -> int:
+    return sum(int(np.prod(s.shape)) * s.dtype.itemsize
+               for s in tree_leaves(defs))
+
+
+def stack_specs(defs: PyTree, n: int, axis_name: str = "layers") -> PyTree:
+    """Add a leading stacked-layers dim to every spec (layers run in a
+    loop over that dim)."""
+    return tree_map(
+        lambda s: ParamSpec((n,) + s.shape, (axis_name,) + s.logical_axes,
+                            s.init, s.dtype, s.init_scale), defs)
+
+
+# ---------------------------------------------------------------------------
+# Sharder: threads (mesh, rules) through model code for activation constraints
+# ---------------------------------------------------------------------------
+
+class Sharder:
+    """Applies logical-axis sharding constraints to activations.
+
+    With ``mesh=None`` (one device) every call is a no-op, so model code can
+    unconditionally annotate. Meshes are not ported yet (ROADMAP A10).
+    """
+
+    def __init__(self, mesh=None, rules: dict[str, Any] | None = None):
+        if mesh is not None:
+            raise NotImplementedError("mesh sharding is not ported yet "
+                                      "(ROADMAP A10)")
+        self.mesh = mesh
+        self.rules = rules or {}
+
+    def __call__(self, x: torch.Tensor, *logical_axes: str | None
+                 ) -> torch.Tensor:
+        return x
+
+
+# ---------------------------------------------------------------------------
+# Common NN pieces (pure functions; params passed explicitly)
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
+             ) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    var = x.square().mean(-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    return y.to(dt) * scale.to(dt)       # back to x's dtype, then scale
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(-1, keepdim=True)
+    var = (x - mu).square().mean(-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dt)
+
+
+def norm_defs(kind: str, d: int) -> PyTree:
+    if kind == "rms":
+        return {"scale": ParamSpec((d,), ("embed",), init="ones")}
+    return {"scale": ParamSpec((d,), ("embed",), init="ones"),
+            "bias": ParamSpec((d,), ("embed",), init="zeros")}
+
+
+def apply_norm(kind: str, p: PyTree, x: torch.Tensor, eps: float = 1e-6
+               ) -> torch.Tensor:
+    if kind == "rms":
+        return rms_norm(x, p["scale"], eps)
+    return layer_norm(x, p["scale"], p["bias"], eps)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")     # jax.nn.gelu(approximate=True)
+
+
+def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    return F.silu(gate) * up
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: torch.Tensor | None = None):
+    """Mean next-token CE. logits [..., V] fp-anything; labels int [...]."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

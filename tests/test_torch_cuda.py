@@ -12,10 +12,26 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.partition_pack import (  # noqa: E402
     partition_pack as K, ref)
+from repro_torch.kernels.ssd_scan import ssd_scan as SK  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked  # noqa: E402
 
 SHAPES = [(32, 8, 4, 16), (256, 16, 24, 64), (300, 7, 64, 128),
           (1024, 64, 24, 256), (100_000, 1024, 160, 3)]
 DTYPES = ["float32", "bfloat16", "int64", "int32"]
+
+
+# ssd_scan: the Pallas kernel test's CASES, the smoke config's chunk,
+# a sequence shorter than its chunk, and the serve path's main shape
+SSD_CASES = [
+    # B, S, H, P, G, N, chunk
+    (1, 128, 2, 32, 1, 32, 64),
+    (2, 256, 4, 64, 2, 64, 128),
+    (1, 256, 2, 64, 1, 128, 128),
+    (2, 64, 2, 16, 1, 16, 32),
+    (2, 16, 8, 16, 1, 16, 8),
+    (1, 24, 2, 16, 1, 16, 128),
+    (4, 512, 80, 64, 1, 128, 128),
+]
 
 
 @pytest.fixture
@@ -23,6 +39,9 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is "
                     "False)")
+    # the plain versions' products in full f32, as the kernel computes
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -42,3 +61,55 @@ def test_partition_pack_kernel_matches_plain(card, T, P, C, d, dtype):
     assert torch.equal(counts, want_counts)
     assert torch.equal(slots, want_slots)
     assert torch.equal(buf, want)
+
+
+def _ssd_inputs(B, S, H, P, G, N, seed, dev):
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    arrs = (rng.standard_normal((B, S, H, P)).astype(f),
+            np.logaddexp(rng.standard_normal((B, S, H)) - 1.0, 0).astype(f),
+            (-np.exp(rng.standard_normal(H) * 0.3)).astype(f),
+            (rng.standard_normal((B, S, G, N)) * 0.3).astype(f),
+            (rng.standard_normal((B, S, G, N)) * 0.3).astype(f))
+    return [torch.from_numpy(a).to(dev) for a in arrs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", SSD_CASES)
+def test_ssd_scan_kernel_matches_plain(card, B, S, H, P, G, N, chunk):
+    """f32 FMA in the kernel, f32 sums in another order in the plain
+    version: 2e-4, the Pallas kernel test's tolerance."""
+    x, dt, A, Bm, Cm = _ssd_inputs(B, S, H, P, G, N, S + P, card)
+    before = SK.launches
+    y, st = SK.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert SK.launches == before + 1
+    y_r, st_r = ssd_chunked(x, dt, A, Bm, Cm, chunk)
+    torch.testing.assert_close(y, y_r, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(st, st_r, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_kernel_bf16_at_main_shape(card):
+    """bf16 x, B, C, y as on the serve path: the state is f32 math on the
+    same values (2e-4); y is rounded to bf16 once on each side from f32
+    sums in another order, so one bf16 step (2^-7 relative) apart."""
+    x, dt, A, Bm, Cm = _ssd_inputs(4, 512, 80, 64, 1, 128, 11, card)
+    x, Bm, Cm = (t.to(torch.bfloat16) for t in (x, Bm, Cm))
+    y, st = SK.ssd_scan(x, dt, A, Bm, Cm, chunk=128)
+    y_r, st_r = ssd_chunked(x, dt, A, Bm, Cm, 128)
+    assert y.dtype == torch.bfloat16
+    torch.testing.assert_close(st, st_r, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(y.float(), y_r.float(), rtol=2 ** -7,
+                               atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_kernel_refuses_what_it_does_not_take(card):
+    x, dt, A, Bm, Cm = _ssd_inputs(1, 512, 2, 16, 1, 16, 1, card)
+    with pytest.raises(ValueError, match="chunks of at most"):
+        SK.ssd_scan(x, dt, A, Bm, Cm, chunk=256)
+    with pytest.raises(ValueError, match="contiguous"):
+        SK.ssd_scan(x.transpose(1, 2), dt, A, Bm, Cm, chunk=64)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        SK.ssd_scan(x.half(), dt, A, Bm.half(), Cm.half(), chunk=64)

@@ -1,7 +1,8 @@
 """Guards of the PyTorch port: it imports nothing of JAX or of the JAX
 package, and the modules it copies from that package stay equal to their
-sources (with ``repro.`` renamed ``repro_torch.``), so the two cannot
-drift apart unnoticed."""
+sources (with ``repro.`` renamed ``repro_torch.``, and in the model configs
+``jax.numpy`` renamed ``torch``), so the two cannot drift apart
+unnoticed."""
 import re
 import subprocess
 import sys
@@ -22,6 +23,14 @@ COPIES = ["core/format.py", "relational/tpch.py", "objectstore/latency.py",
           "core/cost.py", "core/events.py", "faults/retry.py",
           "faults/inject.py", "faults/coldstart.py"]
 
+# the arch configs are pure data; their dtypes are torch's
+CONFIGS = ["configs/deepseek_v2_lite.py", "configs/glm4_9b.py",
+           "configs/granite_20b.py", "configs/llama4_maverick_400b.py",
+           "configs/mamba2_2p7b.py", "configs/qwen2_vl_7b.py",
+           "configs/recurrentgemma_9b.py", "configs/smollm_135m.py",
+           "configs/starcoder2_3b.py", "configs/whisper_tiny.py",
+           "configs/smoke.py"]
+
 # the coordinator is a copy except for the torch device it hands workers
 COORDINATOR_DEVICE_PATCH = [
     ("                 journal=None):\n        self.store = store",
@@ -39,6 +48,11 @@ COORDINATOR_DEVICE_PATCH = [
 def _renamed(rel: str) -> str:
     return re.sub(r"\brepro\.", "repro_torch.",
                   (SRC / "repro" / rel).read_text())
+
+
+def _torch_dtypes(text: str) -> str:
+    text = text.replace("import jax.numpy as jnp", "import torch")
+    return re.sub(r"\bjnp\.", "torch.", text)
 
 
 def _port_modules() -> list[str]:
@@ -75,6 +89,11 @@ def test_no_reference_imports_in_source():
 @pytest.mark.parametrize("rel", COPIES)
 def test_copied_module_equals_reference(rel):
     assert (PORT / rel).read_text() == _renamed(rel)
+
+
+@pytest.mark.parametrize("rel", CONFIGS)
+def test_config_module_equals_reference(rel):
+    assert (PORT / rel).read_text() == _torch_dtypes(_renamed(rel))
 
 
 def test_coordinator_equals_reference_but_for_device():
