@@ -37,14 +37,33 @@ Phases, each printing its own lines and seconds:
      prompt, prefill on the card (kernel) against prefill on the CPU
      (plain versions) on identical weights, in f32 (1e-3) and in bf16
      (5 % relative L2, the tolerance the CPU tests hold the port's bf16
-     to against the reference).
+     to against the reference);
+ 10. flash kernel phase: flash_gqa (CUDA) against its plain version
+     (attention_ref over k/v gathered by the kv-head map) on the card at
+     the Pallas kernel test's CASES, smollm-135m's padded-head map and the
+     dense serve path's main shape (B=4, S=512, 32 q heads over 2 kv
+     heads, D 128, causal), within 2e-5 in f32 and 2e-2 in bf16, with
+     kernel, plain, library (scaled_dot_product_attention, timed as a
+     yardstick only) and bound times at the main shape;
+ 11. dense serve phase, after the Mamba weights are released: the serve
+     cell glm4-9b at full width and depth (40 layers, 9.4 B parameters)
+     through launch/serve.generate, 4 prompts of 512 tokens and 32 new
+     tokens, as in phase 8: flash_gqa must launch once a layer (40) in the
+     prefill; replay vs prefill in bf16 against the f32 answer and in f32
+     (one 128-token prompt) within 2e-3;
+ 12. dense parity phase: glm4-9b at 2 layers and full width, one
+     128-token prompt, card prefill against CPU prefill in f32 (1e-3) and
+     bf16 (5 % relative L2), and smollm-135m at full depth (30 layers, its
+     9/3 heads padded to 16/4) the same way in f32, so that the padded
+     kv-head map runs on the card at a real width.
 Each path runs with every launch count set to 0 just before it and read
-just after. It then prints the kernels line and, last, the device line.
-Any failure exits non-zero before the last line; without a card it exits
-2 at once.
+just after; each phase prints its seconds and its peak device memory. It
+then prints the kernels line and, last, the device line. Any failure exits
+non-zero before the last line; without a card it exits 2 at once.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -59,6 +78,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core.engine import make_engine, oracle, run_query  # noqa
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_gqa import flash_gqa as FK  # noqa: E402
+from repro_torch.kernels.flash_gqa.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.partition_pack import partition_pack as K  # noqa
 from repro_torch.kernels.partition_pack import ref as pp_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan as SK  # noqa: E402
@@ -72,6 +93,7 @@ from repro_torch.relational.table import DictColumn, decode_object  # noqa
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12             # H100 SXM f32, no tensor cores (same)
+BF16_FLOP_PER_S = 989e12           # H100 SXM bf16 tensor cores, dense (same)
 SF, SEED, TARGET_BYTES = 1.0, 7, 64 << 20
 PALLAS_TEST_SHAPES = [(32, 8, 4, 16), (256, 16, 24, 64), (300, 7, 64, 128),
                       (1024, 64, 24, 256)]
@@ -108,6 +130,23 @@ PARITY_LAYERS, PARITY_PROMPT, PARITY_TOL = 4, 256, 1e-3
 PARITY_BF16_TOL = 0.05
 
 
+# flash_gqa: the Pallas kernel test's CASES (tests/test_kernel_flash_gqa.py),
+# smollm-135m's padded-head map (9/3 heads padded to 16/4; padded q heads
+# read kv head 0) and the dense serve path's prefill shape (glm4-9b)
+SMOLLM_MAP = (0, 0, 0, 1, 1, 1, 2, 2, 2, 0, 0, 0, 0, 0, 0, 0)
+FLASH_CASES = [                    # B, S, H, Hkv, D, causal, window, map
+    (1, 128, 2, 2, 64, True, 0, None), (2, 256, 4, 2, 64, True, 0, None),
+    (1, 256, 3, 1, 128, True, 0, None), (2, 128, 2, 2, 32, True, 0, None),
+    (1, 384, 2, 1, 64, True, 128, None), (1, 200, 2, 2, 64, True, 0, None),
+    (2, 130, 16, 4, 64, True, 0, SMOLLM_MAP)]
+FLASH_MAIN = (4, 512, 32, 2, 128, True, 0, None)
+# f32: sums in another order; bf16: each side rounds its f32 output once
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+DENSE_ARCH, SMOLLM_ARCH = "glm4-9b", "smollm-135m"
+DENSE_F32_PROMPT = 128             # the f32 replay at full depth
+DENSE_PARITY_LAYERS, DENSE_PARITY_PROMPT = 2, 128
+
+
 class SmokeFailure(Exception):
     pass
 
@@ -118,7 +157,27 @@ def check(ok: bool, msg: str):
 
 
 def phase(name: str, t0: float):
-    print(f"[phase] {name}: {time.perf_counter() - t0:.3f} s", flush=True)
+    """The phase's seconds and peak device memory (then reset)."""
+    print(f"[phase] {name}: {time.perf_counter() - t0:.3f} s, peak "
+          f"{torch.cuda.max_memory_allocated()} bytes", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+
+
+def zero_counts():
+    K.launches = SK.launches = FK.launches = 0
+
+
+def counts() -> dict:
+    return {"partition_pack": K.launches, "ssd_scan": SK.launches,
+            "flash_gqa": FK.launches}
+
+
+def release():
+    """Free what the phase before left to the collector and the caching
+    allocator; -> the bytes still allocated."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
 
 
 def time_ms(fn, iters: int = 20) -> float:
@@ -359,41 +418,46 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).norm() / b.norm())
 
 
-def serve_phase(dev) -> int:
-    """mamba2-2.7b at full width and depth through launch/serve.generate.
-    -> ssd_scan launches in the counted run."""
-    cfg = get_config(serve.CELL_ARCH)
-    B = serve.CELL_BATCH
+def serve_phase(dev, arch: str, kernel: str, f32_prompt: int) -> int:
+    """The serve cell of ``arch`` (launch/serve.CELLS) at full width and
+    depth through launch/serve.generate; ``kernel`` must launch once a
+    layer in the prefill and no other kernel at all. Then the
+    serve-consistency property: the bf16 replay against the f32 answer,
+    and in f32 on one prompt of ``f32_prompt`` tokens at the reference
+    test's 2e-3. -> ``kernel``'s launches in the counted run."""
+    cell = serve.CELLS[arch]
+    cfg = get_config(cell.arch)
+    B = cell.batch
     t0 = time.perf_counter()
-    params, tokens = serve.random_request(cfg, B, serve.CELL_PROMPT,
-                                          serve.CELL_SEED, dev)
+    params, tokens = serve.random_request(cfg, B, cell.prompt, cell.seed,
+                                          dev)
     torch.cuda.synchronize()
     print(f"[serve] {cfg.name}: {cfg.num_layers} layers, d_model "
           f"{cfg.d_model}, {sum(t.numel() for t in tree_leaves(params))} "
           f"parameters ({cfg.param_dtype}), compute {cfg.compute_dtype}; "
-          f"init {time.perf_counter() - t0:.3f} s", flush=True)
-    serve.generate(cfg, params, tokens[:, :cfg.ssm_chunk], 2,
-                   dev)                                # warm-up request
+          f"init {time.perf_counter() - t0:.3f} s; allocated "
+          f"{torch.cuda.memory_allocated()} bytes", flush=True)
+    serve.generate(cfg, params, tokens[:, :128], 2, dev)   # warm-up request
 
-    K.launches = SK.launches = 0                       # the serve path's count
+    zero_counts()                                      # the serve path's count
     torch.cuda.reset_peak_memory_stats()
-    out = serve.generate(cfg, params, tokens, serve.CELL_NEW, dev)
-    launches, packs = SK.launches, K.launches
+    out = serve.generate(cfg, params, tokens, cell.new, dev)
+    launched = counts()
+    launches = launched[kernel]
     max_mem = torch.cuda.max_memory_allocated()
     lp, lr = out.prefill_logits.float(), out.replay_logits.float()
     # the f32 answer on the same weights and prompts (after the count)
     cfg32 = cfg.replace(compute_dtype=torch.float32)
-    l32, _ = make_prefill_step(build_model(cfg32))(
-        params, {"tokens": tokens.to(dev)})
+    b32 = build_model(cfg32)
+    l32, _ = make_prefill_step(b32)(params, serve.prefill_batch(
+        b32, tokens.to(dev)))
     e_prefill, e_replay = rel_l2(lp, l32), rel_l2(lr, l32)
-    rec = {"arch": cfg.name, "batch": B, "prompt": serve.CELL_PROMPT,
-           "new_tokens": serve.CELL_NEW, "prefill_s": out.prefill_s,
+    rec = {"arch": cfg.name, "batch": B, "prompt": cell.prompt,
+           "new_tokens": cell.new, "prefill_s": out.prefill_s,
            "decode_s": out.decode_s, "decode_steps": out.decode_steps,
            "decode_ms_per_step": out.decode_s / out.decode_steps * 1e3,
-           "tokens_per_s": B * serve.CELL_NEW
-           / (out.prefill_s + out.decode_s),
-           "max_memory_allocated": max_mem,
-           "ssd_scan_launches": launches, "partition_pack_launches": packs,
+           "tokens_per_s": B * cell.new / (out.prefill_s + out.decode_s),
+           "max_memory_allocated": max_mem, "launches": launched,
            "replay_vs_prefill_rel_l2": rel_l2(lr, lp),
            "prefill_vs_f32_rel_l2": e_prefill,
            "replay_vs_f32_rel_l2": e_replay,
@@ -401,13 +465,15 @@ def serve_phase(dev) -> int:
            "tokens": out.tokens[0, :8].tolist()}
     print("[serve] " + json.dumps(rec), flush=True)
     check(launches == cfg.num_layers,
-          f"ssd_scan launched {launches} times in the prefill, want one a "
+          f"{kernel} launched {launches} times in the prefill, want one a "
           f"layer ({cfg.num_layers})")
+    check(sum(launched.values()) == launches,
+          f"other kernels launched on the {arch} serve path: {launched}")
     check(tuple(lp.shape) == (B, 1, cfg.vocab_size),
           f"prefill logits of shape {tuple(lp.shape)}")
     check(bool(torch.isfinite(lp).all() and torch.isfinite(lr).all()
                and torch.isfinite(l32).all()), "serve logits not finite")
-    check(tuple(out.tokens.shape) == (B, serve.CELL_NEW)
+    check(tuple(out.tokens.shape) == (B, cell.new)
           and int(out.tokens.min()) >= 0
           and int(out.tokens.max()) < cfg.vocab_size,
           f"generated tokens {tuple(out.tokens.shape)} out of range")
@@ -415,13 +481,12 @@ def serve_phase(dev) -> int:
           f"bf16 decode replay {e_replay} from the f32 answer, more than "
           f"{SERVE_BF16_FACTOR} x the bf16 prefill's {e_prefill}")
 
-    # the serve-consistency property in f32 at full depth
-    one = serve.generate(cfg32, params, tokens[:1, :SERVE_F32_PROMPT], 1,
-                         dev)
+    one = serve.generate(cfg32, params, tokens[:1, :f32_prompt], 1, dev)
     lp, lr = one.prefill_logits, one.replay_logits
     err = float((lr - lp).abs().max())
     print("[serve-f32] " + json.dumps({
-        "prompt": SERVE_F32_PROMPT, "replay_vs_prefill_max_abs": err,
+        "arch": cfg.name, "prompt": f32_prompt,
+        "replay_vs_prefill_max_abs": err,
         "replay_vs_prefill_rel_l2": rel_l2(lr, lp),
         "decode_ms_per_step": one.decode_s / one.decode_steps * 1e3}),
         flush=True)
@@ -431,38 +496,131 @@ def serve_phase(dev) -> int:
     return launches
 
 
-def serve_parity_phase(dev):
-    """4 layers at full width, in f32 and in bf16: prefill on the card
-    (ssd_scan) and on the CPU (plain versions), identical weights."""
+def prefill_parity(cfg, prompt: int, dev, kernel: str, dtypes):
+    """Prefill on the card (``kernel`` once a layer) against prefill on the
+    CPU (plain versions) on identical weights, drawn on the card and
+    copied over: f32 within PARITY_TOL, bf16 within PARITY_BF16_TOL
+    relative L2."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = get_config(serve.CELL_ARCH).replace(num_layers=PARITY_LAYERS)
-    params, tokens = serve.random_request(cfg, 1, PARITY_PROMPT,
-                                          serve.CELL_SEED, "cpu")
-    on_card = tree_map(lambda t: t.to(dev), params)
-    for dtype in (torch.float32, torch.bfloat16):
-        step = make_prefill_step(build_model(cfg.replace(compute_dtype=dtype)))
-        before = SK.launches
-        got, _ = step(on_card, {"tokens": tokens.to(dev)})
+    params, tokens = serve.random_request(cfg, 1, prompt, 0, dev)
+    on_cpu = tree_map(lambda t: t.cpu(), params)
+    for dtype in dtypes:
+        bundle = build_model(cfg.replace(compute_dtype=dtype))
+        step = make_prefill_step(bundle)
+        before = counts()[kernel]
+        got, _ = step(params, serve.prefill_batch(bundle, tokens.to(dev)))
         got = got.cpu().float()
-        launched = SK.launches - before
-        want, _ = step(params, {"tokens": tokens})
+        launched = counts()[kernel] - before
+        want, _ = step(on_cpu, serve.prefill_batch(bundle, tokens))
         want = want.float()
         err, rel = float((got - want).abs().max()), rel_l2(got, want)
         print("[parity-serve] " + json.dumps({
-            "layers": PARITY_LAYERS, "prompt": PARITY_PROMPT,
-            "dtype": str(dtype), "ssd_scan_launches": launched,
+            "arch": cfg.name, "layers": cfg.num_layers, "prompt": prompt,
+            "dtype": str(dtype), f"{kernel}_launches": launched,
             "max_abs_err": err, "rel_l2": rel,
             "logit_scale_max_abs": float(want.abs().max())}), flush=True)
-        check(launched == PARITY_LAYERS, f"ssd_scan launched {launched} times")
+        check(launched == cfg.num_layers,
+              f"{cfg.name}: {kernel} launched {launched} times")
         check(bool(torch.isfinite(got).all()), "card logits not finite")
         if dtype == torch.float32:
             check(bool(((got - want).abs() <= PARITY_TOL
                         + PARITY_TOL * want.abs()).all()),
-                  f"card vs cpu f32 prefill logits differ by {err}")
+                  f"{cfg.name}: card vs cpu f32 prefill logits differ by "
+                  f"{err}")
         else:
-            check(rel <= PARITY_BF16_TOL, f"card vs cpu bf16 prefill logits "
-                  f"{rel} apart in relative L2")
+            check(rel <= PARITY_BF16_TOL, f"{cfg.name}: card vs cpu bf16 "
+                  f"prefill logits {rel} apart in relative L2")
+
+
+# ------------------------------------------------------------ flash kernel
+def flash_inputs(B, S, H, Hkv, D, seed, dev, dtype):
+    rng = np.random.default_rng(seed)
+    arrs = (rng.standard_normal((B, S, H, D)),
+            rng.standard_normal((B, S, Hkv, D)),
+            rng.standard_normal((B, S, Hkv, D)))
+    return [torch.from_numpy(a.astype(np.float32)).to(dev).to(dtype)
+            for a in arrs]
+
+
+def flash_bound(B, S, H, Hkv, D, causal, window, elem_bytes):
+    """(flops, bytes) the function needs: q.k and p.v, 2*D FLOP each, for
+    every (query, key) pair the masks leave, per (b, h); q, k, v read once
+    and o written once at model layout (k and v at kv-head layout)."""
+    pairs = 0
+    for i in range(S):
+        lo = max(0, i - window + 1) if window > 0 else 0
+        pairs += (i + 1 if causal else S) - lo
+    flops = 4 * D * pairs * B * H
+    nbytes = (2 * B * S * H * D + 2 * B * S * Hkv * D) * elem_bytes + 4 * H
+    return flops, nbytes
+
+
+def flash_case(shape, dev, dtype, timed=False) -> dict:
+    """Kernel vs plain on the card: |o - want| <= tol + tol * |want|, tol
+    2e-5 in f32, 2e-2 in bf16 (the Pallas kernel test's)."""
+    B, S, H, Hkv, D, causal, window, kv_head = shape
+    q, k, v = flash_inputs(B, S, H, Hkv, D, S + H, dev, dtype)
+    m = torch.tensor(kv_head if kv_head is not None
+                     else [h // (H // Hkv) for h in range(H)], device=dev)
+
+    def plain():
+        return attention_ref(q, k.index_select(2, m), v.index_select(2, m),
+                             causal=causal, window=window)
+
+    def kernel():
+        return FK.flash_gqa(q, k, v, causal=causal, window=window,
+                            kv_head=kv_head)
+
+    o = kernel()
+    torch.cuda.synchronize()
+    want = plain()
+    tol = FLASH_TOL[dtype]
+    label = f"{shape[:7]} {'padded map' if kv_head else ''} {dtype}"
+    err = float((o.float() - want.float()).abs().max())
+    check(bool(torch.isfinite(o).all()), f"flash {label}: not finite")
+    check(bool(((o.float() - want.float()).abs()
+                <= tol + tol * want.float().abs()).all()),
+          f"flash {label}: differs from the plain version by {err}")
+    rec = {"case": label, "max_abs_err": err}
+    if timed:
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
+
+        lib_err = float((library().transpose(1, 2).float()
+                         - want.float()).abs().max())
+        check(lib_err <= tol + tol * float(want.float().abs().max()),
+              f"flash {label}: the library yardstick computes something "
+              f"else ({lib_err})")
+        flops, nbytes = flash_bound(B, S, H, Hkv, D, causal, window,
+                                    q.element_size())
+        peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
+        rec.update(kernel_ms=time_ms(kernel), plain_ms=time_ms(plain),
+                   library_ms=time_ms(library), library_max_abs_err=lib_err,
+                   flops=flops, bytes=nbytes,
+                   bound_ms=max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3,
+                   bound_by="operations" if flops / peak
+                   >= nbytes / HBM_BYTES_PER_S else "bytes")
+    print("[flash] " + json.dumps(rec), flush=True)
+    return rec
+
+
+def flash_phase(dev) -> tuple[dict, float]:
+    """-> (the main shape's record in the serve path's bf16, the largest
+    error of any case in either dtype)."""
+    torch.backends.cuda.matmul.allow_tf32 = False     # the plain version in
+    torch.backends.cudnn.allow_tf32 = False           # full f32
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in FLASH_CASES:
+            err = max(err, flash_case(shape, dev, dtype)["max_abs_err"])
+    err = max(err, flash_case(FLASH_MAIN, dev, torch.float32,
+                              timed=True)["max_abs_err"])
+    main_rec = flash_case(FLASH_MAIN, dev, torch.bfloat16, timed=True)
+    return main_rec, max(err, main_rec["max_abs_err"])
 
 
 def main() -> int:
@@ -504,8 +662,10 @@ def main() -> int:
     phase("kernel", t0)
 
     t0 = time.perf_counter()
-    K.launches = SK.launches = 0                 # the query path's count
+    zero_counts()                                # the query path's count
     launches = query_phase(coord, tables)
+    check(FK.launches == SK.launches == 0,
+          f"serve kernels launched on the query path: {counts()}")
     phase("query", t0)
 
     t0 = time.perf_counter()
@@ -517,12 +677,35 @@ def main() -> int:
     phase("ssd kernel", t0)
 
     t0 = time.perf_counter()
-    ssd_launches = serve_phase(dev)
+    ssd_launches = serve_phase(dev, "mamba2-2.7b", "ssd_scan",
+                               SERVE_F32_PROMPT)
     phase("serve", t0)
 
     t0 = time.perf_counter()
-    serve_parity_phase(dev)
+    prefill_parity(get_config("mamba2-2.7b").replace(
+        num_layers=PARITY_LAYERS), PARITY_PROMPT, dev, "ssd_scan",
+        (torch.float32, torch.bfloat16))
     phase("serve parity", t0)
+
+    t0 = time.perf_counter()
+    flash_rec, flash_err = flash_phase(dev)
+    phase("flash kernel", t0)
+
+    t0 = time.perf_counter()
+    print(f"[dense] allocated before the dense phases: {release()} bytes",
+          flush=True)
+    flash_launches = serve_phase(dev, DENSE_ARCH, "flash_gqa",
+                                 DENSE_F32_PROMPT)
+    phase("dense serve", t0)
+
+    t0 = time.perf_counter()
+    release()
+    prefill_parity(get_config(DENSE_ARCH).replace(
+        num_layers=DENSE_PARITY_LAYERS), DENSE_PARITY_PROMPT, dev,
+        "flash_gqa", (torch.float32, torch.bfloat16))
+    prefill_parity(get_config(SMOLLM_ARCH), DENSE_PARITY_PROMPT, dev,
+                   "flash_gqa", (torch.float32,))
+    phase("dense parity", t0)
 
     print(json.dumps({"kernels": [{
         "name": "partition_pack", "route": "cuda",
@@ -540,7 +723,15 @@ def main() -> int:
         "launches": ssd_launches, "max_abs_err": ssd_err,
         "ms": ssd_rec["kernel_ms"], "plain_ms": ssd_rec["plain_ms"],
         "bound_ms": ssd_rec["bound_ms"], "bound_by": ssd_rec["bound_by"],
-        "library_ms": None}]}), flush=True)
+        "library_ms": None}, {
+        "name": "flash_gqa", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_gqa/csrc/flash_gqa.cu",
+        "replaces": "src/repro/kernels/flash_gqa/flash_gqa.py:72",
+        "launches": flash_launches, "max_abs_err": flash_err,
+        "ms": flash_rec["kernel_ms"], "plain_ms": flash_rec["plain_ms"],
+        "bound_ms": flash_rec["bound_ms"],
+        "bound_by": flash_rec["bound_by"],
+        "library_ms": flash_rec["library_ms"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,16 +1,17 @@
-"""Where the serve cell's wall time goes on the card: torch.profiler traces
-of one prefill and of a few decode steps of the cell ``launch/serve``
-defines (``CELL_*``: mamba2-2.7b, 4 prompts of 512 tokens, weights and
-prompts from ``random_request``), after a warm-up.
+"""Where a serve cell's wall time goes on the card: torch.profiler traces
+of one prefill and of a few decode steps of a cell ``launch/serve``
+defines (``CELLS``: 4 prompts of 512 tokens at full width and depth,
+weights and prompts from ``random_request``), after a warm-up.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
-      [--trace serve_trace.json]
+      [--arch mamba2-2.7b|glm4-9b] [--trace serve_trace.json]
 
 Prints one JSON line per part (prefill, decode): wall seconds (host clock,
 ending in ``torch.cuda.synchronize()``), device-busy seconds (the union of
 kernel intervals on the card), the idle share 1 - busy / wall, the
-kernels launched, the device time of the ssd_scan kernel and the ten
-kernels with the most device time. Runs on CUDA only.
+kernels launched, the device time and launches of the port's kernels on
+the serve path (ssd_scan, flash_gqa) and the ten kernels with the most
+device time. Runs on CUDA only.
 """
 from __future__ import annotations
 
@@ -30,6 +31,8 @@ from repro_torch.models.model import build_model, cast_params
 from repro_torch.models.modules import init_params
 
 DECODE_STEPS = 8                                        # traced decode steps
+# the port's kernels on the serve path, by the name of their CUDA function
+KERNELS = {"ssd_scan": "ssd_chunk_scan", "flash_gqa": "flash_gqa_fwd"}
 
 
 def _profiled(name: str, fn, trace: str | None) -> dict:
@@ -43,46 +46,53 @@ def _profiled(name: str, fn, trace: str | None) -> dict:
     kernels = device_kernels(prof)
     if trace:
         prof.export_chrome_trace(trace.replace(".json", f"_{name}.json"))
-    return {"part": name, "wall_s": wall, "device_busy_s": busy,
-            "idle_share": 1 - busy / wall,
-            "kernel_launches": sum(n for k, _, n in kernels
-                                   if not k.startswith(("Memcpy", "Memset"))),
-            "ssd_scan_ms": sum(ms for k, ms, _ in kernels
-                               if is_kernel(k, "ssd_chunk_scan")),
-            "top_kernels_ms": [{"name": k[:80], "ms": ms, "count": n}
-                               for k, ms, n in kernels[:10]]}
+    rec = {"part": name, "wall_s": wall, "device_busy_s": busy,
+           "idle_share": 1 - busy / wall,
+           "kernel_launches": sum(n for k, _, n in kernels
+                                  if not k.startswith(("Memcpy", "Memset")))}
+    for label, fn_name in KERNELS.items():
+        mine = [(ms, n) for k, ms, n in kernels if is_kernel(k, fn_name)]
+        rec[f"{label}_ms"] = sum(ms for ms, _ in mine)
+        rec[f"{label}_launches"] = sum(n for _, n in mine)
+    rec["top_kernels_ms"] = [{"name": k[:80], "ms": ms, "count": n}
+                             for k, ms, n in kernels[:10]]
+    return rec
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="mamba2-2.7b",
+                    choices=sorted(serve.CELLS))
     ap.add_argument("--trace", default=None,
                     help="write Chrome traces of both parts here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA device")
     dev = torch.device("cuda")
-    cfg = get_config(serve.CELL_ARCH)
+    cell = serve.CELLS[args.arch]
+    cfg = get_config(cell.arch)
     bundle = build_model(cfg)
-    params, tokens = serve.random_request(cfg, serve.CELL_BATCH,
-                                          serve.CELL_PROMPT, serve.CELL_SEED,
-                                          dev)
+    params, tokens = serve.random_request(cfg, cell.batch, cell.prompt,
+                                          cell.seed, dev)
     params, tokens = cast_params(cfg, params), tokens.to(dev)
     prefill, decode = make_prefill_step(bundle), make_decode_step(bundle)
+    batch = serve.prefill_batch(bundle, tokens)
 
     def run_decode(steps):
-        """``steps`` steps of the reference's loop from a fresh cache."""
+        """``steps`` steps of the reference's loop from a fresh cache of
+        the cell's size (a step's work does not depend on its position:
+        decode attends over the whole cache, masked)."""
         serve.decode_loop(decode, params, init_params(
-            bundle.cache_defs(serve.CELL_BATCH, steps + 1), None, dev),
-            tokens[:, :1], steps)
+            bundle.cache_defs(cell.batch, cell.prompt + cell.new), None,
+            dev), tokens[:, :1], steps)
 
-    prefill(params, {"tokens": tokens})                 # warm-up
+    prefill(params, batch)                              # warm-up
     run_decode(2)
     torch.cuda.synchronize()
-    for name, fn in (("prefill", lambda: prefill(params, {"tokens": tokens})),
+    for name, fn in (("prefill", lambda: prefill(params, batch)),
                      ("decode", lambda: run_decode(DECODE_STEPS))):
         rec = _profiled(name, fn, args.trace)
-        rec.update(arch=cfg.name, batch=serve.CELL_BATCH,
-                   prompt_len=serve.CELL_PROMPT,
+        rec.update(arch=cfg.name, batch=cell.batch, prompt_len=cell.prompt,
                    steps=1 if name == "prefill" else DECODE_STEPS)
         print(json.dumps(rec), flush=True)
 

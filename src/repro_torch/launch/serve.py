@@ -1,12 +1,15 @@
 """Serving entry point: prefill a batch of prompts, then batched greedy decode
 (PyTorch port of ``repro.launch.serve``), on a torch device.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b \\
       --smoke --prompt-len 16 --new-tokens 8 --batch 2 [--device cuda|cpu]
 
-``--device`` defaults to cuda and raises without a card. Weights are
-random, drawn from ``--seed``; so are the prompts (numpy, as the reference
-draws them).
+``--arch`` defaults to smollm-135m, as in the reference; the port serves
+the ``ssm``, ``dense`` and ``vlm`` families. ``--device`` defaults to cuda
+and raises without a card. Weights are random, drawn from ``--seed``; so
+are the prompts (numpy, as the reference draws them). A vlm's vision
+embeddings and mrope positions are zeros, as the reference's serve makes
+them.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig, get_config
+from repro_torch.configs.base import ModelConfig, ShapeConfig, get_config
 from repro_torch.configs.smoke import smoke_config
 from repro_torch.core.engine import resolve_device
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
@@ -35,11 +38,20 @@ class Generation:
     decode_steps: int             # prompt replay + generation steps
 
 
-# The serve cell: what chip_smoke.py serves and launch/profile_serve.py
-# traces. mamba2-2.7b at full width and depth, 4 prompts of 512 tokens, 32
+@dataclasses.dataclass(frozen=True)
+class ServeCell:
+    arch: str
+    batch: int = 4
+    prompt: int = 512
+    new: int = 32
+    seed: int = 0
+
+
+# The serve cells: what chip_smoke.py serves and launch/profile_serve.py
+# traces. Each arch at full width and depth, 4 prompts of 512 tokens, 32
 # new tokens, weights and prompts from seed 0.
-CELL_ARCH, CELL_SEED = "mamba2-2.7b", 0
-CELL_BATCH, CELL_PROMPT, CELL_NEW = 4, 512, 32
+CELLS = {c.arch: c for c in (ServeCell("mamba2-2.7b"),
+                              ServeCell("glm4-9b"))}
 
 
 def _sync(dev: torch.device):
@@ -85,6 +97,18 @@ def decode_loop(decode, params, cache, tokens: torch.Tensor,
     return gen, replay
 
 
+def prefill_batch(bundle, tokens: torch.Tensor) -> dict:
+    """The prefill's inputs for ``tokens`` [B, S]: the bundle's batch defs
+    made as the reference's serve makes them (a vlm's vision embeddings
+    and mrope positions are zeros), with the tokens in place."""
+    B, S = tokens.shape
+    batch = init_params(bundle.batch_defs(ShapeConfig("serve", S, B,
+                                                      "prefill")),
+                        None, tokens.device)
+    batch["tokens"] = tokens
+    return batch
+
+
 def generate(cfg: ModelConfig, params, tokens: torch.Tensor, new_tokens: int,
              device=None) -> Generation:
     """Prefill ``tokens`` [B, S] int32, then decode greedily as the
@@ -97,10 +121,11 @@ def generate(cfg: ModelConfig, params, tokens: torch.Tensor, new_tokens: int,
     tokens = tokens.to(device=dev, dtype=torch.int32)
     B, S = tokens.shape
     prefill = make_prefill_step(bundle)
+    batch = prefill_batch(bundle, tokens)
 
     _sync(dev)
     t0 = time.perf_counter()
-    logits, _ = prefill(params, {"tokens": tokens})
+    logits, _ = prefill(params, batch)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
 
@@ -121,7 +146,7 @@ def generate(cfg: ModelConfig, params, tokens: torch.Tensor, new_tokens: int,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="mamba2-2.7b")
+    ap.add_argument("--arch", default="smollm-135m")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--new-tokens", type=int, default=8)

@@ -11,8 +11,9 @@ A bundle is everything launch/ needs:
 
 Layers are stacked on a leading "layers" dim as in the reference; its
 ``jax.lax.scan`` over that dim is a Python loop here. The port has the
-``ssm`` family (Mamba-2); the others raise ``NotImplementedError`` naming
-their ROADMAP item.
+``ssm`` family (Mamba-2) and the homogeneous decoder LMs (``dense`` and
+``vlm``: glm4, granite, smollm, starcoder2, qwen2-vl); the others raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import mamba2 as M
+from repro_torch.models import transformer as T
 from repro_torch.models.modules import (ParamSpec, Sharder, apply_norm,
                                         norm_defs, stack_specs, tree_map)
 
@@ -89,6 +91,10 @@ def _len_def() -> ParamSpec:
     return ParamSpec((), (), "zeros", torch.int32)
 
 
+def _positions(B, S, device):
+    return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
+
+
 def _layer(stacked, i: int):
     """Layer ``i`` of a tree stacked on a leading "layers" dim (views)."""
     return tree_map(lambda t: t[i], stacked)
@@ -100,6 +106,83 @@ def _stack(layers: list):
     if isinstance(first, dict):
         return {k: _stack([t[k] for t in layers]) for k in first}
     return torch.stack(layers)
+
+
+# ---------------------------------------------------------------------------
+# family: homogeneous decoder LMs (glm4, granite, smollm, starcoder2, qwen2-vl)
+# ---------------------------------------------------------------------------
+
+def _decoder_lm(cfg: ModelConfig, rules=None, mesh=None) -> ModelBundle:
+    sh = Sharder(mesh, rules)
+    is_vlm = cfg.family == "vlm"
+    defs = {**_embed_defs(cfg),
+            "layers": stack_specs(T.layer_defs(cfg), cfg.num_layers)}
+    kind = "window" if cfg.window else "full"
+
+    def fwd(p, x, positions, cache=None, cache_len=None, mpos=None):
+        """-> (final-normed x, per-layer kv of the prefill or, in decode,
+        the caches written in place)."""
+        kvs = []
+        for i in range(cfg.num_layers):
+            cl = _layer(cache, i) if cache is not None else None
+            x, c, _ = T.layer_apply(
+                cfg, _layer(p["layers"], i), x, sh, positions=positions,
+                layer_kind=kind, cache=cl, cache_len=cache_len,
+                mrope_positions=mpos)
+            kvs.append(c)
+        x = apply_norm(cfg.norm_kind, p["final_ln"], x, cfg.norm_eps)
+        return x, kvs
+
+    def loss_fn(p, batch):
+        raise NotImplementedError("training is not ported yet (ROADMAP A5)")
+
+    def prefill_fn(p, batch):
+        B, S = batch["tokens"].shape
+        x = _embed(cfg, p, batch["tokens"], sh)
+        if is_vlm:
+            vis = batch["vision_embeds"].to(x.dtype)
+            x = torch.cat([vis, x[:, vis.shape[1]:]], dim=1)
+        # full-attention archs: the cache is the full-seq kv, stacked
+        x, kvs = fwd(p, x, _positions(B, S, x.device),
+                     mpos=batch.get("mrope_positions"))
+        logits = _logits(cfg, p, x[:, -1:], sh)
+        return logits, {"kv": _stack(kvs),
+                        "len": torch.tensor(S, dtype=torch.int32,
+                                            device=x.device)}
+
+    def decode_fn(p, cache, batch):
+        """One token at ``cache["len"]``; writes the token's k/v into
+        ``cache["kv"]`` in place and returns it with ``len`` + 1."""
+        B = batch["token"].shape[0]
+        pos = cache["len"]
+        x = _embed(cfg, p, batch["token"], sh)
+        positions = pos.reshape(1, 1).expand(B, 1)
+        mpos = pos.reshape(1, 1, 1).expand(3, B, 1) if cfg.mrope else None
+        x, _ = fwd(p, x, positions, cache=cache["kv"], cache_len=pos,
+                   mpos=mpos)
+        logits = _logits(cfg, p, x, sh)
+        return logits, {"kv": cache["kv"], "len": pos + 1}
+
+    def cache_defs(batch, cache_len, long=False):
+        kv = stack_specs(T.attn_cache_defs(cfg, batch, cache_len, long),
+                         cfg.num_layers)
+        return {"kv": kv, "len": _len_def()}
+
+    def batch_defs(shape: ShapeConfig):
+        b = _base_batch_defs(cfg, shape)
+        if is_vlm and shape.kind in ("train", "prefill"):
+            P = min(cfg.vision_prefix, shape.seq_len // 2)
+            b["vision_embeds"] = ParamSpec(
+                (shape.global_batch, P, cfg.d_model),
+                ("batch", "seq", "act_embed"), "zeros", cfg.compute_dtype)
+        if cfg.mrope and shape.kind in ("train", "prefill"):
+            b["mrope_positions"] = ParamSpec(
+                (3, shape.global_batch, shape.seq_len),
+                (None, "batch", "seq"), "zeros", torch.int32)
+        return b
+
+    return ModelBundle(cfg, defs, loss_fn, prefill_fn, decode_fn,
+                       cache_defs, batch_defs)
 
 
 # ---------------------------------------------------------------------------
@@ -167,17 +250,17 @@ def _apply_param_dtype(defs, dtype):
             _apply_param_dtype(v, dtype)
 
 
+_FAMILIES = {"ssm": _mamba, "dense": _decoder_lm, "vlm": _decoder_lm}
 # ROADMAP items of the families the port does not have yet
-_NOT_PORTED = {"dense": "A4", "vlm": "A4", "moe": "A7", "hybrid": "A8",
-               "audio": "A8"}
+_NOT_PORTED = {"moe": "A7", "hybrid": "A8", "audio": "A8"}
 
 
 def build_model(cfg: ModelConfig, mesh=None, rules=None) -> ModelBundle:
-    if cfg.family != "ssm":
+    if cfg.family not in _FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet (ROADMAP "
             f"{_NOT_PORTED.get(cfg.family, 'Queue A')})")
-    b = _mamba(cfg, rules, mesh)
+    b = _FAMILIES[cfg.family](cfg, rules, mesh)
     if cfg.param_dtype != torch.float32:
         _apply_param_dtype(b.param_defs, cfg.param_dtype)
     return b
@@ -186,19 +269,25 @@ def build_model(cfg: ModelConfig, mesh=None, rules=None) -> ModelBundle:
 # leaves the Mamba-2 block reads in f32 whatever the compute dtype
 # (mamba2.py: dt_bias and A_log feed softplus and exp in f32)
 _F32_AT_USE = ("A_log", "dt_bias")
+# a LayerNorm's scale and bias are read in f32 too (modules.layer_norm);
+# an RMSNorm's scale is cast to the activations' dtype, like every weight
+_LN_F32_AT_USE = ("scale", "bias")
 
 
 def cast_params(cfg: ModelConfig, params):
     """The parameter tree as the forward pass reads it: every floating leaf
-    but ``_F32_AT_USE`` in ``cfg.compute_dtype``. The model casts each
-    weight to the compute dtype at every use, as the reference does
-    (mamba2.py ``.to(h.dtype)``); casting once here makes those casts
-    no-ops, with identical numbers, and keeps decode from re-reading the
-    f32 weights at every token."""
+    in ``cfg.compute_dtype`` but those the model reads in f32
+    (``_F32_AT_USE``, and ``_LN_F32_AT_USE`` where the norms are
+    LayerNorms). The model casts each weight to the compute dtype at every
+    use, as the reference does (``.to(h.dtype)``); casting once here makes
+    those casts no-ops, with identical numbers, and keeps decode from
+    re-reading the f32 weights at every token."""
+    keep = _F32_AT_USE + (_LN_F32_AT_USE if cfg.norm_kind == "ln" else ())
+
     def walk(t, key=None):
         if isinstance(t, dict):
             return {k: walk(v, k) for k, v in t.items()}
-        if key in _F32_AT_USE or not t.is_floating_point():
+        if key in keep or not t.is_floating_point():
             return t
         return t.to(cfg.compute_dtype)
     return walk(params)

@@ -12,6 +12,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.partition_pack import (  # noqa: E402
     partition_pack as K, ref)
+from repro_torch.kernels.flash_gqa import flash_gqa as FK  # noqa: E402
+from repro_torch.kernels.flash_gqa.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan as SK  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked  # noqa: E402
 
@@ -32,6 +34,27 @@ SSD_CASES = [
     (1, 24, 2, 16, 1, 16, 128),
     (4, 512, 80, 64, 1, 128, 128),
 ]
+
+
+# flash_gqa: the Pallas kernel test's CASES, a head dim of 16, a
+# bidirectional window, smollm-135m's padded-head map (16 q heads over 4
+# kv heads, padded q heads on kv head 0) and the serve path's main shape
+# (glm4-9b: 32 q heads over 2 kv heads, D 128)
+SMOLLM_MAP = (0, 0, 0, 1, 1, 1, 2, 2, 2, 0, 0, 0, 0, 0, 0, 0)
+FLASH_CASES = [
+    # B, S, H, Hkv, D, causal, window, kv_head
+    (1, 128, 2, 2, 64, True, 0, None),
+    (2, 256, 4, 2, 64, True, 0, None),
+    (1, 256, 3, 1, 128, True, 0, None),
+    (2, 128, 2, 2, 32, True, 0, None),
+    (1, 384, 2, 1, 64, True, 128, None),
+    (1, 200, 2, 2, 64, True, 0, None),
+    (2, 72, 4, 2, 16, True, 0, None),
+    (1, 200, 4, 2, 64, False, 48, None),
+    (2, 130, 16, 4, 64, True, 0, SMOLLM_MAP),
+    (4, 512, 32, 2, 128, True, 0, None),
+]
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
 @pytest.fixture
@@ -113,3 +136,54 @@ def test_ssd_scan_kernel_refuses_what_it_does_not_take(card):
         SK.ssd_scan(x.transpose(1, 2), dt, A, Bm, Cm, chunk=64)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         SK.ssd_scan(x.half(), dt, A, Bm.half(), Cm.half(), chunk=64)
+
+
+def _flash_inputs(B, S, H, Hkv, D, seed, dev, dtype):
+    rng = np.random.default_rng(seed)
+    arrs = (rng.standard_normal((B, S, H, D)),
+            rng.standard_normal((B, S, Hkv, D)),
+            rng.standard_normal((B, S, Hkv, D)))
+    return [torch.from_numpy(a.astype(np.float32)).to(dev).to(dtype)
+            for a in arrs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Hkv,D,causal,window,kv_head", FLASH_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_gqa_kernel_matches_plain(card, B, S, H, Hkv, D, causal,
+                                        window, kv_head, dtype):
+    """f32 FMA in the kernel, f32 scores and softmax in the plain version
+    (attention_ref over k/v gathered by the map): 2e-5 in f32, the Pallas
+    kernel test's tolerance; in bf16 each side rounds its f32 output once,
+    held at that test's 2e-2."""
+    dt = getattr(torch, dtype)
+    q, k, v = _flash_inputs(B, S, H, Hkv, D, S + H, card, dt)
+    before = FK.launches
+    o = FK.flash_gqa(q, k, v, causal=causal, window=window, kv_head=kv_head)
+    torch.cuda.synchronize()
+    assert FK.launches == before + 1
+    m = torch.tensor(kv_head if kv_head is not None
+                     else [h // (H // Hkv) for h in range(H)], device=card)
+    want = attention_ref(q, k.index_select(2, m), v.index_select(2, m),
+                         causal=causal, window=window)
+    assert o.dtype == dt and o.shape == q.shape
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(o.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_gqa_kernel_refuses_what_it_does_not_take(card):
+    q, k, v = _flash_inputs(1, 64, 4, 2, 64, 1, card, torch.float32)
+    before = FK.launches
+    with pytest.raises(ValueError, match="Sq == Skv"):
+        FK.flash_gqa(q[:, :32].contiguous(), k, v)
+    big = _flash_inputs(1, 64, 2, 2, 256, 1, card, torch.float32)
+    with pytest.raises(ValueError, match="head dims"):
+        FK.flash_gqa(*big)
+    with pytest.raises(ValueError, match="CUDA"):
+        FK.flash_gqa(q.cpu(), k.cpu(), v.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        FK.flash_gqa(q.transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="kv_head"):
+        FK.flash_gqa(q, k, v, kv_head=(0, 1, 2, 0))
+    assert FK.launches == before

@@ -12,7 +12,6 @@ model's prefill and decode run in bf16 as well, as mamba2-2.7b serves.
 Where the reference can reach its Pallas kernel it runs it in interpret
 mode."""
 import ast
-import dataclasses
 
 import numpy as np
 import pytest
@@ -31,7 +30,6 @@ from repro.models import mamba2 as JM  # noqa: E402
 from repro.models.model import build_model as jax_build_model  # noqa
 from repro.models.modules import Sharder as JaxSharder  # noqa: E402
 from repro.models.modules import init_params as jax_init_params  # noqa
-from repro.models.modules import is_spec as jax_is_spec  # noqa: E402
 from repro.models.modules import param_count as jax_param_count  # noqa
 from repro.models import modules as JMOD  # noqa: E402
 from repro_torch.configs.base import ShapeConfig, get_config  # noqa: E402
@@ -47,60 +45,17 @@ from repro_torch.models import modules as TMOD  # noqa: E402
 from repro_torch.models.modules import (  # noqa: E402
     ParamSpec, Sharder, init_params, param_bytes, param_count)
 
+from _torch_parity import BF16_TOL  # noqa: E402
+from _torch_parity import both as _both  # noqa: E402
+from _torch_parity import cfg_dict as _cfg_dict  # noqa: E402
+from _torch_parity import close as _close  # noqa: E402
+from _torch_parity import match as _match  # noqa: E402
+from _torch_parity import perturb as _perturb  # noqa: E402
+from _torch_parity import rel_l2 as _rel_l2  # noqa: E402
+from _torch_parity import spec_rows_port as _spec_rows_port  # noqa: E402
+from _torch_parity import spec_rows_ref as _spec_rows_ref  # noqa: E402
+
 ARCH = "mamba2-2.7b"
-# f32 on both sides; the sums run in another order (pairwise einsums,
-# torch's matmul blocking), so results agree to float rounding, not bits
-TOL = 1e-4
-
-
-def _perturb(tree, seed: int):
-    """numpy copy of a reference tree; constant leaves get random values."""
-    rng = np.random.default_rng(seed)
-
-    def one(a):
-        a = np.asarray(a)
-        if a.dtype.kind == "f" and a.size and np.all(a == a.flat[0]):
-            a = (a + 0.3 * rng.standard_normal(a.shape)).astype(a.dtype)
-        return a
-    return jax.tree.map(one, tree)
-
-
-def _both(tree_np):
-    """The same numpy tree as JAX arrays and as CPU tensors."""
-    return jax.tree.map(jnp.asarray, tree_np), tree_from_numpy(tree_np, "cpu")
-
-
-def _close(got: torch.Tensor, want, tol=TOL):
-    np.testing.assert_allclose(got.float().numpy(),
-                               np.asarray(want, np.float32),
-                               rtol=tol, atol=tol)
-
-
-# bf16 keeps 8 significant bits (2^-8 relative a rounding). The port and
-# the reference round at other places (XLA keeps excess precision inside
-# its fusions, eager PyTorch rounds after every op), so their bf16 logits
-# differ by rounding alone: 0.5 % relative L2 after one smoke layer, 2-4 %
-# after the smoke config's four, as far as the reference's own bf16 logits
-# lie from its f32 ones (2.5 %). Held at 5 % relative L2. Logits that
-# computed something else land near 1.4 (two unrelated vectors of one
-# norm).
-BF16_TOL = 0.05
-
-
-def _rel_l2(got: torch.Tensor, want) -> float:
-    got = got.float().numpy()
-    want = np.asarray(want, np.float32)
-    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
-
-
-def _match(got: torch.Tensor, want, bf16: bool):
-    """Port logits against the reference's: to float rounding in f32,
-    within BF16_TOL relative L2 in bf16."""
-    if bf16:
-        assert got.dtype == torch.bfloat16
-        assert _rel_l2(got, want) <= BF16_TOL
-    else:
-        _close(got, want)
 
 
 def _cfgs(kind: str):
@@ -112,37 +67,12 @@ def _cfgs(kind: str):
 
 
 # ---------------------------------------------------------------- configs
-def _cfg_dict(cfg) -> dict:
-    def norm(v):
-        if isinstance(v, torch.dtype):
-            return str(v).removeprefix("torch.")
-        if isinstance(v, type) and hasattr(v, "dtype"):
-            return jnp.dtype(v).name
-        return v
-    return {k: norm(v) for k, v in dataclasses.asdict(cfg).items()}
-
-
 @pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
 @pytest.mark.parametrize("arch", sorted(jax_registry()))
 def test_config_matches_reference(arch, smoke):
     want = (jax_smoke_config if smoke else jax_get_config)(arch)
     got = (smoke_config if smoke else get_config)(arch)
     assert _cfg_dict(got) == _cfg_dict(want)
-
-
-def _spec_rows_ref(defs):
-    leaves = jax.tree_util.tree_flatten_with_path(defs, is_leaf=jax_is_spec)
-    return [(tuple(getattr(k, "key", getattr(k, "idx", k)) for k in path),
-             s.shape, jnp.dtype(s.dtype).name, s.init, s.init_scale,
-             s.logical_axes) for path, s in leaves[0]]
-
-
-def _spec_rows_port(defs, path=()):
-    if isinstance(defs, ParamSpec):
-        return [(path, defs.shape, str(defs.dtype).removeprefix("torch."),
-                 defs.init, defs.init_scale, defs.logical_axes)]
-    return [r for k in sorted(defs) for r in
-            _spec_rows_port(defs[k], path + (k,))]
 
 
 @pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
@@ -162,7 +92,11 @@ def test_param_cache_and_batch_defs_match_reference(smoke):
         assert param_bytes(tb.param_defs) == 4 * 2_702_599_680
 
 
-@pytest.mark.parametrize("arch", sorted(set(jax_registry()) - {ARCH}))
+# the families the port does not have yet: moe (deepseek, llama4), hybrid
+# (recurrentgemma) and audio (whisper)
+@pytest.mark.parametrize("arch", sorted(
+    a for a in jax_registry()
+    if jax_get_config(a).family in ("moe", "hybrid", "audio")))
 def test_unported_families_name_their_roadmap_item(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         build_model(smoke_config(arch))
@@ -436,8 +370,8 @@ def test_bf16_drift_with_depth_matches_reference(layers):
 
 
 def test_serve_cli_on_cpu(capsys):
-    serve.main(["--smoke", "--device", "cpu", "--prompt-len", "8",
-                "--new-tokens", "3", "--batch", "2"])
+    serve.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                "--prompt-len", "8", "--new-tokens", "3", "--batch", "2"])
     out = capsys.readouterr().out
     assert "mamba2-2.7b: generated 3 tokens/seq on cpu" in out
     assert out.count("  seq") == 2
