@@ -4,7 +4,10 @@
 
 Phases, each printing its own lines and seconds:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build every CUDA kernel of the port from src/ (set-up);
+  2. build every CUDA kernel of the port from src/ (set-up), and print
+     each kernel function's registers, shared memory and spills from the
+     ptxas report and its tensor-core instructions (HMMA, HGMMA) from
+     cuobjdump's SASS;
   3. set-up of the engine: TPC-H SF 1 (seed 7) in 64 MiB base objects;
   4. kernel phase: partition_pack (CUDA) against its plain PyTorch version
      on the card, exactly (atol 0 on buf, counts and slots), at the Pallas
@@ -23,7 +26,8 @@ Phases, each printing its own lines and seconds:
      smoke config's chunk, a sequence shorter than its chunk and the serve
      path's main shape, y and state within rtol = atol = 2e-4 in f32 (and,
      at the main shape in bf16, y within one bf16 step), with kernel,
-     plain and bound times at the main shape;
+     plain and bound times at the main shape (the bound at the f32 pipes'
+     rate and, beside it, at the 3xTF32 rate the kernels compute at);
   8. serve phase: the serve cell of launch/serve (mamba2-2.7b at full
      width and depth, 64 layers, random weights and prompts from
      serve.random_request), 4 prompts of 512 tokens and 32 new tokens
@@ -94,6 +98,7 @@ from repro_torch.relational.table import DictColumn, decode_object  # noqa
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12             # H100 SXM f32, no tensor cores (same)
 BF16_FLOP_PER_S = 989e12           # H100 SXM bf16 tensor cores, dense (same)
+TF32_FLOP_PER_S = 495e12           # H100 SXM TF32 tensor cores, dense (same)
 SF, SEED, TARGET_BYTES = 1.0, 7, 64 << 20
 PALLAS_TEST_SHAPES = [(32, 8, 4, 16), (256, 16, 24, 64), (300, 7, 64, 128),
                       (1024, 64, 24, 256)]
@@ -392,6 +397,10 @@ def ssd_case(label, shape, dev, dtype=torch.float32, timed=False) -> dict:
             flops=flops, bytes=nbytes,
             bound_ms=max(flops / F32_FLOP_PER_S,
                          nbytes / HBM_BYTES_PER_S) * 1e3,
+            # the same operations at the pipe the kernels use: 3xTF32,
+            # three TF32 products for one f32 product
+            bound_3xtf32_ms=max(3 * flops / TF32_FLOP_PER_S,
+                                nbytes / HBM_BYTES_PER_S) * 1e3,
             bound_by="operations" if flops / F32_FLOP_PER_S
             >= nbytes / HBM_BYTES_PER_S else "bytes")
     print("[ssd] " + json.dumps(rec), flush=True)
@@ -643,6 +652,12 @@ def main() -> int:
     built = _build.build()
     for name in built:
         print(f"[build] {name}\n{_build.build_log(name)}", flush=True)
+    for name in built:
+        tc = _build.tensor_core_ops(name) or {}
+        for fn, res in sorted(_build.resources(name).items()):
+            print("[resources] " + json.dumps({
+                "kernel": name, "function": fn, **res,
+                "tensor_core_instructions": tc.get(fn)}), flush=True)
     phase("build", t0)
 
     t0 = time.perf_counter()

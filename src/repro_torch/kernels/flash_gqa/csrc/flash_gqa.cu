@@ -10,46 +10,61 @@
 //   o_i = sum_j softmax_j(q_i . k_j / sqrt(D)) v_j over the keys j with
 //   j <= i (causal), j > i - window (window > 0), j < S.
 // The scale is that of the true head dim: D is never padded here, and q is
-// never rescaled. Running max m, sum l and the accumulator are f32, and
-// every product is f32 FMA: the tests hold the f32 kernel to 2e-5, which
-// TF32 (about three digits) cannot meet. bf16 inputs are widened on load
-// and the output is rounded once on store.
+// never rescaled. Running max m, sum l and the accumulator are f32.
 //
-// Design. The TPU grid's sequential kv axis is a loop inside one block,
-// with m, l and the accumulator in registers for the whole row range. One
-// block of 128 threads per (b, h, 64 query rows); blocks are numbered so
-// that the last query tiles, which see the most keys under the causal
-// mask, start first, and consecutive blocks share a kv head, whose tiles
-// then come from L2. The head repeat of the reference wrapper is never
-// built: a block reads its kv head through kv_head, which is irregular
-// when heads are padded (padded query heads read kv head 0), so no h / rep
-// is assumed. Only the kv tiles that hold an unmasked key for some row of
-// the block are visited: those wholly above the diagonal or wholly before
-// the window are skipped, which leaves m, l and the accumulator exactly as
-// a fully masked tile would. Per kv tile of 64 rows:
-//   1. K^T [D][64] and V [64][D] into shared memory (Q^T [D][64] was
-//      loaded once, before the loop);
-//   2. scores: each thread a 4x8 tile (rows 4*rg.., columns 4*cg + 32*j),
-//      one float4 of Q^T and two of K^T per 32 FMA; scaled, masked;
-//   3. online softmax: the 8 threads of a row group share the row max and
-//      sum by warp shuffles; the accumulator rows are rescaled by alpha;
-//   4. P [64][64] over K^T (read in full by then), then O += P.V, each
-//      thread 4 rows x D/8 columns, P and V read as float4.
-// Masked scores are -inf, and a row whose keys are all masked so far keeps
-// m = -inf, l = 0 and a zero accumulator (the reference's -1e30 gives the
-// same output once the row meets an unmasked key, which every row does:
-// its own position).
+// Shared by both bodies. The TPU grid's sequential kv axis is a loop
+// inside one block of 128 threads per (b, h, 64 query rows), with m, l and
+// the accumulator in registers for the whole row range. Blocks are
+// numbered so that the last query tiles, which see the most keys under the
+// causal mask, start first, and consecutive blocks share a kv head, whose
+// tiles then come from L2. The head repeat of the reference wrapper is
+// never built: a block reads its kv head through kv_head, which is
+// irregular when heads are padded (padded query heads read kv head 0), so
+// no h / rep is assumed. Only the kv tiles of 64 rows that hold an
+// unmasked key for some row of the block are visited: those wholly above
+// the diagonal or wholly before the window are skipped, which leaves m, l
+// and the accumulator exactly as a fully masked tile would. Masked scores
+// are -inf, and a row whose keys are all masked so far keeps m = -inf,
+// l = 0 and a zero accumulator (the reference's -1e30 gives the same
+// output once the row meets an unmasked key, which every row does: its
+// own position). Rows and keys past S are zero-filled on load and masked.
+//
+// bf16 body (flash_gqa_fwd_mma, the serve path): FA2-style on the tensor
+// cores. Each of the 4 warps owns 16 query rows. Per kv tile:
+//   1. S = Q.K^T by mma.sync.m16n8k16 bf16 -> f32: Q's A fragments are
+//      loaded once by ldmatrix and kept in registers (D/4 registers), K's
+//      B fragments by ldmatrix from the tile in shared memory;
+//   2. mask, online softmax in the log2 domain (scale * log2 e folded into
+//      one multiply, exp2f); the row max is shared by the 4 threads of a
+//      quad (two shuffles), l is kept per thread and summed once at the
+//      end, from the f32 probabilities;
+//   3. O += P.V by mma.sync.m16n8k16: the accumulator fragment of S is the
+//      A fragment of P once rounded to bf16 (no trip through shared
+//      memory); V's B fragments by ldmatrix.trans.
+// K and V tiles come in by cp.async (16 bytes a thread, zero-filled past
+// S) into a ring of two stages: tile t+1 loads while tile t is computed,
+// one __syncthreads a tile. Rows of shared memory are D + 8 elements, so
+// the 8 rows an ldmatrix reads fall in distinct banks. Shared memory:
+// (64 + 4 * 64) * (D + 8) * 2 bytes, 87,040 at D = 128, two blocks an SM.
+// f32 body (flash_gqa_fwd): f32 FMA from shared memory, as the tests hold
+// f32 to 2e-5, which TF32 (about three digits) cannot meet: K^T and V by
+// plain loads (K transposed on the way), each thread a 4x8 score tile and
+// a 4 x D/8 output tile, P through shared memory; 98 KB, two blocks an SM.
 //
 // Bound. At the serve path's shape (B=4, S=512, H=32, Hkv=2, D=128,
 // causal) the function needs, over the causal triangle (512*513/2 =
 // 131,328 pairs a head), 2 products of 2*128 FLOP a pair for 128 (b, h):
 // 8.61 GFLOP; it moves q and o (33.6 MB in bf16) and k and v (2.1 MB).
-// In bf16 that is 0.0107 ms of memory at 3.35 TB/s (8.61 GFLOP would take
-// 0.0087 ms on the tensor cores); in f32 0.129 ms of f32 FMA at 67
-// TFLOP/s, above its 0.021 ms of memory. This kernel computes whole 64x64
-// tiles on the diagonal (9.66 GFLOP at that shape) on the f32 pipes in
-// either type; bf16 on tensor cores (mma / wgmma), TMA and a pipelined
-// tile ring are later work.
+// In bf16 that is 0.0107 ms of memory at 3.35 TB/s (8.61 GFLOP take
+// 0.0087 ms at 989 TFLOP/s); in f32 0.129 ms of f32 FMA at 67 TFLOP/s,
+// above its 0.021 ms of memory. Both bodies compute whole 64x64 tiles on
+// the diagonal (9.66 GFLOP at that shape). ptxas (-Xptxas=-v, CUDA 12.8,
+// sm_90a): registers, shared memory and spills of each instantiation are
+// printed by chip_smoke.py and written in PERF.md. Left to do: wgmma with
+// TMA and a producer warp (FA3), and an epilogue through shared memory
+// for coalesced stores. 128-row query tiles of 8 warps were tried: at two
+// blocks an SM the 128-register cap spills at D = 128, and they ran
+// slower.
 //
 // Limits: D in {16, 32, 64, 128}; S >= 1; every kv_head[h] in [0, Hkv)
 // (the wrapper checks the map). Anything else is cudaErrorInvalidValue.
@@ -67,15 +82,6 @@
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
 // VEC consecutive floats of shared memory (VEC = 2 or 4, aligned)
 template <int VEC>
 __device__ __forceinline__ void lds(const float* p, float* out) {
@@ -88,7 +94,7 @@ __device__ __forceinline__ void lds(const float* p, float* out) {
   }
 }
 
-// VEC consecutive outputs, rounded to T once
+// VEC consecutive outputs
 template <int VEC>
 __device__ __forceinline__ void store(float* p, const float* v) {
   if constexpr (VEC == 4)
@@ -96,31 +102,17 @@ __device__ __forceinline__ void store(float* p, const float* v) {
   else
     *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
 }
-template <int VEC>
-__device__ __forceinline__ void store(__nv_bfloat16* p, const float* v) {
-  const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
-  if constexpr (VEC == 4) {
-    const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
-    uint2 u;
-    u.x = *reinterpret_cast<const uint32_t*>(&a);
-    u.y = *reinterpret_cast<const uint32_t*>(&b);
-    *reinterpret_cast<uint2*>(p) = u;
-  } else {
-    *reinterpret_cast<__nv_bfloat162*>(p) = a;
-  }
-}
-
 static inline size_t smem_bytes(int D) {
   const int kt_rows = D > FA_BQ ? D : FA_BQ;   // K^T [D][..], then P [64][..]
   return ((size_t)D * FA_BQ + (size_t)kt_rows * FA_LDK
           + (size_t)FA_BK * D) * sizeof(float);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(FA_THREADS, 2)
-flash_gqa_fwd(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const int* __restrict__ kv_head,
-              T* __restrict__ o, int S, int H, int Hkv, int BH, int causal,
+flash_gqa_fwd(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const int* __restrict__ kv_head,
+              float* __restrict__ o, int S, int H, int Hkv, int BH, int causal,
               int window, float scale) {
   constexpr int VEC = D >= 32 ? 4 : 2;          // output columns a chunk
   constexpr int NCH = D / (8 * VEC);            // chunks a thread owns
@@ -139,9 +131,9 @@ flash_gqa_fwd(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x, rg = tid >> 3, cg = tid & 7;
 
   const int64_t qs = (int64_t)H * D, ks = (int64_t)Hkv * D;   // row strides
-  const T* qb = q + ((int64_t)b * S * H + h) * D;
-  const T* kb = k + ((int64_t)b * S * Hkv + hk) * D;
-  const T* vb = v + ((int64_t)b * S * Hkv + hk) * D;
+  const float* qb = q + ((int64_t)b * S * H + h) * D;
+  const float* kb = k + ((int64_t)b * S * Hkv + hk) * D;
+  const float* vb = v + ((int64_t)b * S * Hkv + hk) * D;
 
   // Q^T, rows fastest across threads (conflict-free transposed stores)
   for (int e = tid; e < FA_BQ * (D / 4); e += FA_THREADS) {
@@ -281,13 +273,13 @@ flash_gqa_fwd(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  // o = acc / max(l, 1e-30), rounded to T once
+  // o = acc / max(l, 1e-30)
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + rg * 4 + i;
     if (r >= S) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    T* orow = o + (((int64_t)b * S + r) * H + h) * D;
+    float* orow = o + (((int64_t)b * S + r) * H + h) * D;
 #pragma unroll
     for (int jj = 0; jj < NCH; ++jj) {
       float w[VEC];
@@ -298,49 +290,269 @@ flash_gqa_fwd(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-static int launch(const void* q, const void* k, const void* v,
+// ------------------------------------------------------------ bf16 body
+#define FM_LD(D) ((D) + 8)          // row of Q, K and V in shared memory
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared, asynchronously; zeros where !valid
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// c += a.b, a 16x16 (row), b 16x8 (col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// rows row0.. row0+63 of a [S, stride] bf16 array into a tile [64][LD]
+template <int D>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* tile,
+                                          const __nv_bfloat16* base,
+                                          int64_t stride, int row0, int S,
+                                          int tid) {
+  constexpr int CH = D / 8;                     // 16-byte chunks a row
+  for (int e = tid; e < FA_BK * CH; e += FA_THREADS) {
+    const int r = e / CH, c = (e % CH) * 8;
+    const bool ok = row0 + r < S;
+    cp_async16(smem_addr(tile + r * FM_LD(D) + c),
+               base + (ok ? (int64_t)(row0 + r) * stride + c : 0), ok);
+  }
+}
+
+static inline size_t smem_bytes_mma(int D) {
+  return (size_t)(FA_BQ + 4 * FA_BK) * FM_LD(D) * sizeof(__nv_bfloat16);
+}
+
+template <int D>
+__global__ void __launch_bounds__(FA_THREADS, 2)
+flash_gqa_fwd_mma(const __nv_bfloat16* __restrict__ q,
+                  const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v,
+                  const int* __restrict__ kv_head,
+                  __nv_bfloat16* __restrict__ o, int S, int H, int Hkv,
+                  int BH, int causal, int window, float scale_log2) {
+  constexpr int LD = FM_LD(D);
+  constexpr int KS = D / 16;                    // k-steps of Q.K^T
+  constexpr int NO = D / 8;                     // n-tiles of O
+  constexpr int NS = FA_BK / 8;                 // n-tiles of S
+  extern __shared__ __align__(16) __nv_bfloat16 smb[];
+  __nv_bfloat16* Qs = smb;                      // [64][LD]
+  __nv_bfloat16* Ks = Qs + FA_BQ * LD;          // [2][64][LD]
+  __nv_bfloat16* Vs = Ks + 2 * FA_BK * LD;      // [2][64][LD]
+
+  const int n_qt = (S + FA_BQ - 1) / FA_BQ;
+  const int qt = n_qt - 1 - (int)(blockIdx.x / BH);  // heaviest tiles first
+  const int bh = (int)(blockIdx.x % BH);
+  const int h = bh % H, b = bh / H;
+  const int hk = kv_head[h];
+  const int q0 = qt * FA_BQ;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;        // fragment row, column pair
+
+  const int64_t qs = (int64_t)H * D, ks = (int64_t)Hkv * D;   // row strides
+  const __nv_bfloat16* qb = q + ((int64_t)b * S * H + h) * D;
+  const __nv_bfloat16* kb = k + ((int64_t)b * S * Hkv + hk) * D;
+  const __nv_bfloat16* vb = v + ((int64_t)b * S * Hkv + hk) * D;
+
+  // the kv tiles holding an unmasked key for some row q0..q_end-1
+  const int q_end = min(S, q0 + FA_BQ);
+  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_hi = causal ? q_end : S;                       // exclusive
+  const int kt0 = k_lo / FA_BK, n_kt = (k_hi - 1) / FA_BK - kt0 + 1;
+
+  load_tile<D>(Qs, qb, qs, q0, S, tid);
+  load_tile<D>(Ks, kb, ks, kt0 * FA_BK, S, tid);
+  load_tile<D>(Vs, vb, ks, kt0 * FA_BK, S, tid);
+  cp_async_commit();
+
+  // rows of this thread: r0 (fragment rows 0-7) and r0 + 8
+  const int r0 = q0 + warp * 16 + g;
+  uint32_t qf[KS][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int it = 0; it < n_kt; ++it) {
+    cp_async_wait_all();
+    __syncthreads();            // tile it landed; stage (it+1)&1 is free
+    if (it + 1 < n_kt) {
+      const int st = (it + 1) & 1, row0 = (kt0 + it + 1) * FA_BK;
+      load_tile<D>(Ks + st * FA_BK * LD, kb, ks, row0, S, tid);
+      load_tile<D>(Vs + st * FA_BK * LD, vb, ks, row0, S, tid);
+    }
+    cp_async_commit();
+    if (it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        ldsm_x4(qf[kk], smem_addr(Qs + (warp * 16 + (lane & 15)) * LD
+                                  + kk * 16 + (lane >> 4) * 8));
+    }
+    const __nv_bfloat16* Kt = Ks + (it & 1) * FA_BK * LD;
+    const __nv_bfloat16* Vt = Vs + (it & 1) * FA_BK * LD;
+    const int k0 = (kt0 + it) * FA_BK;
+
+    // 1. S = Q.K^T
+    float s[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int n = 0; n < NS; n += 2) {
+        uint32_t kf[4];
+        ldsm_x4(kf, smem_addr(Kt + (n * 8 + ((lane >> 4) << 3) + (lane & 7))
+                                       * LD
+                              + kk * 16 + ((lane >> 3) & 1) * 8));
+        mma_bf16(s[n], qf[kk], kf[0], kf[1]);
+        mma_bf16(s[n + 1], qf[kk], kf[2], kf[3]);
+      }
+
+    // 2. mask, online softmax (log2 domain)
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qpos = r0 + (e >> 1) * 8;
+        const int kpos = k0 + n * 8 + 2 * t + (e & 1);
+        const bool ok = kpos < S && (!causal || kpos <= qpos)
+                        && (window <= 0 || kpos > qpos - window);
+        s[n][e] = ok ? s[n][e] * scale_log2 : -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      // no unmasked key for this row yet: nothing changes
+      alpha[i] = m_new == -INFINITY ? 1.f : exp2f(m[i] - m_new);
+      m[i] = m_new;
+      l[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        s[n][e] = s[n][e] == -INFINITY ? 0.f : exp2f(s[n][e] - m[i]);
+        l[i] += s[n][e];
+      }
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      acc[n][0] *= alpha[0]; acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1]; acc[n][3] *= alpha[1];
+    }
+
+    // 3. O += P.V, P rounded to bf16 in registers
+#pragma unroll
+    for (int kk = 0; kk < FA_BK / 16; ++kk) {
+      const uint32_t pf[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int n = 0; n < NO; n += 2) {
+        uint32_t vf[4];
+        ldsm_x4_t(vf, smem_addr(Vt + (kk * 16 + ((lane >> 3) & 1) * 8
+                                      + (lane & 7)) * LD
+                                + n * 8 + (lane >> 4) * 8));
+        mma_bf16(acc[n], pf, vf[0], vf[1]);
+        mma_bf16(acc[n + 1], pf, vf[2], vf[3]);
+      }
+    }
+  }
+
+  // o = acc / max(l, 1e-30), rounded to bf16 once
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int r = r0 + i * 8;
+    if (r >= S) continue;
+    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    __nv_bfloat16* orow = o + (((int64_t)b * S + r) * H + h) * D;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t) =
+          pack_bf16(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
+  }
+}
+
+// ---------------------------------------------------------------- launch
+static int set_smem(const void* fn, size_t shm) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaFuncSetAttribute(
+      fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+      (int)cudaSharedmemCarveoutMaxShared);
+}
+
+template <int D>
+static int launch(int dtype, const void* q, const void* k, const void* v,
                   const void* kv_head, void* o, int B, int S, int H,
                   int Hkv, int causal, int window, float scale,
                   cudaStream_t stream) {
-  const size_t shm = smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_gqa_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)shm);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(flash_gqa_fwd<T, D>,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             (int)cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return (int)err;
   const int64_t blocks = (int64_t)B * H * ((S + FA_BQ - 1) / FA_BQ);
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  flash_gqa_fwd<T, D><<<(unsigned)blocks, FA_THREADS, shm, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const int*)kv_head, (T*)o, S,
-      H, Hkv, B * H, causal, window, scale);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-static int dispatch(int D, const void* q, const void* k, const void* v,
-                    const void* kv_head, void* o, int B, int S, int H,
-                    int Hkv, int causal, int window, float scale,
-                    cudaStream_t s) {
-  switch (D) {
-    case 16:
-      return launch<T, 16>(q, k, v, kv_head, o, B, S, H, Hkv, causal,
-                           window, scale, s);
-    case 32:
-      return launch<T, 32>(q, k, v, kv_head, o, B, S, H, Hkv, causal,
-                           window, scale, s);
-    case 64:
-      return launch<T, 64>(q, k, v, kv_head, o, B, S, H, Hkv, causal,
-                           window, scale, s);
-    case 128:
-      return launch<T, 128>(q, k, v, kv_head, o, B, S, H, Hkv, causal,
-                            window, scale, s);
-    default:
-      return (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    const size_t shm = smem_bytes(D);
+    const int err = set_smem((const void*)flash_gqa_fwd<D>, shm);
+    if (err) return err;
+    flash_gqa_fwd<D><<<(unsigned)blocks, FA_THREADS, shm, stream>>>(
+        (const float*)q, (const float*)k, (const float*)v,
+        (const int*)kv_head, (float*)o, S, H, Hkv, B * H, causal, window,
+        scale);
+  } else {
+    const size_t shm = smem_bytes_mma(D);
+    const int err = set_smem((const void*)flash_gqa_fwd_mma<D>, shm);
+    if (err) return err;
+    flash_gqa_fwd_mma<D><<<(unsigned)blocks, FA_THREADS, shm, stream>>>(
+        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+        (const __nv_bfloat16*)v, (const int*)kv_head, (__nv_bfloat16*)o, S,
+        H, Hkv, B * H, causal, window, scale * 1.4426950408889634f);
   }
+  return (int)cudaGetLastError();
 }
 
 extern "C" {
@@ -357,16 +569,23 @@ const char* fa_error_string(int err) {
 int flash_gqa(int dtype, const void* q, const void* k, const void* v,
               const void* kv_head, void* o, int B, int S, int H, int Hkv,
               int D, int causal, int window, float scale, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || window < 0)
+  if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || window < 0 ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (dtype) {
-    case 0:
-      return dispatch<float>(D, q, k, v, kv_head, o, B, S, H, Hkv, causal,
-                             window, scale, s);
-    case 1:
-      return dispatch<__nv_bfloat16>(D, q, k, v, kv_head, o, B, S, H, Hkv,
-                                     causal, window, scale, s);
+  switch (D) {
+    case 16:
+      return launch<16>(dtype, q, k, v, kv_head, o, B, S, H, Hkv, causal,
+                        window, scale, s);
+    case 32:
+      return launch<32>(dtype, q, k, v, kv_head, o, B, S, H, Hkv, causal,
+                        window, scale, s);
+    case 64:
+      return launch<64>(dtype, q, k, v, kv_head, o, B, S, H, Hkv, causal,
+                        window, scale, s);
+    case 128:
+      return launch<128>(dtype, q, k, v, kv_head, o, B, S, H, Hkv, causal,
+                         window, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -4,7 +4,8 @@ flash_gqa/flash_gqa.py; the source's note gives the design and its bound).
 
 ``flash_gqa`` takes the model layout as it is: q [B,S,H,D] and k/v at kv
 head layout [B,S,Hkv,D], with a query-head -> kv-head map instead of a
-repeat of k and v. It checks device, dtype, shape, contiguity and the map,
+repeat of k and v. bf16 runs on the tensor cores, f32 on the f32 pipes.
+It checks device, dtype, shape, contiguity, alignment and the map,
 allocates the output, launches on the current stream, checks the error
 code, and counts one launch per call in ``launches``.
 """
@@ -102,6 +103,9 @@ def flash_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {dev}; got "
                              f"{t.device}, contiguous={t.is_contiguous()}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on 16 bytes (the kernel "
+                             "loads rows 16 bytes at a time)")
     m = check_args(q, k, v, window, kv_head)
     B, S, H, D = q.shape
     Hkv = k.shape[2]

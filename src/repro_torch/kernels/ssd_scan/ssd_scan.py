@@ -4,8 +4,11 @@ ssd_scan.py; the source's note gives the design and its bound).
 
 ``ssd_scan`` takes the model layout as it is: no head repeat of B and C,
 x*dt and dt*A are folded inside the kernel. It checks device, dtype, shape
-and contiguity, allocates both outputs, launches on the current stream,
-checks the error code, and counts one launch per call in ``launches``.
+and contiguity, allocates both outputs and the f32 scratch of the
+chunk-parallel split (C.B^T per chunk and group, each chunk's state, each
+chunk's decay), runs the four CUDA kernels of one call on the current
+stream, checks the error code, and counts one launch per call in
+``launches``.
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-launches = 0                      # ssd_scan() calls that launched the kernel
+launches = 0                      # ssd_scan() calls that launched the kernels
 _count_lock = threading.Lock()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -25,7 +28,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ssd_scan")
-    lib.ssd_scan.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P,
+    lib.ssd_scan.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _P]
     lib.ssd_scan.restype = _I
     lib.ssd_error_string.argtypes = [_I]
@@ -73,14 +76,20 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             f"that divide S, a state of at most {lib.ssd_max_state()} and "
             f"groups that divide the heads; got S={S} chunk={Q} N={N} "
             f"H={H} G={G}")
+    nc = S // Q
     y = torch.empty_like(x)
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
+    f32 = {"dtype": torch.float32, "device": dev}
+    cb = torch.empty((B, nc, G, Q, Q), **f32)          # C.B^T, lower tiles
+    states = torch.empty((B, nc, H, P, N), **f32)      # per-chunk states
+    csl = torch.empty((B, H, nc), **f32)               # cumsum(dt*A) totals
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ssd_scan(_DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(),
                            A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-                           y.data_ptr(), state.data_ptr(), B, S, H, P, G, N,
-                           Q, stream)
+                           y.data_ptr(), state.data_ptr(), cb.data_ptr(),
+                           states.data_ptr(), csl.data_ptr(), B, S, H, P, G,
+                           N, Q, stream)
     if err:
         raise RuntimeError(f"ssd_scan: CUDA error {err}: "
                            f"{lib.ssd_error_string(err).decode()}")

@@ -9,9 +9,11 @@ weights and prompts from ``random_request``), after a warm-up.
 Prints one JSON line per part (prefill, decode): wall seconds (host clock,
 ending in ``torch.cuda.synchronize()``), device-busy seconds (the union of
 kernel intervals on the card), the idle share 1 - busy / wall, the
-kernels launched, the device time and launches of the port's kernels on
-the serve path (ssd_scan, flash_gqa) and the ten kernels with the most
-device time. Runs on CUDA only.
+kernels launched, the device time and CUDA launches of the port's kernels
+on the serve path (ssd_scan: its four CUDA kernels ssd_cb,
+ssd_chunk_state, ssd_state_pass and ssd_chunk_scan a call; flash_gqa: one
+a call) and the ten kernels with the most device time. Runs on CUDA
+only.
 """
 from __future__ import annotations
 
@@ -31,8 +33,8 @@ from repro_torch.models.model import build_model, cast_params
 from repro_torch.models.modules import init_params
 
 DECODE_STEPS = 8                                        # traced decode steps
-# the port's kernels on the serve path, by the name of their CUDA function
-KERNELS = {"ssd_scan": "ssd_chunk_scan", "flash_gqa": "flash_gqa_fwd"}
+# the port's kernels on the serve path, by the prefix of their CUDA functions
+KERNELS = {"ssd_scan": "ssd_", "flash_gqa": "flash_gqa_fwd"}
 
 
 def _profiled(name: str, fn, trace: str | None) -> dict:

@@ -100,8 +100,8 @@ def _ssd_inputs(B, S, H, P, G, N, seed, dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,H,P,G,N,chunk", SSD_CASES)
 def test_ssd_scan_kernel_matches_plain(card, B, S, H, P, G, N, chunk):
-    """f32 FMA in the kernel, f32 sums in another order in the plain
-    version: 2e-4, the Pallas kernel test's tolerance."""
+    """3xTF32 products in the kernels, f32 sums in another order in the
+    plain version: 2e-4, the Pallas kernel test's tolerance."""
     x, dt, A, Bm, Cm = _ssd_inputs(B, S, H, P, G, N, S + P, card)
     before = SK.launches
     y, st = SK.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
@@ -152,10 +152,10 @@ def _flash_inputs(B, S, H, Hkv, D, seed, dev, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_gqa_kernel_matches_plain(card, B, S, H, Hkv, D, causal,
                                         window, kv_head, dtype):
-    """f32 FMA in the kernel, f32 scores and softmax in the plain version
-    (attention_ref over k/v gathered by the map): 2e-5 in f32, the Pallas
-    kernel test's tolerance; in bf16 each side rounds its f32 output once,
-    held at that test's 2e-2."""
+    """f32 FMA in the kernel's f32 body, f32 scores and softmax in the
+    plain version (attention_ref over k/v gathered by the map): 2e-5, the
+    Pallas kernel test's tolerance. bf16 runs on the tensor cores with P
+    rounded to bf16, held at that test's 2e-2."""
     dt = getattr(torch, dtype)
     q, k, v = _flash_inputs(B, S, H, Hkv, D, S + H, card, dt)
     before = FK.launches
@@ -186,4 +186,96 @@ def test_flash_gqa_kernel_refuses_what_it_does_not_take(card):
         FK.flash_gqa(q.transpose(1, 2), k, v)
     with pytest.raises(ValueError, match="kv_head"):
         FK.flash_gqa(q, k, v, kv_head=(0, 1, 2, 0))
+    shifted = torch.zeros(q.numel() + 1, device=card)[1:].view(q.shape)
+    with pytest.raises(ValueError, match="16 bytes"):
+        FK.flash_gqa(shifted, k, v)
     assert FK.launches == before
+
+
+# the bf16 tensor-core body at the edges of its 64-row tiles: ragged S
+# (one row, one short of and one past a tile, two tiles and a bit), the
+# smallest head dim, a window narrower than one tile, the padded map
+FLASH_EDGES = [
+    # B, S, H, Hkv, D, causal, window, kv_head
+    (2, 1, 4, 2, 64, True, 0, None),
+    (1, 63, 4, 2, 128, True, 0, None),
+    (1, 65, 4, 2, 128, True, 0, None),
+    (2, 130, 4, 1, 32, True, 0, None),
+    (1, 200, 2, 2, 128, False, 0, None),
+    (2, 200, 4, 2, 16, True, 0, None),
+    (1, 200, 4, 2, 64, True, 24, None),
+    (1, 130, 4, 2, 64, False, 24, None),
+    (1, 130, 16, 4, 64, True, 0, SMOLLM_MAP),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Hkv,D,causal,window,kv_head", FLASH_EDGES)
+def test_flash_gqa_bf16_tile_edges(card, B, S, H, Hkv, D, causal, window,
+                                   kv_head):
+    """bf16 q.k and P.V on the tensor cores, P rounded to bf16: within the
+    bf16 tolerance of attention_ref at the tiles' edges (rows and keys past
+    S are zero-filled and masked, never read)."""
+    q, k, v = _flash_inputs(B, S, H, Hkv, D, S + D, card, torch.bfloat16)
+    o = FK.flash_gqa(q, k, v, causal=causal, window=window, kv_head=kv_head)
+    torch.cuda.synchronize()
+    m = torch.tensor(kv_head if kv_head is not None
+                     else [h // (H // Hkv) for h in range(H)], device=card)
+    want = attention_ref(q, k.index_select(2, m), v.index_select(2, m),
+                         causal=causal, window=window)
+    assert bool(torch.isfinite(o.float()).all())
+    tol = FLASH_TOL["bfloat16"]
+    torch.testing.assert_close(o.float(), want.float(), rtol=tol, atol=tol)
+
+
+# the chunk-parallel ssd_scan at its edges: two groups reading their own
+# C.B^T, a chunk of 64 (one cb tile), small and mid state sizes, a
+# sequence shorter than its chunk, P wider than one 64-column slice, and
+# P, N and chunk that are no multiples of 8 (the loads' scalar paths)
+SSD_EDGES = [
+    # B, S, H, P, G, N, chunk
+    (2, 256, 4, 64, 2, 64, 64),
+    (1, 192, 6, 32, 2, 16, 64),
+    (2, 128, 4, 64, 1, 64, 128),
+    (1, 40, 2, 16, 1, 16, 128),
+    (1, 96, 2, 80, 1, 32, 32),
+    (1, 36, 3, 20, 1, 20, 12),
+    (2, 90, 4, 12, 2, 36, 90),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", SSD_EDGES)
+def test_ssd_scan_tile_edges(card, B, S, H, P, G, N, chunk, dtype):
+    """3xTF32 products: y and state within 2e-4 of the plain version in
+    f32; in bf16 the state so too and y within one bf16 step."""
+    x, dt, A, Bm, Cm = _ssd_inputs(B, S, H, P, G, N, S + N, card)
+    if dtype == "bfloat16":
+        x, Bm, Cm = (t.to(torch.bfloat16) for t in (x, Bm, Cm))
+    y, st = SK.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    y_r, st_r = ssd_chunked(x, dt, A, Bm, Cm, chunk)
+    torch.testing.assert_close(st, st_r, rtol=2e-4, atol=2e-4)
+    rtol = 2e-4 if dtype == "float32" else 2 ** -7
+    torch.testing.assert_close(y.float(), y_r.float(), rtol=rtol, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,functions", [
+    ("flash_gqa", ["flash_gqa_fwd_mma<16>", "flash_gqa_fwd_mma<32>",
+                   "flash_gqa_fwd_mma<64>", "flash_gqa_fwd_mma<128>"]),
+    ("ssd_scan", ["ssd_cb<float>", "ssd_cb<__nv_bfloat16>",
+                  "ssd_chunk_state<float>", "ssd_chunk_state<__nv_bfloat16>",
+                  "ssd_chunk_scan<float>", "ssd_chunk_scan<__nv_bfloat16>"]),
+])
+def test_kernels_run_on_the_tensor_cores(card, kernel, functions):
+    """The built library's SASS holds HMMA (or HGMMA) instructions in every
+    function that computes a product."""
+    from repro_torch.kernels import _build
+    ops = _build.tensor_core_ops(kernel)
+    if ops is None:
+        pytest.skip("cuobjdump not found")
+    for f in functions:
+        got = [n for k, n in ops.items() if k.startswith(f"void {f}(")]
+        assert got and all(n > 0 for n in got), (f, ops)

@@ -2,13 +2,17 @@
 on the CPU against the JAX package: its Pallas kernel in interpret mode,
 its materialized oracle and the model's chunked attention, at the Pallas
 kernel test's CASES in f32 and bf16, with the padded-head kv maps of
-smollm-135m and qwen2-vl-7b, and with what the kernel refuses.
+smollm-135m and qwen2-vl-7b, and with what the kernel refuses; and the
+bf16 CUDA body's precision plan (bf16 products, P rounded to bf16 before
+P.V) repeated on the CPU against ``attention_ref`` at the card tolerance.
 
 On the CPU ``ops.flash_gqa`` runs the port's plain ``attention_ref``; the
 CUDA kernel is held against that same function on the card
 (tests/test_torch_cuda.py, chip_smoke.py). Inputs are numpy from a seed.
 Tolerances are the reference test's: 2e-5 in f32 (sums in another order),
 2e-2 in bf16 (each side rounds its f32 result to bf16 once)."""
+import math
+
 import numpy as np
 import pytest
 
@@ -175,3 +179,70 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         K.flash_gqa(q, k, v)
     assert K.launches == before
+
+
+def _mma_plan(q, k, v, *, causal, window, kv_head):
+    """The roundings of the bf16 tensor-core body (flash_gqa.cu,
+    flash_gqa_fwd_mma), in PyTorch on the CPU: per kv tile of 64 keys, q.k
+    of bf16 values with f32 sums, scaled into the log2 domain; the online
+    softmax in f32 with l summed from the f32 probabilities; P rounded to
+    bf16 before P.V (f32 sums); o = acc / max(l, 1e-30), rounded to bf16.
+    A test helper, not the port's plain version."""
+    B, S, H, D = q.shape
+    m_idx = torch.tensor(kv_head)
+    qf = q.float().transpose(1, 2)                          # [B,H,S,D]
+    kf = k.index_select(2, m_idx).float().transpose(1, 2)
+    vf = v.index_select(2, m_idx).float().transpose(1, 2)
+    c = math.log2(math.e) / math.sqrt(D)
+    m = torch.full((B, H, S, 1), float("-inf"))
+    l = torch.zeros((B, H, S, 1))
+    acc = torch.zeros((B, H, S, D))
+    qpos = torch.arange(S)[:, None]
+    for k0 in range(0, S, 64):
+        kpos = torch.arange(k0, min(k0 + 64, S))[None, :]
+        s = (qf @ kf[:, :, k0:k0 + 64].transpose(-1, -2)) * c
+        ok = torch.ones((S, kpos.shape[1]), dtype=torch.bool)
+        if causal:
+            ok &= kpos <= qpos
+        if window > 0:
+            ok &= kpos > qpos - window
+        s = s.masked_fill(~ok, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.where(m_new == float("-inf"), 1.0,
+                            torch.exp2(m - m_new))
+        p = torch.where(s == float("-inf"), 0.0, torch.exp2(s - m_new))
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.bfloat16().float() @ vf[:, :, k0:k0 + 64]
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).transpose(1, 2).bfloat16()
+
+
+PLAN_CASES = [
+    # B, S, H, Hkv, D, causal, window, kv_head
+    *[(B, Sq, H, Hkv, D, causal, window, None)
+      for B, Sq, _, H, Hkv, D, causal, window in CASES],
+    (2, 72, 4, 2, 16, True, 0, None),
+    (1, 200, 4, 2, 64, False, 48, None),
+    (2, 130, 4, 2, 64, True, 24, None),
+    (2, 130, 16, 4, 64, True, 0, (0, 0, 0, 1, 1, 1, 2, 2, 2, 0, 0, 0, 0, 0,
+                                  0, 0)),
+    (4, 512, 32, 2, 128, True, 0, None),        # glm4-9b's prefill
+]
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,D,causal,window,kv_head", PLAN_CASES)
+def test_bf16_mma_plan_meets_card_tolerance(B, S, H, Hkv, D, causal, window,
+                                            kv_head):
+    """The bf16 body's precision plan, repeated on the CPU, stays within
+    the card's bf16 tolerance (2e-2) of attention_ref at every case and at
+    the dense serve path's shape."""
+    q, k, v = (torch.from_numpy(a).bfloat16()
+               for a in _inputs(B, S, S, H, Hkv, D, S + H))
+    kv_head = kv_head or tuple(h // (H // Hkv) for h in range(H))
+    got = _mma_plan(q, k, v, causal=causal, window=window, kv_head=kv_head)
+    m = torch.tensor(kv_head)
+    want = attention_ref(q, k.index_select(2, m), v.index_select(2, m),
+                         causal=causal, window=window)
+    assert bool(torch.isfinite(got.float()).all())
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
