@@ -11,10 +11,19 @@ Phases, each printing its own lines and seconds:
   3. set-up of the engine: TPC-H SF 1 (seed 7) in 64 MiB base objects;
   4. kernel phase: partition_pack (CUDA) against its plain PyTorch version
      on the card, exactly (atol 0 on buf, counts and slots), at the Pallas
-     kernel test's shapes and at the main path's (rows of the largest
-     lineitem split, q12 scan_li's int64 and int32 column groups, 8 / 64 /
-     1024 partitions), with kernel, plain and library times and the
-     memory bound;
+     kernel test's shapes, at the card tests' edges (1 to 8192 partitions,
+     a hot key, T around a tile, capacity 0 and below the largest count,
+     ids out of range, 2-, 4- and 8-byte groups in one call) and at the
+     main path's (rows of the largest lineitem split, q12 scan_li's int64
+     and int32 column groups, 8 / 64 / 1024 partitions), with kernel
+     (warm), plain and library times and the memory bound; at the main
+     shapes also the cold time (L2 flushed by an 80 MB write before each
+     call, outside its events), the device time by torch.profiler (warm
+     and cold) and the device operations of one call (two partition_pack
+     kernels up to 64 partitions, three above: the multi-pass route); then
+     pack_by_key (hash, counts and pack; one host sync) at 8 partitions
+     against partition_ids and the plain pack, and op_partition's host
+     syncs and device operations;
   5. query phase: q1, q3, q5, q6, q12, q12 (multi-stage shuffle) and q14
      through the port's engine on the card, each held against the
      single-threaded oracle run on the CPU through the plain versions;
@@ -89,6 +98,9 @@ from repro_torch.kernels.partition_pack import ref as pp_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan as SK  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch.bench_pack import (  # noqa: E402
+    host_syncs, is_kernel, is_pp, pack_bytes, profile_record, time_cold_ms,
+    time_ms)
 from repro_torch.launch.steps import make_prefill_step  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.models.modules import tree_leaves, tree_map  # noqa: E402
@@ -103,6 +115,8 @@ SF, SEED, TARGET_BYTES = 1.0, 7, 64 << 20
 PALLAS_TEST_SHAPES = [(32, 8, 4, 16), (256, 16, 24, 64), (300, 7, 64, 128),
                       (1024, 64, 24, 256)]
 MAIN_PARTS = (8, 64, 1024)
+EDGE_PARTS = (1, 8, 64, 1024, 8192)
+PP_TILE = K.TILE_ROWS
 Q12_SCAN_LI = ["l_orderkey", "l_shipmode", "l_shipdate", "l_commitdate",
                "l_receiptdate"]
 MULTI = {"shuffle": {"strategy": "multi", "p": 1 / 4, "f": 1 / 4}}
@@ -185,37 +199,39 @@ def release():
     return torch.cuda.memory_allocated()
 
 
-def time_ms(fn, iters: int = 20) -> float:
-    """Mean device time of one call, by CUDA events over ``iters`` calls
-    after a warm-up call (inputs stay in L2 where they fit)."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 # ------------------------------------------------------------------ kernel
-def pack_case(label: str, groups: list[torch.Tensor], ids: torch.Tensor,
-              n_parts: int, capacity: int) -> dict:
-    """Kernel vs plain on the card, exactly; times and the memory bound."""
-    before = K.launches
+def check_pack(label: str, groups: list[torch.Tensor], ids: torch.Tensor,
+               n_parts: int, capacity: int) -> float:
+    """Kernel vs plain on the card, exactly (atol 0 on buf, counts and
+    slots): rows whose id lies in [0, n_parts) are ranked among themselves,
+    the others get slot -1 and land nowhere. -> the largest |difference|."""
     bufs, counts, slots = K.pack(groups, ids, n_parts, capacity)
     torch.cuda.synchronize()
+    valid = (ids >= 0) & (ids < n_parts)
+    slot_v, want_counts, keep = pp_ref.pack_indices(ids[valid], n_parts,
+                                                    capacity)
+    want_slots = torch.full_like(ids, -1)
+    want_slots[valid] = slot_v
+    check(torch.equal(counts, want_counts), f"{label}: counts differ")
+    check(torch.equal(slots, want_slots), f"{label}: slots differ")
     err = 0.0
     for g, buf in zip(groups, bufs):
-        want, want_counts, want_slots, _ = pp_ref.pack(g, ids, n_parts,
-                                                       capacity)
-        check(torch.equal(counts, want_counts), f"{label}: counts differ")
-        check(torch.equal(slots, want_slots), f"{label}: slots differ")
-        check(torch.equal(buf, want), f"{label}: buf differs")
+        want = pp_ref.pack_rows(g[valid], ids[valid], slot_v, keep, n_parts,
+                                capacity)
+        check(buf.shape == want.shape and torch.equal(buf, want),
+              f"{label}: buf differs")
         err = max(err, float((buf.double() - want.double()).abs().max())
                   if buf.numel() else 0.0)
+    return err
+
+
+def pack_case(label: str, groups: list[torch.Tensor], ids: torch.Tensor,
+              n_parts: int, capacity: int, main: bool = False) -> dict:
+    """Kernel vs plain on the card, exactly; warm times and the memory
+    bound, and at a main shape the cold time and the device operations of
+    one call."""
+    before = K.launches
+    err = check_pack(label, groups, ids, n_parts, capacity)
 
     def plain():
         slot, _, keep = pp_ref.pack_indices(ids, n_parts, capacity)
@@ -227,20 +243,131 @@ def pack_case(label: str, groups: list[torch.Tensor], ids: torch.Tensor,
         for g in groups:
             g.index_select(0, order)
 
+    def kernel():
+        K.pack(groups, ids, n_parts, capacity)
+
     T = ids.shape[0]
-    row_bytes = sum(g.shape[1] * g.element_size() for g in groups)
-    moved = (4 * T + T * row_bytes                      # ids, rows read
-             + 4 * T + 4 * n_parts                       # slots, counts
-             + n_parts * capacity * row_bytes)           # buf written
+    moved = pack_bytes(groups, T, n_parts, capacity)
     rec = {"case": label, "T": T, "n_parts": n_parts, "capacity": capacity,
            "groups": [f"{g.dtype}x{g.shape[1]}" for g in groups],
-           "kernel_ms": time_ms(lambda: K.pack(groups, ids, n_parts,
-                                               capacity)),
+           "kernel_ms": time_ms(kernel),
            "plain_ms": time_ms(plain), "library_ms": time_ms(library),
            "bytes": moved, "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
            "max_abs_err": err}
-    rec["launches"] = K.launches - before          # 1 compared + 21 timed
+    if main:
+        rec.update(kernel_cold_ms=time_cold_ms(kernel),
+                   **profile_record(kernel))
+        rec["cold_share_of_bound"] = (rec["bound_ms"]
+                                      / rec["device_cold_ms"])
+        ops = rec["device_ops"]
+        want = 2 if n_parts <= K.LOOKBACK_MAX_PARTS else 3
+        check(len(ops) == want and all(map(is_pp, ops)),
+              f"{label}: {len(ops)} device operations a call, want {want} "
+              f"partition_pack kernels: {ops}")
+    rec["launches"] = K.launches - before
     print("[kernel] " + json.dumps(rec), flush=True)
+    return rec
+
+
+def mixed_groups(T: int, seed: int, dev) -> list[torch.Tensor]:
+    """bf16, int32 and int64 groups in one call, and an int32 group 4 bytes
+    off its allocation's start (so it is copied in narrower vectors)."""
+    rng = np.random.default_rng(seed)
+    flat = torch.from_numpy(rng.integers(0, 2 ** 31, T * 4 + 1)
+                            .astype(np.int32)).to(dev)
+    return [torch.from_numpy(rng.standard_normal((T, 3)).astype(np.float32))
+            .to(torch.bfloat16).to(dev),
+            torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31 - 1, (T, 5))
+                             .astype(np.int32)).to(dev),
+            torch.from_numpy(rng.integers(-2 ** 63, 2 ** 63 - 1, (T, 2),
+                                          dtype=np.int64)).to(dev),
+            flat[1:].view(T, 4)]
+
+
+def edge_cases(dev) -> float:
+    """The card tests' edges of the redesign, exactly: every partition
+    count (both routes), a hot key, T around a tile, capacity 0 and below
+    the largest count, ids out of range. -> the largest |difference|."""
+    err = 0.0
+
+    def run(label, T, P, seed, ids=None, cap=None):
+        nonlocal err
+        rng = np.random.default_rng(seed)
+        if ids is None:
+            ids = rng.integers(0, P, T).astype(np.int32)
+        ids = torch.from_numpy(ids).to(dev)
+        top = int(torch.bincount(ids[(ids >= 0) & (ids < P)],
+                                 minlength=P).max())
+        cap = top if cap is None else cap(top)
+        err = max(err, check_pack(f"edge {label} T={T} P={P} C={cap}",
+                                  mixed_groups(T, seed, dev), ids, P, cap))
+
+    for P in EDGE_PARTS:
+        run("parts", 40_000, P, P)
+    for P in (8, 64, 2048):
+        run("hot key", 5 * PP_TILE + 17, P, 3,
+            ids=np.full(5 * PP_TILE + 17, P - 1, np.int32))
+        for T in (1, PP_TILE - 1, PP_TILE + 1, 3 * PP_TILE + 5):
+            run("tile edge", T, P, T, cap=lambda top: top + 3)
+    for P in (8, 64, 2048):
+        run("capacity 0", 3 * PP_TILE + 100, P, P + 1, cap=lambda top: 0)
+        run("capacity below", 3 * PP_TILE + 100, P, P + 1,
+            cap=lambda top: max(top // 2, 1))
+    for P in (8, 64, 1024):
+        rng = np.random.default_rng(P + 2)
+        T = 2 * PP_TILE + 33
+        ids = rng.integers(0, P, T).astype(np.int32)
+        bad = rng.random(T) < 0.1
+        ids[bad] = rng.choice([-1, -7, P, P + 5, 2 ** 31 - 1], bad.sum())
+        run("ids out of range", T, P, P + 2, ids=ids)
+    print(f"[kernel] edge cases exact, max |difference| {err}", flush=True)
+    return err
+
+
+def by_key_case(li, groups, dev) -> dict:
+    """pack_by_key at the main shape (P = 8): ids equal the plain
+    partition_ids, counts their histogram, bufs the plain pack at capacity
+    = the largest count; warm and cold times and device operations a call.
+    Then op_partition on the split: its host syncs and device operations."""
+    key = li["l_orderkey"]
+    n = MAIN_PARTS[0]
+    bufs, counts, ids = K.pack_by_key(groups, key, n)
+    torch.cuda.synchronize()
+    want_ids = OPS.partition_ids(key, n)
+    check(torch.equal(ids, want_ids), "pack_by_key: ids differ")
+    check(counts == torch.bincount(want_ids, minlength=n).tolist(),
+          "pack_by_key: counts differ")
+    for g, buf in zip(groups, bufs):
+        want, _, _, _ = pp_ref.pack(g, want_ids, n, max(counts))
+        check(torch.equal(buf, want), "pack_by_key: buf differs")
+
+    def kernel():
+        K.pack_by_key(groups, key, n)
+
+    rec = {"case": f"pack_by_key q12 scan_li T={len(key)} P={n}",
+           "kernel_ms": time_ms(kernel), "kernel_cold_ms": time_cold_ms(
+               kernel), "host_syncs": host_syncs(kernel),
+           **profile_record(kernel)}
+    print("[kernel] " + json.dumps(rec), flush=True)
+    kernels = [o for o in rec["device_ops"] if is_kernel(o)]
+    check(rec["host_syncs"] == 1 and len(kernels) == 2
+          and all(map(is_pp, kernels)),
+          f"pack_by_key: {rec['host_syncs']} syncs, device operations "
+          f"{rec['device_ops']}")
+
+    def partition():
+        OPS.op_partition(li, "l_orderkey", n)
+
+    ops = profile_record(partition, iters=1)["device_ops"]
+    prec = {"op_partition": f"q12 scan_li T={len(key)} P={n}",
+            "host_syncs": host_syncs(partition),
+            "cuda_kernels": sum(map(is_kernel, ops)), "device_ops": ops,
+            "pp_kernels": sum(map(is_pp, ops))}
+    print("[op_partition] " + json.dumps(prec), flush=True)
+    check(prec["host_syncs"] == 1, f"op_partition synced "
+          f"{prec['host_syncs']} times, want 1")
+    check(not any("elementwise" in o or "bincount" in o for o in ops),
+          f"op_partition ran hash or count kernels outside the pack: {ops}")
     return rec
 
 
@@ -257,6 +384,7 @@ def kernel_phase(tables, split_rows: int, dev) -> list[dict]:
         for dt in (torch.float32, torch.bfloat16):
             recs.append(pack_case(f"pallas-test {T}x{d} P={P} C={C} {dt}",
                                   [rows.to(dt)], ids, P, C))
+    edge_err = edge_cases(dev)
     li = tables["lineitem"].project(Q12_SCAN_LI) \
         .take(torch.arange(split_rows)).to(dev)
     (n8, n4), views = OPS.width_groups(li)
@@ -266,7 +394,9 @@ def kernel_phase(tables, split_rows: int, dev) -> list[dict]:
         ids = OPS.partition_ids(li["l_orderkey"], n)
         cap = int(torch.bincount(ids, minlength=n).max())
         main.append(pack_case(f"main q12 scan_li T={split_rows} P={n}",
-                              groups, ids, n, cap))
+                              groups, ids, n, cap, main=True))
+    main[0]["by_key"] = by_key_case(li, groups, dev)
+    main[0]["max_abs_err"] = max(main[0]["max_abs_err"], edge_err)
     return main + recs
 
 

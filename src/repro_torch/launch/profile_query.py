@@ -9,7 +9,7 @@ Prints one JSON line: the query's wall seconds (host clock, ending in
 kernel intervals on the card), the idle share 1 - busy / wall, and the
 ten kernels with the most device time (names cut to 80 characters),
 with the device time of the partition_pack kernels (``pp_*``, the
-template ``pp_gather`` included) beside them. Runs on CUDA only.
+template ``pp_place`` included) beside them. Runs on CUDA only.
 """
 from __future__ import annotations
 

@@ -4,8 +4,8 @@ tensors of a Table's device.
 Each operator computes what the numpy engine's operator computes, row for
 row and in the same order; group sums may differ in the last ulp where the
 device adds in another order. The shuffle producer's hash-partition runs
-through the ``partition_pack`` kernel on CUDA tensors and through its
-plain PyTorch version on CPU tensors.
+through the ``partition_pack`` kernels (hash, counts and pack) on CUDA
+tensors and through their plain PyTorch versions on CPU tensors.
 
 Expression mini-language (JSON-able), used by predicates and projections:
   column:      "l_quantity"
@@ -21,6 +21,7 @@ import operator
 import torch
 
 from repro_torch.kernels.partition_pack.ops import partition_pack_groups
+from repro_torch.kernels.partition_pack.partition_pack import pack_by_key
 from repro_torch.relational.table import DictColumn, Table
 
 _ARITH = {"add": operator.add, "sub": operator.sub, "mul": operator.mul}
@@ -148,22 +149,32 @@ def width_groups(t: Table):
 
 def op_partition(t: Table, key: str, n: int) -> list[Table]:
     """Hash-partition into n partitions (the shuffle producer side): one
-    partition_pack over the table's 8-byte columns stacked as int64 and its
-    4-byte columns stacked as int32, at capacity = the largest partition,
-    so nothing drops. Partition p keeps its rows in arrival order."""
-    pid = partition_ids(t[key], n)
-    capacity = int(torch.bincount(pid, minlength=n).max()) if len(t) else 0
+    pack of the table's 8-byte columns stacked as int64 and its 4-byte
+    columns stacked as int32, at capacity = the largest partition, so
+    nothing drops. Partition p keeps its rows in arrival order.
+
+    On CUDA the hash, the counts and the pack run in the partition_pack
+    kernels (``pack_by_key``), with one host sync for the counts; on the
+    CPU the plain ``partition_ids`` and ``partition_pack_groups``."""
     names, views = width_groups(t)
     names = [g for g in names if g]
     groups = [torch.stack([views[c] for c in g], 1) for g in names]
-    bufs, counts, _ = partition_pack_groups(groups, pid, n_parts=n,
-                                            capacity=capacity)
+    col = t[key]
+    if col.device.type == "cuda":
+        bufs, counts, _ = pack_by_key(groups, col, n)
+    else:
+        pid = partition_ids(col, n)
+        capacity = int(torch.bincount(pid, minlength=n).max()) \
+            if len(t) else 0
+        bufs, counts, _ = partition_pack_groups(groups, pid, n_parts=n,
+                                                capacity=capacity)
+        counts = counts.tolist()
     cols = {}
     for g, buf in zip(names, bufs):
         for j, c in enumerate(g):
             cols[c] = buf[:, :, j]
     parts = []
-    for p, cnt in enumerate(counts.tolist()):
+    for p, cnt in enumerate(counts):
         out = {}
         for c, src in t.cols.items():
             v = cols[c][p, :cnt]

@@ -86,6 +86,212 @@ def test_partition_pack_kernel_matches_plain(card, T, P, C, d, dtype):
     assert torch.equal(buf, want)
 
 
+# the redesigned pack at its edges (tile = K.TILE_ROWS = 2048 rows; the
+# look-back route up to K.LOOKBACK_MAX_PARTS = 64 partitions, multi-pass
+# above)
+TILE = 2048
+PACK_PARTS = [1, 8, 64, 1024, 8192]
+PACK_ROWS = [1, TILE - 1, TILE + 1, 3 * TILE + 5]
+
+
+def _pack_vs_plain(groups, ids, P, C):
+    """The kernel against the plain version, exactly: rows whose id lies in
+    [0, P) are ranked among themselves (ref.pack_indices over them), the
+    others get slot -1 and land nowhere. -> the kernel's counts."""
+    before = K.launches
+    bufs, counts, slots = K.pack(groups, ids, P, C)
+    torch.cuda.synchronize()
+    assert K.launches == before + 1
+    valid = (ids >= 0) & (ids < P)
+    slot_v, want_counts, keep = ref.pack_indices(ids[valid], P, C)
+    want_slots = torch.full_like(ids, -1)
+    want_slots[valid] = slot_v
+    assert torch.equal(counts, want_counts)
+    assert torch.equal(slots, want_slots)
+    for g, buf in zip(groups, bufs):
+        want = ref.pack_rows(g[valid], ids[valid], slot_v, keep, P, C)
+        assert buf.dtype == g.dtype and buf.shape == want.shape
+        assert torch.equal(buf, want)
+    return counts
+
+
+def _mixed_groups(T, seed, dev):
+    """2-, 4- and 8-byte groups in one call, one of them 4 bytes off the
+    allocation's start (so its rows go in narrower vectors)."""
+    rng = np.random.default_rng(seed)
+    g2 = torch.from_numpy(rng.standard_normal((T, 3)).astype(np.float32)) \
+        .to(torch.bfloat16).to(dev)
+    g4 = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31 - 1, (T, 5))
+                          .astype(np.int32)).to(dev)
+    g8 = torch.from_numpy(rng.integers(-2 ** 63, 2 ** 63 - 1, (T, 2),
+                                       dtype=np.int64)).to(dev)
+    flat = torch.from_numpy(rng.integers(0, 2 ** 31, T * 4 + 1)
+                            .astype(np.int32)).to(dev)
+    shifted = flat[1:].view(T, 4)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    return [g2, g4, g8, shifted]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", PACK_PARTS)
+def test_partition_pack_parts(card, P):
+    """Both routes at every partition count, capacity the largest count."""
+    T = 40_000
+    rng = np.random.default_rng(P)
+    ids = torch.from_numpy(rng.integers(0, P, T).astype(np.int32)).to(card)
+    cap = int(torch.bincount(ids, minlength=P).max())
+    _pack_vs_plain(_mixed_groups(T, P, card), ids, P, cap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [8, 64, 2048])
+def test_partition_pack_hot_key(card, P):
+    """Every row in one partition: one run through all tiles."""
+    T = 5 * TILE + 17
+    ids = torch.full((T,), P - 1, dtype=torch.int32, device=card)
+    counts = _pack_vs_plain(_mixed_groups(T, 3, card), ids, P, T)
+    assert int(counts[P - 1]) == T and int(counts.sum()) == T
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [8, 64, 2048])
+@pytest.mark.parametrize("T", PACK_ROWS)
+def test_partition_pack_tile_edges(card, T, P):
+    rng = np.random.default_rng(T)
+    ids = torch.from_numpy(rng.integers(0, P, T).astype(np.int32)).to(card)
+    cap = int(torch.bincount(ids, minlength=P).max())
+    _pack_vs_plain(_mixed_groups(T, T, card), ids, P, cap + 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [8, 64, 2048])
+@pytest.mark.parametrize("cap_of", ["zero", "below"])
+def test_partition_pack_drops(card, P, cap_of):
+    """Capacity 0 (empty buffers, counts and slots still right) and a
+    capacity below the largest count (rows past it dropped)."""
+    T = 3 * TILE + 100
+    rng = np.random.default_rng(P + 1)
+    ids = torch.from_numpy(rng.integers(0, P, T).astype(np.int32)).to(card)
+    top = int(torch.bincount(ids, minlength=P).max())
+    cap = 0 if cap_of == "zero" else max(top // 2, 1)
+    _pack_vs_plain(_mixed_groups(T, P, card), ids, P, cap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [8, 64, 1024])
+def test_partition_pack_ids_out_of_range(card, P):
+    """Ids below 0 or at n_parts and above: slot -1, not counted, not
+    packed; the other rows ranked among themselves."""
+    T = 2 * TILE + 33
+    rng = np.random.default_rng(P + 2)
+    ids = rng.integers(0, P, T).astype(np.int32)
+    bad = rng.random(T) < 0.1
+    ids[bad] = rng.choice([-1, -7, P, P + 5, 2 ** 31 - 1], bad.sum())
+    ids = torch.from_numpy(ids).to(card)
+    _pack_vs_plain(_mixed_groups(T, P, card), ids, P, T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [8, 16, 64, 1024])
+def test_partition_pack_kernels_per_call(card, P):
+    """Two CUDA kernels a pack call up to the look-back threshold
+    (K.LOOKBACK_MAX_PARTS), three above (the multi-pass route), all of
+    them partition_pack's: no fill or copy (the workspace is warm after
+    the first call)."""
+    from torch.profiler import ProfilerActivity, profile
+    T = 100_000
+    rng = np.random.default_rng(P)
+    ids = torch.from_numpy(rng.integers(0, P, T).astype(np.int32)).to(card)
+    groups = _mixed_groups(T, P, card)[:3]
+    K.pack(groups, ids, P, T // P * 2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        K.pack(groups, ids, P, T // P * 2)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == (2 if P <= K.LOOKBACK_MAX_PARTS else 3), names
+    assert all(n.split("<")[0].split("(")[0].split()[-1].startswith("pp_")
+               for n in names), names
+
+
+_KEYS = [0, -1, 1, -2 ** 63, 2 ** 63 - 1, 12345, -98765]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, 8, 1024])
+def test_pack_by_key_ids_equal_partition_ids(card, n):
+    """splitmix64 mod n in native uint64 on the card equals the int64
+    emulation of relational.ops.partition_ids, bit for bit; the pack is
+    the plain pack at capacity = the largest count."""
+    from repro_torch.relational.ops import partition_ids
+    rng = np.random.default_rng(n)
+    keys = np.concatenate([np.asarray(_KEYS, np.int64),
+                           rng.integers(-2 ** 63, 2 ** 63 - 1, 50_000,
+                                        dtype=np.int64)])
+    key = torch.from_numpy(keys).to(card)
+    groups = _mixed_groups(len(keys), n, card)
+    before = K.launches
+    bufs, counts, ids = K.pack_by_key(groups, key, n)
+    torch.cuda.synchronize()
+    assert K.launches == before + 1
+    want_ids = partition_ids(key, n)
+    assert torch.equal(ids, want_ids)
+    assert counts == torch.bincount(want_ids, minlength=n).tolist()
+    cap = max(counts)
+    for g, buf in zip(groups, bufs):
+        want, _, _, _ = ref.pack(g, want_ids, n, cap)
+        assert torch.equal(buf, want)
+    # another integer type is hashed as its int64 value
+    small = key[:1000].to(torch.int32)
+    _, c32, ids32 = K.pack_by_key([], small, n)
+    assert torch.equal(ids32, partition_ids(small.to(torch.int64), n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8, 64])
+def test_op_partition_syncs_once(card, n):
+    """op_partition on a CUDA table: one host sync (the counts), no
+    elementwise hash kernel, and the CPU op_partition's partitions."""
+    import warnings
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.relational import ops
+    from repro_torch.relational.table import DictColumn
+    from repro_torch.relational.tpch import generate
+    li = generate(0.01, seed=3)["lineitem"]
+    t = li.project(["l_orderkey", "l_quantity", "l_shipdate",
+                    "l_shipmode", "l_extendedprice"])
+    want = ops.op_partition(t, "l_orderkey", n)
+    on_card = t.to(card)
+    ops.op_partition(on_card, "l_orderkey", n)          # warm workspace
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            got = ops.op_partition(on_card, "l_orderkey", n)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    assert len(syncs) == 1, [str(w.message) for w in syncs]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ops.op_partition(on_card, "l_orderkey", n)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert not any("elementwise" in nm or "bincount" in nm for nm in names), \
+        names
+    assert len(got) == len(want) == n
+    for g, w in zip(got, want):
+        assert g.column_names() == w.column_names()
+        for c in w.column_names():
+            a, b = g[c], w[c]
+            if isinstance(b, DictColumn):
+                assert a.values == b.values
+                a, b = a.codes, b.codes
+            assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+
+
 def _ssd_inputs(B, S, H, P, G, N, seed, dev):
     rng = np.random.default_rng(seed)
     f = np.float32

@@ -111,3 +111,65 @@ def test_build_names_every_source_by_content():
         lib = _build.target(src)
         assert lib.parent == _build.BUILD_DIR and lib.suffix == ".so"
         assert lib.stem.startswith(src.stem + "-")
+
+
+def test_pack_by_key_refuses_cpu_tensors():
+    """The shuffle producer's kernel entry never runs the plain version."""
+    with pytest.raises(ValueError, match="CUDA"):
+        K.pack_by_key([torch.zeros(4, 2)], torch.arange(4), 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16])
+def test_pack_by_key_refuses_a_float_key(dtype):
+    with pytest.raises(ValueError, match="integer"):
+        K.pack_by_key([], torch.zeros(4, dtype=dtype), 2)
+
+
+@pytest.mark.parametrize("n_parts", [0, -3, K.MAX_PARTS + 1])
+def test_pack_by_key_refuses_n_parts_out_of_range(n_parts):
+    with pytest.raises(ValueError, match="outside"):
+        K.pack_by_key([], torch.arange(4), n_parts)
+
+
+def test_pack_by_key_refuses_non_contiguous_groups():
+    g = torch.zeros(2, 4, dtype=torch.int32).t()
+    assert g.shape == (4, 2) and not g.is_contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        K.pack_by_key([g], torch.arange(4), 2)
+    with pytest.raises(ValueError, match="at most"):
+        K.pack_by_key([torch.zeros(4, 1)] * (K.MAX_GROUPS + 1),
+                      torch.arange(4), 2)
+
+
+def test_workspace_tickets_epochs_and_status():
+    """A call's tickets start where the last call's ended, every call has a
+    new epoch, the status words grow (zeroed) and are zeroed again only
+    when the epoch wraps."""
+    ws = K.Workspace("cpu")
+    assert ws.place(3, 8) == (0, 1)
+    assert ws.status.numel() == 24 and not ws.status.any()
+    ws.status.fill_(7)
+    assert ws.place(2, 8) == (3, 2)
+    assert ws.status.numel() == 24 and bool((ws.status == 7).all())
+    assert ws.place(5, 8) == (5, 3)
+    assert ws.status.numel() == 48 and not ws.status.any()
+    assert ws.hash(4) == 0 and ws.hash(2) == 4 and ws.issued == [10, 6]
+    ws.status.fill_(7)
+    ws.epoch = K.EPOCH_LIMIT - 1
+    assert ws.place(1, 8) == (10, 1)
+    assert not ws.status.any()
+    assert ws.ticket(1) == ws.ticket(0) + 8
+    assert not ws.acc.any() and ws.acc.numel() == K.MAX_PARTS
+
+
+def test_op_partition_of_an_empty_table_on_the_cpu():
+    from repro_torch.relational.ops import op_partition
+    from repro_torch.relational.table import Table
+    t = Table({"k": torch.zeros(0, dtype=torch.int64),
+               "v": torch.zeros(0, dtype=torch.int32)})
+    parts = op_partition(t, "k", 3)
+    assert len(parts) == 3
+    for p in parts:
+        assert len(p) == 0 and p.column_names() == ["k", "v"]
+        assert p["k"].dtype == torch.int64 and p["v"].dtype == torch.int32
