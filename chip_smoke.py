@@ -30,6 +30,20 @@ Phases, each printing its own lines and seconds:
      partition_pack must have launched in q3, q5, q12 and q14;
   6. structural parity: q3 and q12 at compute_scale=0 on cuda and on cpu
      give identical latency, cost, GETs, PUTs and task counts;
+  6a. workload: the SF 1 engine behind Session.from_coordinator runs a
+     24-query TPC-H mix (Poisson, virtual mean 5 s) through run_mix:
+     p50/p99, $ per query, wall, the Fig-7 break-even; partition_pack
+     must launch, no serve kernel may, every record finite;
+  6b. workload parity: the same mix and an exact two-tenant fleet (a
+     foreground quota, a background tenant under admission="reject") on
+     cuda and on cpu at SF 0.05, compute_scale=0: equal exactly;
+  6c. failover: q12 and q3 killed halfway on the SF 1 store at
+     compute_scale=0: the replay passes the store's immutability audit,
+     latency and cost equal a run with no kill, rows equal the oracle;
+  6d. trace: q12 and q3 through Session(trace=True, metrics=True) equal
+     the untraced run; the Chrome export round-trips;
+  6e. planner: pareto_search for q12 over 6 configs on cuda and on cpu
+     at SF 0.05: equal frontiers;
   7. ssd kernel phase: ssd_scan (CUDA) against its plain version
      (ssd_chunked) on the card at the Pallas kernel test's CASES, the
      smoke config's chunk, a sequence shorter than its chunk and the serve
@@ -58,12 +72,15 @@ Phases, each printing its own lines and seconds:
      heads, D 128, causal), within 2e-5 in f32 and 2e-2 in bf16, with
      kernel, plain, library (scaled_dot_product_attention, timed as a
      yardstick only) and bound times at the main shape;
+ 10a. grad: a dense smoke layer's wq/wk/wv gradients through flash_gqa
+     (one launch forward, none backward) against the CPU's, f32;
  11. dense serve phase, after the Mamba weights are released: the serve
      cell glm4-9b at full width and depth (40 layers, 9.4 B parameters)
      through launch/serve.generate, 4 prompts of 512 tokens and 32 new
      tokens, as in phase 8: flash_gqa must launch once a layer (40) in the
-     prefill; replay vs prefill in bf16 against the f32 answer and in f32
-     (one 128-token prompt) within 2e-3;
+     prefill and 0 attention calls routed to the plain path; replay vs
+     prefill in bf16 against the f32 answer and in f32 (one 128-token
+     prompt) within 2e-3;
  12. dense parity phase: glm4-9b at 2 layers and full width, one
      128-token prompt, card prefill against CPU prefill in f32 (1e-3) and
      bf16 (5 % relative L2), and smollm-135m at full depth (30 layers, its
@@ -89,7 +106,11 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.configs.smoke import smoke_config  # noqa: E402
+from repro_torch.core.coordinator import Coordinator  # noqa: E402
 from repro_torch.core.engine import make_engine, oracle, run_query  # noqa
+from repro_torch.core.session import QuerySpec, Session  # noqa: E402
+from repro_torch.faults.journal import Journal  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_gqa import flash_gqa as FK  # noqa: E402
 from repro_torch.kernels.flash_gqa.ref import attention_ref  # noqa: E402
@@ -102,8 +123,13 @@ from repro_torch.launch.bench_pack import (  # noqa: E402
     host_syncs, is_kernel, is_pp, pack_bytes, profile_record, time_cold_ms,
     time_ms)
 from repro_torch.launch.steps import make_prefill_step  # noqa: E402
+from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
-from repro_torch.models.modules import tree_leaves, tree_map  # noqa: E402
+from repro_torch.models.modules import (  # noqa: E402
+    Sharder, init_params, tree_leaves, tree_map)
+from repro_torch import planner as PL  # noqa: E402
+from repro_torch import workload as WL  # noqa: E402
+from repro_torch.obs.trace import from_chrome  # noqa: E402
 from repro_torch.relational import ops as OPS  # noqa: E402
 from repro_torch.relational.table import DictColumn, decode_object  # noqa
 
@@ -165,6 +191,16 @@ DENSE_ARCH, SMOLLM_ARCH = "glm4-9b", "smollm-135m"
 DENSE_F32_PROMPT = 128             # the f32 replay at full depth
 DENSE_PARITY_LAYERS, DENSE_PARITY_PROMPT = 2, 128
 
+# the workload phases: a TPC-H mix of 24 queries (weights of
+# workload.TPCH_MIX) with Poisson arrivals at a virtual mean of 5 s, on the
+# SF 1 engine of the query phase; the exact cuda-vs-cpu checks (mix, fleet,
+# planner, trace) run at SMALL_SF, where the CPU side takes seconds
+MIX_QUERIES, MIX_INTERARRIVAL_S = 24, 5.0
+SMALL_SF = 0.05
+FAILOVER_QUERIES = ("q12", "q3")      # the stages that aggregate floats
+PLANNER_GRID = [{"join": nt} for nt in (2, 8, 32)]
+GRAD_TOL = 1e-3                       # card vs CPU gradients, f32, of max
+
 
 class SmokeFailure(Exception):
     pass
@@ -183,7 +219,7 @@ def phase(name: str, t0: float):
 
 
 def zero_counts():
-    K.launches = SK.launches = FK.launches = 0
+    K.launches = SK.launches = FK.launches = FK.routed = 0
 
 
 def counts() -> dict:
@@ -207,17 +243,12 @@ def check_pack(label: str, groups: list[torch.Tensor], ids: torch.Tensor,
     the others get slot -1 and land nowhere. -> the largest |difference|."""
     bufs, counts, slots = K.pack(groups, ids, n_parts, capacity)
     torch.cuda.synchronize()
-    valid = (ids >= 0) & (ids < n_parts)
-    slot_v, want_counts, keep = pp_ref.pack_indices(ids[valid], n_parts,
-                                                    capacity)
-    want_slots = torch.full_like(ids, -1)
-    want_slots[valid] = slot_v
+    wants, want_counts, want_slots = K.plain_pack(groups, ids, n_parts,
+                                                  capacity)
     check(torch.equal(counts, want_counts), f"{label}: counts differ")
     check(torch.equal(slots, want_slots), f"{label}: slots differ")
     err = 0.0
-    for g, buf in zip(groups, bufs):
-        want = pp_ref.pack_rows(g[valid], ids[valid], slot_v, keep, n_parts,
-                                capacity)
+    for buf, want in zip(bufs, wants):
         check(buf.shape == want.shape and torch.equal(buf, want),
               f"{label}: buf differs")
         err = max(err, float((buf.double() - want.double()).abs().max())
@@ -449,7 +480,7 @@ def query_phase(coord, tables) -> int:
             flush=True)
         if q in MUST_PACK:
             check(delta > 0, f"{q}: partition_pack never launched")
-    return K.launches
+    return K.launches, expected
 
 
 def parity_phase():
@@ -466,6 +497,229 @@ def parity_phase():
                 b.task_count)
         print(f"[parity] {q} cuda {got} cpu {want}", flush=True)
         check(got == want, f"{q}: cuda and cpu runs differ structurally")
+
+
+# ---------------------------------------------------------- workload phases
+def finite(*xs) -> bool:
+    return all(np.isfinite(x) for x in xs)
+
+
+def mix_args():
+    return (WL.sample_mix(WL.TPCH_MIX, MIX_QUERIES, seed=SEED),
+            WL.poisson(MIX_QUERIES, MIX_INTERARRIVAL_S, seed=SEED))
+
+
+def workload_phase(coord) -> int:
+    """The query phase's SF 1 engine behind Session.from_coordinator runs
+    a 24-query TPC-H mix through run_mix: every shuffle producer on
+    partition_pack, no serve kernel. -> partition_pack's launches."""
+    zero_counts()                                # the workload path's count
+    t0 = time.perf_counter()
+    wl = Session.from_coordinator(coord).run_mix(*mix_args())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts()
+    fr = WL.frontier(wl.cost_per_query)
+    summ = wl.summary
+    print("[workload] " + json.dumps({
+        "queries": summ["queries"], "sf": SF,
+        "mean_interarrival_s": MIX_INTERARRIVAL_S,
+        "latency_s_p50": summ["latency_s_p50"],
+        "latency_s_p99": summ["latency_s_p99"],
+        "queue_delay_s_p99": summ["queue_delay_s_p99"],
+        "makespan_s": wl.makespan_s, "cost_per_query": wl.cost_per_query,
+        "wall_s": wall, "partition_pack_launches": launched["partition_pack"],
+        "break_even_threshold_s": fr.threshold_s,
+        "break_even_s": fr.break_even_s}), flush=True)
+    check(launched["partition_pack"] > 0,
+          "partition_pack never launched on the workload path")
+    check(launched["ssd_scan"] == launched["flash_gqa"] == 0,
+          f"serve kernels launched on the workload path: {launched}")
+    check(len(wl.records) == MIX_QUERIES and all(
+        finite(r.arrival_s, r.queue_delay_s, r.latency_s, r.cost.total)
+        and not r.failed for r in wl.records), "a workload record is not "
+          "finite or failed")
+    check(finite(fr.threshold_s), f"break-even threshold {fr.threshold_s}")
+    return launched["partition_pack"]
+
+
+def _record_sig(r) -> tuple:
+    return (r.name, r.tenant, r.rejected, r.arrival_s, r.queue_delay_s,
+            r.latency_s, r.cost.total, r.cost.gets, r.cost.puts,
+            r.task_count, r.backup_count, r.columns_read)
+
+
+def _fleet_streams():
+    """fg: foreground under a slot quota; bg: background, rejected past
+    one query in flight."""
+    return [WL.TenantStream.open_loop(
+                WL.TenantSpec("fg", slot_quota=16), WL.TPCH_MIX, 4,
+                mean_interarrival_s=2.0, seed=1),
+            WL.TenantStream.open_loop(
+                WL.TenantSpec("bg", priority="background",
+                              admission="reject", max_inflight=1),
+                WL.TPCH_MIX, 4, mean_interarrival_s=0.5, seed=2)]
+
+
+def small_session(dev: str, **kw) -> Session:
+    return Session(sf=SMALL_SF, seed=SEED, compute_scale=0.0,
+                   executor_workers=1, device=dev, **kw)
+
+
+def workload_parity_phase():
+    """run_mix and an exact two-tenant run_fleet on cuda and on cpu at
+    compute_scale=0: records and fleet numbers equal exactly."""
+    out = {}
+    for dev in ("cuda", "cpu"):
+        wl = small_session(dev).run_mix(*mix_args())
+        fr = small_session(dev).run_fleet(_fleet_streams(), mode="exact")
+        out[dev] = ([_record_sig(r) for r in wl.records], wl.summary,
+                    [_record_sig(r) for r in fr.records], fr.tenants,
+                    fr.quota_max_held, fr.rejected, fr.event_pops)
+    got, want = out["cuda"], out["cpu"]
+    print("[workload-parity] " + json.dumps({
+        "sf": SMALL_SF, "mix_queries": len(got[0]),
+        "mix_latency_s_p99": got[1]["latency_s_p99"],
+        "fleet_queries": len(got[2]),
+        "fg_latency_s_p99": got[3]["fg"]["latency_s_p99"],
+        "bg_latency_s_p99": got[3]["bg"]["latency_s_p99"],
+        "quota_max_held": got[4], "rejected": got[5],
+        "event_pops": got[6], "equal": got == want}), flush=True)
+    check(got == want, "cuda and cpu workload runs differ")
+    check(got[5] > 0 and got[4]["fg"] <= 16,
+          f"fleet admission or quota not exercised: {got[4]}, {got[5]}")
+
+
+def failover_phase(coord, expected: dict):
+    """run_with_failover of q12 and q3 on the card at compute_scale=0
+    over the SF 1 store, killed halfway: the replay passes the store's
+    immutability audit (every re-PUT byte-identical); latency, cost and
+    journal frontier equal a run with no kill; the rows equal the
+    oracle's."""
+    c0 = Coordinator(coord.store, coord.base_splits, coord.policy,
+                     seed=coord.seed, max_parallel=coord.max_parallel,
+                     compute_scale=0.0, executor_workers=1,
+                     device=coord.device)
+    sess = Session.from_coordinator(c0)
+    for q in FAILOVER_QUERIES:
+        journal = Journal()
+        whole = sess.spawn(journal).run_query(QuerySpec(q).build_plan())
+        kill = journal.count // 2
+        t0 = time.perf_counter()
+        res, j = sess.run_with_failover(q, kill_after=kill)
+        torch.cuda.synchronize()
+        print("[failover] " + json.dumps({
+            "query": q, "event_pops": journal.count, "kill_after": kill,
+            "latency_s": res.latency_s, "cost": res.cost.total,
+            "replay_wall_s": time.perf_counter() - t0,
+            "checkpoints": len(j.entries)}), flush=True)
+        check((res.latency_s, res.cost) == (whole.latency_s, whole.cost),
+              f"{q}: failover latency or cost differs from the run with no "
+              "kill")
+        check(j.frontier == journal.frontier, f"{q}: journal frontier "
+              "differs")
+        same_result(res.result, expected[q], f"{q} failover")
+
+
+def trace_phase():
+    """q12 and q3 through Session(trace=True, metrics=True) on the card:
+    results and latency equal the untraced run's; the Chrome export
+    round-trips."""
+    import tempfile
+    traced = small_session("cuda", trace=True, metrics=True)
+    plain = small_session("cuda")
+    for q in FAILOVER_QUERIES:
+        a, b = traced.submit(q), plain.submit(q)
+        check((a.latency_s, a.cost, a.task_count)
+              == (b.latency_s, b.cost, b.task_count),
+              f"{q}: traced run differs from the untraced one")
+        same_result(a.result, b.result, f"{q} traced")
+    traced.tracer.finalize()
+    traced.tracer.validate()
+    spans = list(traced.tracer.spans())
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        events = traced.tracer.to_chrome(str(path))
+        rebuilt = [sp for r in from_chrome(json.loads(path.read_text()))
+                   for sp in r.walk()]
+    metrics = traced.metrics.registry.collect()
+    print("[trace] " + json.dumps({
+        "queries": list(FAILOVER_QUERIES), "spans": len(spans),
+        "chrome_events": len(events), "metrics": len(metrics),
+        "gets": metrics["gets"]["value"],
+        "queries_seen": metrics["queries"]["value"]}), flush=True)
+    check(len(rebuilt) == len(spans) > 0, "Chrome export lost spans")
+    check(metrics["queries"]["value"] == len(FAILOVER_QUERIES),
+          "metrics saw another number of queries")
+
+
+def planner_phase():
+    """pareto_search for q12 over a small grid on the card and on the CPU:
+    equal frontiers (configs, predicted and simulated latency and
+    cost)."""
+    out = {}
+    for dev in ("cuda", "cpu"):
+        coord, _ = make_engine(sf=SMALL_SF, seed=SEED, compute_scale=0.0,
+                               executor_workers=1, record_events=True,
+                               device=dev)
+        model, _ = PL.QueryModel.from_probe(coord, "q12", {"join": 8})
+        ev = PL.QueryEvaluator(coord.store, coord.base_splits, "q12",
+                               seed=SEED, max_parallel=coord.max_parallel,
+                               executor_workers=1, device=dev)
+        grid = [PL.PlanConfig.make(nt, parallel_reads=pr)
+                for nt in PLANNER_GRID for pr in (8, 16)]
+        sr = PL.pareto_search(model, ev, grid,
+                              must_confirm=tuple(grid[::2]))
+        out[dev] = [(p.config, p.pred_latency_s, p.pred_cost_usd,
+                     p.sim_latency_s, p.sim_cost_usd) for p in sr.frontier]
+        n_conf = sr.sim_evals
+    print("[planner] " + json.dumps({
+        "sf": SMALL_SF, "grid": len(PLANNER_GRID) * 2, "confirmed": n_conf,
+        "frontier": [(dict(c.ntasks), c.parallel_reads, sl, sc)
+                     for c, _, _, sl, sc in out["cuda"]],
+        "equal": out["cuda"] == out["cpu"]}), flush=True)
+    check(out["cuda"] == out["cpu"] and out["cuda"],
+          "cuda and cpu planner frontiers differ")
+
+
+def grad_phase(dev):
+    """The gradients of a dense smoke layer's wq/wk/wv through flash_gqa
+    on the card against the CPU's (plain versions), f32, within GRAD_TOL of
+    each gradient's largest entry."""
+    cfg = smoke_config("glm4-9b").replace(compute_dtype=torch.float32)
+    x_np = np.random.default_rng(SEED).standard_normal(
+        (2, 128, cfg.d_model)).astype(np.float32)
+    cpu_params = init_params(TT.attn_defs(cfg),
+                             torch.Generator().manual_seed(SEED), "cpu")
+    grads, launched = {}, []
+    for d in (dev, torch.device("cpu")):
+        p = tree_map(lambda t: t.to(d).requires_grad_(), cpu_params,
+                     is_leaf=torch.is_tensor)
+        x = torch.from_numpy(x_np).to(d)
+        pos = torch.arange(x.shape[1], device=d)[None]
+        launched.append(FK.launches)
+        out, _ = TT.attn_apply(cfg, p, x, Sharder(), positions=pos)
+        launched.append(FK.launches)
+        gs = torch.autograd.grad(out.square().sum(),
+                                 [p["wq"], p["wk"], p["wv"]])
+        launched.append(FK.launches)
+        grads[d.type] = [g.cpu() for g in gs]
+    errs = [float((a - b).abs().max() / b.abs().max())
+            for a, b in zip(grads["cuda"], grads["cpu"])]
+    print("[grad] " + json.dumps({
+        "layer": "glm4-9b smoke attention", "head_dim": cfg.head_dim,
+        "rel_max_err_wq_wk_wv": errs,
+        "flash_gqa_launches_forward_backward": [
+            launched[1] - launched[0], launched[2] - launched[1]]}),
+        flush=True)
+    check(launched[1] - launched[0] == 1
+          and launched[2] == launched[1] == launched[5],
+          f"want one flash_gqa launch in the card's forward and none "
+          f"elsewhere: {launched}")
+    check(all(bool(torch.isfinite(g).all()) for g in grads["cuda"]),
+          "card gradients not finite")
+    check(max(errs) <= GRAD_TOL, f"card gradients differ from the CPU's: "
+          f"{errs}")
 
 
 # -------------------------------------------------------------- ssd kernel
@@ -597,6 +851,7 @@ def serve_phase(dev, arch: str, kernel: str, f32_prompt: int) -> int:
            "decode_ms_per_step": out.decode_s / out.decode_steps * 1e3,
            "tokens_per_s": B * cell.new / (out.prefill_s + out.decode_s),
            "max_memory_allocated": max_mem, "launches": launched,
+           "flash_gqa_routed": FK.routed,
            "replay_vs_prefill_rel_l2": rel_l2(lr, lp),
            "prefill_vs_f32_rel_l2": e_prefill,
            "replay_vs_f32_rel_l2": e_replay,
@@ -608,6 +863,8 @@ def serve_phase(dev, arch: str, kernel: str, f32_prompt: int) -> int:
           f"layer ({cfg.num_layers})")
     check(sum(launched.values()) == launches,
           f"other kernels launched on the {arch} serve path: {launched}")
+    check(FK.routed == 0, f"{FK.routed} attention calls routed to the "
+          f"plain path on the {arch} serve path")
     check(tuple(lp.shape) == (B, 1, cfg.vocab_size),
           f"prefill logits of shape {tuple(lp.shape)}")
     check(bool(torch.isfinite(lp).all() and torch.isfinite(lr).all()
@@ -647,20 +904,23 @@ def prefill_parity(cfg, prompt: int, dev, kernel: str, dtypes):
     for dtype in dtypes:
         bundle = build_model(cfg.replace(compute_dtype=dtype))
         step = make_prefill_step(bundle)
-        before = counts()[kernel]
+        before, routed = counts()[kernel], FK.routed
         got, _ = step(params, serve.prefill_batch(bundle, tokens.to(dev)))
         got = got.cpu().float()
         launched = counts()[kernel] - before
+        routed = FK.routed - routed
         want, _ = step(on_cpu, serve.prefill_batch(bundle, tokens))
         want = want.float()
         err, rel = float((got - want).abs().max()), rel_l2(got, want)
         print("[parity-serve] " + json.dumps({
             "arch": cfg.name, "layers": cfg.num_layers, "prompt": prompt,
             "dtype": str(dtype), f"{kernel}_launches": launched,
+            "flash_gqa_routed": routed,
             "max_abs_err": err, "rel_l2": rel,
             "logit_scale_max_abs": float(want.abs().max())}), flush=True)
-        check(launched == cfg.num_layers,
-              f"{cfg.name}: {kernel} launched {launched} times")
+        check(launched == cfg.num_layers and routed == 0,
+              f"{cfg.name}: {kernel} launched {launched} times, "
+              f"{routed} calls routed to the plain path")
         check(bool(torch.isfinite(got).all()), "card logits not finite")
         if dtype == torch.float32:
             check(bool(((got - want).abs() <= PARITY_TOL
@@ -808,7 +1068,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     zero_counts()                                # the query path's count
-    launches = query_phase(coord, tables)
+    launches, expected = query_phase(coord, tables)
     check(FK.launches == SK.launches == 0,
           f"serve kernels launched on the query path: {counts()}")
     phase("query", t0)
@@ -816,6 +1076,28 @@ def main() -> int:
     t0 = time.perf_counter()
     parity_phase()
     phase("parity", t0)
+
+    t_new = t0 = time.perf_counter()
+    wl_launches = workload_phase(coord)
+    phase("workload", t0)
+
+    t0 = time.perf_counter()
+    workload_parity_phase()
+    phase("workload-parity", t0)
+
+    t0 = time.perf_counter()
+    failover_phase(coord, expected)
+    phase("failover", t0)
+
+    t0 = time.perf_counter()
+    trace_phase()
+    phase("trace", t0)
+
+    t0 = time.perf_counter()
+    planner_phase()
+    phase("planner", t0)
+    print(f"[phase] new phases of this slice: "
+          f"{time.perf_counter() - t_new:.3f} s", flush=True)
 
     t0 = time.perf_counter()
     ssd_rec, ssd_err = ssd_phase(dev)
@@ -835,6 +1117,10 @@ def main() -> int:
     t0 = time.perf_counter()
     flash_rec, flash_err = flash_phase(dev)
     phase("flash kernel", t0)
+
+    t0 = time.perf_counter()
+    grad_phase(dev)
+    phase("grad", t0)
 
     t0 = time.perf_counter()
     print(f"[dense] allocated before the dense phases: {release()} bytes",
@@ -857,7 +1143,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/partition_pack/csrc/"
                   "partition_pack.cu",
         "replaces": "src/repro/kernels/partition_pack/partition_pack.py:83",
-        "launches": launches,
+        "launches": launches + wl_launches,
+        "launches_by_path": {"query": launches, "workload": wl_launches},
         "max_abs_err": max(r["max_abs_err"] for r in recs),
         "ms": main_rec["kernel_ms"], "plain_ms": main_rec["plain_ms"],
         "bound_ms": main_rec["bound_ms"], "bound_by": "bytes",

@@ -67,7 +67,8 @@ def make_engine(sf: float = 0.002, *, seed: int = 0,
                 compute_scale: float = 1.0,
                 executor_workers: int | None = None,
                 record_events: bool = False, max_events: int | None = None,
-                faults=None, coldstart=None, retry=None, device=None):
+                faults=None, coldstart=None, retry=None, journal=None,
+                device=None):
     """(coordinator, tables) over a fresh simulated store.
 
     ``device`` is where the workers run the operators: ``None`` means
@@ -79,9 +80,10 @@ def make_engine(sf: float = 0.002, *, seed: int = 0,
     ``data_seed`` (default: ``seed``) drives the generated dataset.
     ``record_events=True`` keeps the coordinator's request-level event log
     in ``coord.event_log``; ``max_events`` caps that list.
-    ``faults``/``coldstart``/``retry`` configure the §3 fault path; all
-    default off, in which case the engine is bit-identical to the
-    fault-free one. The returned tables are the generator's, on the CPU.
+    ``faults``/``coldstart``/``retry``/``journal`` configure the §3 fault
+    path (``repro_torch.faults``); all default off, in which case the
+    engine is bit-identical to the fault-free one. The returned tables are
+    the generator's, on the CPU.
     """
     dev = resolve_device(device)
     tables = generate(sf, seed=seed if data_seed is None else data_seed)
@@ -94,7 +96,7 @@ def make_engine(sf: float = 0.002, *, seed: int = 0,
                         executor_workers=executor_workers,
                         record_events=record_events, max_events=max_events,
                         faults=faults, coldstart=coldstart, retry=retry,
-                        device=str(dev))
+                        journal=journal, device=str(dev))
     return coord, tables
 
 

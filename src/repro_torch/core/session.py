@@ -6,13 +6,13 @@
   * :class:`Session` — owns one engine (store + coordinator + tables) on
     one torch device and exposes ``submit`` (one query), ``run`` (a batch
     on ONE shared slot pool, open- or closed-loop), ``swap_config`` and
-    ``spawn`` — all building plans through the same
-    ``QuerySpec.build_plan`` path.
+    ``run_mix`` (a workload through ``WorkloadDriver``), ``run_fleet``
+    (tenant streams, ``workload.tenancy``), ``swap_config``, ``spawn``
+    and ``run_with_failover`` (§3 coordinator kill + journaled replay) —
+    all building plans through the same ``QuerySpec.build_plan`` path.
 
-``run_mix``, ``run_fleet``, ``failover``/``run_with_failover`` and the
-``trace``/``metrics`` observers wait for the slices of the port that
-bring ``workload/``, ``faults/journal.py`` and ``obs/``; until then they
-raise ``NotImplementedError``.
+Every coordinator a session builds or spawns runs its workers on the
+session's device.
 """
 from __future__ import annotations
 
@@ -21,11 +21,6 @@ import dataclasses
 from repro_torch.core.coordinator import Coordinator, QueryResult
 from repro_torch.planner.model import coerce_config
 from repro_torch.relational.tpch import QUERIES
-
-
-def _later(what: str, slice_: str):
-    raise NotImplementedError(f"{what} waits for the port's {slice_} "
-                              "slice")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,19 +74,31 @@ class Session:
     ``engine.make_engine``, including ``device``: ``None`` means
     ``"cuda"``); ``Session.from_coordinator(coord)`` wraps an existing one
     (``tables`` is then None).
+
+    ``trace=True`` attaches a :class:`repro_torch.obs.trace.Tracer`
+    (``session.tracer``): every run records a causal span tree (query ->
+    stage -> task -> request), exportable to Chrome/Perfetto via
+    ``session.tracer.to_chrome(path)``. ``metrics=True`` attaches a
+    :class:`repro_torch.obs.metrics.MetricsObserver` (``session.metrics``).
+    Both are read-only observers of popped events: results are the same
+    with them on or off.
     """
 
     def __init__(self, *, trace: bool = False, metrics: bool = False,
                  **engine_opts):
-        if trace:
-            _later("Session(trace=True)", "obs/")
-        if metrics:
-            _later("Session(metrics=True)", "obs/")
         from repro_torch.core.engine import make_engine
         self.engine_opts = dict(engine_opts)
         self.coord, self.tables = make_engine(**engine_opts)
         self.tracer = None
         self.metrics = None
+        if trace:
+            from repro_torch.obs.trace import Tracer
+            self.tracer = Tracer()
+            self.coord.attach_observer(self.tracer)
+        if metrics:
+            from repro_torch.obs.metrics import MetricsObserver
+            self.metrics = MetricsObserver()
+            self.coord.attach_observer(self.metrics)
 
     @classmethod
     def from_coordinator(cls, coord: Coordinator) -> "Session":
@@ -121,10 +128,16 @@ class Session:
             tenants=[s.tenant for s in qspecs])
 
     def run_mix(self, classes, arrivals):
-        _later("Session.run_mix", "workload/")
+        """A sampled workload mix through ``WorkloadDriver`` (records +
+        percentile summaries instead of raw QueryResults)."""
+        from repro_torch.workload.driver import WorkloadDriver
+        return WorkloadDriver(self.coord).run(classes, arrivals)
 
     def run_fleet(self, streams, *, mode: str = "exact", **kw):
-        _later("Session.run_fleet", "workload/")
+        """Multi-tenant tenant streams (``workload.tenancy.run_fleet``):
+        quotas, admission control, and the calibrated hybrid mode."""
+        from repro_torch.workload.tenancy import run_fleet
+        return run_fleet(self, streams, mode=mode, **kw)
 
     # ------------------------------------------------------- adaptivity
     def swap_config(self, config):
@@ -141,9 +154,9 @@ class Session:
         """A fresh coordinator over this session's SAME store and base
         splits, on the same device. Scheduling options are copied from the
         current coordinator, so the replacement replays bit-identically.
-        ``record_events`` overrides the copied event-recording flag."""
-        if journal is not None:
-            _later("Session.spawn(journal=...)", "faults/journal.py")
+        ``journal`` (a ``faults.journal.Journal``) makes it a failover
+        replacement; ``record_events`` overrides the copied
+        event-recording flag."""
         c = self.coord
         return Coordinator(
             c.store, c.base_splits, c.policy, seed=c.seed,
@@ -152,13 +165,40 @@ class Session:
             record_events=c.event_log is not None
             if record_events is None else record_events,
             max_events=c.max_events, faults=c.faults,
-            coldstart=c.coldstart, retry=c.retry, device=c.device)
+            coldstart=c.coldstart, retry=c.retry, journal=journal,
+            device=c.device)
 
     @staticmethod
     def failover(make_coordinator, plan: dict, *, kill_after: int,
                  checkpoint_every: int = 64):
-        _later("Session.failover", "faults/journal.py")
+        """Kill a coordinator after ``kill_after`` event pops, fail over
+        to a fresh one built by ``make_coordinator(journal)``, and replay
+        under ``store.verify_replay`` (§3.2 immutability audit). Returns
+        ``(result, journal)``."""
+        from repro_torch.faults.journal import CoordinatorKilled, Journal
+        journal = Journal(checkpoint_every)
+        coord = make_coordinator(journal)
+        journal.arm_kill(kill_after)
+        try:
+            coord.run_query(plan)
+        except CoordinatorKilled:
+            pass
+        else:
+            raise ValueError(f"kill_after={kill_after} exceeds the "
+                             "query's event count — nothing was killed")
+        journal.resume()
+        coord2 = make_coordinator(journal)
+        coord2.store.verify_replay = True
+        try:
+            result = coord2.run_query(plan)
+        finally:
+            coord2.store.verify_replay = False
+        return result, journal
 
     def run_with_failover(self, spec, *, kill_after: int,
                           checkpoint_every: int = 64):
-        _later("Session.run_with_failover", "faults/journal.py")
+        """The instance form: kill THIS session's style of coordinator
+        mid-query and fail over onto the same store via ``spawn``."""
+        plan = QuerySpec.coerce(spec).build_plan()
+        return self.failover(self.spawn, plan, kill_after=kill_after,
+                             checkpoint_every=checkpoint_every)

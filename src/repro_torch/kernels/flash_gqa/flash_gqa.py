@@ -7,7 +7,13 @@ head layout [B,S,Hkv,D], with a query-head -> kv-head map instead of a
 repeat of k and v. bf16 runs on the tensor cores, f32 on the f32 pipes.
 It checks device, dtype, shape, contiguity, alignment and the map,
 allocates the output, launches on the current stream, checks the error
-code, and counts one launch per call in ``launches``.
+code, and counts one launch per call in ``launches``. Where grad is needed
+the call runs inside an autograd Function whose backward is the plain
+version's (``kernels/_autograd.py``).
+
+``takes`` says by shape alone whether the kernel takes a call; a model
+sends the calls it does not take to the plain path and counts them with
+``count_routed`` in ``routed``.
 """
 from __future__ import annotations
 
@@ -18,8 +24,11 @@ import threading
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._autograd import kernel_call
+from repro_torch.kernels.flash_gqa.ref import attention_ref
 
 launches = 0                      # flash_gqa() calls that launched the kernel
+routed = 0                        # calls the model sent to the plain path
 HEAD_DIMS = (16, 32, 64, 128)     # the head dims the kernel takes
 _count_lock = threading.Lock()
 _P = ctypes.c_void_p
@@ -78,6 +87,31 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return m
 
 
+def takes(q_shape, k_shape, v_shape) -> bool:
+    """Whether the kernel takes q/k/v of these shapes: k and v alike
+    (so v's head dim is k's), Sq == Skv and a head dim in HEAD_DIMS."""
+    return (len(q_shape) == 4 and tuple(k_shape) == tuple(v_shape)
+            and len(k_shape) == 4 and q_shape[1] == k_shape[1]
+            and q_shape[3] == k_shape[3] and q_shape[3] in HEAD_DIMS)
+
+
+def count_routed():
+    """Count one call that a model sent to the plain path because the
+    kernel does not take its shapes (``takes``)."""
+    global routed
+    with _count_lock:
+        routed += 1
+
+
+def plain(q, k, v, *, causal: bool = True, window: int = 0, kv_head=None):
+    """The plain version on any device: ``attention_ref`` over k and v
+    gathered to the query heads by the map (refusing what ``check_args``
+    refuses)."""
+    m = torch.tensor(check_args(q, k, v, window, kv_head), device=q.device)
+    return attention_ref(q, k.index_select(2, m), v.index_select(2, m),
+                         causal=causal, window=window)
+
+
 def _map_on(m: tuple[int, ...], dev: torch.device) -> torch.Tensor:
     """The map as int32 on ``dev``, copied there once per distinct map."""
     key = (m, dev)
@@ -94,7 +128,16 @@ def flash_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     bf16 alike; ``kv_head``: query head -> kv head (host ints, default h //
     (H / Hkv)). -> o [B,S,H,D] in q's dtype: softmax(q.k / sqrt(D)) v over
     the keys at or before each query (``causal``) and within the last
-    ``window`` positions (``window`` > 0)."""
+    ``window`` positions (``window`` > 0). Differentiable in q, k and v
+    through the plain version."""
+    kw = {"causal": causal, "window": window, "kv_head": kv_head}
+    return kernel_call(lambda *t: (_launch(*t, **kw),),
+                       lambda *t: (plain(*t, **kw),), q, k, v)[0]
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+            causal: bool, window: int, kv_head) -> torch.Tensor:
+    """One launch of the kernel (``flash_gqa`` without autograd)."""
     global launches
     dev = q.device
     if dev.type != "cuda":

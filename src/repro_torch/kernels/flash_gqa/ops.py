@@ -3,10 +3,7 @@ tensors, the plain materialized attention for CPU tensors, nothing else.
 Both take the same arguments and refuse the same ones (``ValueError``)."""
 from __future__ import annotations
 
-import torch
-
 from repro_torch.kernels.flash_gqa import flash_gqa as K
-from repro_torch.kernels.flash_gqa.ref import attention_ref
 
 
 def flash_gqa(q, k, v, *, causal: bool = True, window: int = 0,
@@ -19,6 +16,4 @@ def flash_gqa(q, k, v, *, causal: bool = True, window: int = 0,
                            causal=causal, window=window, kv_head=kv_head)
     if q.device.type != "cpu":
         raise ValueError(f"flash_gqa has no path for {q.device}")
-    m = torch.tensor(K.check_args(q, k, v, window, kv_head))
-    return attention_ref(q, k.index_select(2, m), v.index_select(2, m),
-                         causal=causal, window=window)
+    return K.plain(q, k, v, causal=causal, window=window, kv_head=kv_head)

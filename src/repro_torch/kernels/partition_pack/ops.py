@@ -19,10 +19,7 @@ def partition_pack_groups(groups: list[torch.Tensor], part_ids: torch.Tensor,
         return K.pack(groups, part_ids, n_parts, capacity)
     if part_ids.device.type != "cpu":
         raise ValueError(f"partition_pack has no path for {part_ids.device}")
-    slot, counts, keep = ref.pack_indices(part_ids, n_parts, capacity)
-    bufs = [ref.pack_rows(g, part_ids, slot, keep, n_parts, capacity)
-            for g in groups]
-    return bufs, counts, slot
+    return K.plain_pack(groups, part_ids, n_parts, capacity)
 
 
 def partition_pack(rows: torch.Tensor, part_ids: torch.Tensor, *,

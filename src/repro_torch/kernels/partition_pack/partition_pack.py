@@ -18,7 +18,10 @@ The wrapper allocates every output with ``torch.empty``, launches on the
 current stream, checks the error code after each launch, and counts one
 launch per call in ``launches``. The look-back's ticket counters and
 status words live in a ``Workspace`` per (device, stream), which the
-module lock serializes.
+module lock serializes. Where grad is needed (a float row group that
+requires it) a call runs inside an autograd Function whose backward is the
+plain version's (``kernels/_autograd.py``): the float row groups get the
+gradient, the ids, counts and slots none.
 """
 from __future__ import annotations
 
@@ -28,6 +31,8 @@ import threading
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._autograd import kernel_call
+from repro_torch.kernels.partition_pack import ref
 
 launches = 0                      # pack() / pack_by_key() calls launched
 MAX_PARTS = 8192                  # PP_MAX_PARTS
@@ -200,6 +205,22 @@ def _launch_pack(lib, groups, bufs, ids, n_parts, capacity, known, counts,
         stream)
 
 
+def plain_pack(groups: list[torch.Tensor], part_ids: torch.Tensor,
+               n_parts: int, capacity: int):
+    """``pack``'s plain version on any device (``ref``), with the kernel's
+    slot -1 for ids outside [0, n_parts).
+    -> ([buf_g], counts [n_parts] int32, slots [T] int32)."""
+    ids = part_ids.long()
+    valid = (ids >= 0) & (ids < n_parts)
+    sel = torch.nonzero(valid).flatten()
+    vids = part_ids[sel]
+    slot, counts, keep = ref.pack_indices(vids, n_parts, capacity)
+    bufs = [ref.pack_rows(g[sel], vids, slot, keep, n_parts, capacity)
+            for g in groups]
+    slots = torch.full_like(part_ids, -1).index_put_((sel,), slot)
+    return bufs, counts, slots
+
+
 def pack(groups: list[torch.Tensor], part_ids: torch.Tensor, n_parts: int,
          capacity: int, clocks: torch.Tensor | None = None):
     """groups: row blocks [T, d_g] (elements of 2, 4 or 8 bytes) on one CUDA
@@ -208,7 +229,28 @@ def pack(groups: list[torch.Tensor], part_ids: torch.Tensor, n_parts: int,
     [ceil(T / TILE_ROWS), PHASE_CLOCKS] tensor on the device that receives
     each tile's phase clocks (``PHASES``, ns on the device's clock).
     -> ([buf_g [n_parts, capacity, d_g]], counts [n_parts] int32,
-        slots [T] int32)."""
+        slots [T] int32). The float groups' buffers are differentiable
+    through ``plain_pack``."""
+    n = len(groups)
+
+    def launch(*t):
+        bufs, counts, slots = _launch_pack_call(list(t[:n]), t[n], n_parts,
+                                                capacity, clocks)
+        return (*bufs, counts, slots)
+
+    def plain(*t):
+        bufs, counts, slots = plain_pack(list(t[:n]), t[n], n_parts,
+                                         capacity)
+        return (*bufs, counts, slots)
+
+    *bufs, counts, slots = kernel_call(launch, plain, *groups, part_ids)
+    return bufs, counts, slots
+
+
+def _launch_pack_call(groups: list[torch.Tensor], part_ids: torch.Tensor,
+                      n_parts: int, capacity: int,
+                      clocks: torch.Tensor | None):
+    """One ``pack`` call of the kernels, without autograd."""
     global launches
     dev = part_ids.device
     _cuda(dev)
@@ -256,7 +298,29 @@ def pack_by_key(groups: list[torch.Tensor], key: torch.Tensor, n_parts: int):
     groups: row blocks [T, d_g] as for ``pack``; key [T] of an integer type
     (cast to int64 first, as ``hash_key`` does).
     -> ([buf_g [n_parts, capacity, d_g]], counts (a list of n_parts ints,
-        read to the host once), part_ids [T] int32)."""
+        read to the host once), part_ids [T] int32). The float groups'
+    buffers are differentiable through ``plain_pack`` over the ids this
+    call computed."""
+    n = len(groups)
+    host: list[int] = []                # the launch's counts, read once
+
+    def launch(*t):
+        bufs, counts, ids = _launch_by_key(list(t[:n]), t[n], n_parts)
+        host.extend(counts)
+        return (*bufs, ids)
+
+    def plain(*t):
+        ids = out[-1]
+        bufs, _, _ = plain_pack(list(t[:n]), ids, n_parts, max(host))
+        return (*bufs, ids)
+
+    out = kernel_call(launch, plain, *groups, key)
+    return list(out[:n]), host, out[n]
+
+
+def _launch_by_key(groups: list[torch.Tensor], key: torch.Tensor,
+                   n_parts: int):
+    """One ``pack_by_key`` call of the kernels, without autograd."""
     global launches
     if key.dtype.is_floating_point or key.dtype.is_complex:
         raise ValueError(f"the partition key must be an integer column, got "

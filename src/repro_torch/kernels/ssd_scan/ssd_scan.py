@@ -8,7 +8,8 @@ and contiguity, allocates both outputs and the f32 scratch of the
 chunk-parallel split (C.B^T per chunk and group, each chunk's state, each
 chunk's decay), runs the four CUDA kernels of one call on the current
 stream, checks the error code, and counts one launch per call in
-``launches``.
+``launches``. Where grad is needed the call runs inside an autograd
+Function whose backward is the plain version's (``kernels/_autograd.py``).
 """
 from __future__ import annotations
 
@@ -18,6 +19,8 @@ import threading
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._autograd import kernel_call
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 
 launches = 0                      # ssd_scan() calls that launched the kernels
 _count_lock = threading.Lock()
@@ -43,7 +46,16 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """x [B,S,H,P], dt [B,S,H] f32 (post-softplus), A [H] f32,
     Bm/Cm [B,S,G,N], all contiguous on one CUDA device; x, Bm and Cm f32 or
     bf16 alike. -> (y [B,S,H,P] in x's dtype, state [B,H,P,N] f32), with
-    chunks of min(chunk, S) rows."""
+    chunks of min(chunk, S) rows. Differentiable in every input through
+    the plain version (``ssd_chunked``)."""
+    return kernel_call(lambda *t: _launch(*t, chunk=chunk),
+                       lambda *t: ssd_chunked(*t, min(chunk, t[0].shape[1])),
+                       x, dt, A, Bm, Cm)
+
+
+def _launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+            Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int):
+    """One call of the four kernels (``ssd_scan`` without autograd)."""
     global launches
     dev = x.device
     if dev.type != "cuda":

@@ -14,9 +14,12 @@ Attention layer kinds:
   cross         whisper's cross attention: not ported yet (ROADMAP A8)
 
 The full-sequence attention of every kind runs the hand-written Hopper
-kernel (``kernels/flash_gqa/ops.flash_gqa``) on a CUDA device and the
-reference's plain algorithm (``attention.attention``) on the CPU. MLA and
-MoE blocks are not ported yet (ROADMAP A7).
+kernel (``kernels/flash_gqa/ops.flash_gqa``) on a CUDA device where the
+kernel takes the shapes, and the reference's plain algorithm
+(``attention.attention``) elsewhere: on the CPU, and on CUDA for head dims
+the kernel does not take or a v head dim other than k's, which
+``flash_gqa.routed`` counts. MLA and MoE blocks are not ported yet
+(ROADMAP A7).
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.kernels.flash_gqa import flash_gqa as FK
 from repro_torch.kernels.flash_gqa import ops as flash_ops
 from repro_torch.models import attention as A
 from repro_torch.models.modules import (ParamSpec, apply_norm, gelu,
@@ -136,11 +140,15 @@ def _qkv(cfg, p, x, sh, positions, mrope_positions=None):
 
 def _attend(cfg, q, k, v, *, causal: bool, window: int):
     """Full-sequence attention of q [B,S,Hq,hd] against k/v at kv-head
-    layout [B,S,Hkv,hd]: the flash_gqa kernel on CUDA (k and v read through
-    ``_kv_map``, never repeated), the reference's algorithm on the CPU."""
+    layout [B,S,Hkv,hd]: the flash_gqa kernel on CUDA where it takes the
+    shapes (k and v read through ``_kv_map``, never repeated), else the
+    reference's algorithm; a CUDA call sent there is counted in
+    ``FK.routed``."""
     if q.device.type == "cuda":
-        return flash_ops.flash_gqa(q, k, v, causal=causal, window=window,
-                                   kv_head=_kv_map(cfg))
+        if FK.takes(q.shape, k.shape, v.shape):
+            return flash_ops.flash_gqa(q, k, v, causal=causal,
+                                       window=window, kv_head=_kv_map(cfg))
+        FK.count_routed()
     return A.attention(q, _expand_kv(cfg, k), _expand_kv(cfg, v),
                        impl=cfg.attn_impl, causal=causal, window=window,
                        chunk=cfg.attn_chunk)

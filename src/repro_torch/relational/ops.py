@@ -3,7 +3,9 @@ tensors of a Table's device.
 
 Each operator computes what the numpy engine's operator computes, row for
 row and in the same order; group sums may differ in the last ulp where the
-device adds in another order. The shuffle producer's hash-partition runs
+device adds in another order, but that order is fixed, so the same inputs
+give the same bytes on every run (a replayed task's re-PUT must be
+byte-identical, §3.2). The shuffle producer's hash-partition runs
 through the ``partition_pack`` kernels (hash, counts and pack) on CUDA
 tensors and through their plain PyTorch versions on CPU tensors.
 
@@ -242,6 +244,38 @@ def _values(c) -> torch.Tensor:
     return c.codes if isinstance(c, DictColumn) else c
 
 
+_PIECE = 256       # rows of one group a first-level sum on CUDA adds
+
+
+def _group_sum(v: torch.Tensor, inv: torch.Tensor, ng: int) -> torch.Tensor:
+    """float64 sums of v by group id. On the CPU ``index_add_`` adds row
+    by row, as numpy's bincount does. On CUDA ``index_add_`` adds through
+    atomics in no fixed order. ``index_put_(accumulate=True)`` sorts by
+    index and reduces each run of one index in a fixed order, but one warp
+    walks a whole run, which is slow for a group of 10^5 rows. So the
+    rows, in group order, are summed first in pieces of at most ``_PIECE``
+    rows of one group, then the pieces by group. Both levels are
+    fixed-order, and no step syncs the host."""
+    n = v.shape[0]
+    dev = v.device
+    if dev.type != "cuda":
+        return torch.zeros(ng, dtype=torch.float64, device=dev) \
+            .index_add_(0, inv, v)
+    order = torch.sort(inv, stable=True).indices
+    g = inv[order]
+    start = torch.ones(n, dtype=torch.bool, device=dev)
+    start[1:] = g[1:] != g[:-1]
+    start[::_PIECE] = True
+    piece = torch.cumsum(start, 0) - 1
+    bound = n // _PIECE + ng + 1          # at least the number of pieces
+    sums = torch.zeros(bound, dtype=torch.float64, device=dev) \
+        .index_put_((piece,), v[order], accumulate=True)
+    owner = torch.full((bound,), ng, dtype=torch.int64, device=dev) \
+        .index_put_((piece,), g)          # unused pieces add into slot ng
+    return torch.zeros(ng + 1, dtype=torch.float64, device=dev) \
+        .index_put_((owner,), sums, accumulate=True)[:ng]
+
+
 def op_aggregate(t: Table, keys: list[str], aggs: list[tuple]) -> Table:
     """aggs: (out_name, fn, expr). Partial aggregation: avg -> sum+count.
     Groups come out in lexicographic key order; values reduce in float64."""
@@ -271,9 +305,8 @@ def op_aggregate(t: Table, keys: list[str], aggs: list[tuple]) -> Table:
         if fn in ("sum", "avg"):
             # numpy's weighted bincount of no rows is int64 zeros; the
             # dtype reaches the serialized partial, so keep it
-            out[name] = (
-                torch.zeros(ng, dtype=f64, device=dev).index_add_(0, inv, v)
-                if n else torch.zeros(ng, dtype=torch.int64, device=dev))
+            out[name] = (_group_sum(v, inv, ng) if n else
+                         torch.zeros(ng, dtype=torch.int64, device=dev))
             if fn == "avg":
                 out[name + "__count"] = torch.bincount(
                     inv, minlength=ng).to(f64)

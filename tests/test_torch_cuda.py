@@ -485,3 +485,213 @@ def test_kernels_run_on_the_tensor_cores(card, kernel, functions):
     for f in functions:
         got = [n for k, n in ops.items() if k.startswith(f"void {f}(")]
         assert got and all(n > 0 for n in got), (f, ops)
+
+
+# ------------------------------------------------ routing by shape (C1)
+def _dense_prefill(cfg, dev, params, tokens):
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.model import build_model
+    bundle = build_model(cfg)
+    logits, _ = make_prefill_step(bundle)(
+        params, serve.prefill_batch(bundle, tokens.to(dev)))
+    return logits.float().cpu()
+
+
+@pytest.mark.cuda
+def test_dense_layers_the_kernel_does_not_take_match_the_cpu(card):
+    """A dense smoke model at head dim 24 prefills on the card through the
+    plain path, one routed call a layer and no kernel launch, and equals
+    the CPU's prefill in f32."""
+    from repro_torch.configs.smoke import smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models.modules import tree_map
+    cfg = smoke_config("glm4-9b").replace(head_dim=24,
+                                          compute_dtype=torch.float32)
+    params, tokens = serve.random_request(cfg, 2, 64, 0, card)
+    launches, routed = FK.launches, FK.routed
+    got = _dense_prefill(cfg, card, params, tokens)
+    assert FK.launches == launches
+    assert FK.routed == routed + cfg.num_layers
+    want = _dense_prefill(cfg, "cpu", tree_map(lambda t: t.cpu(), params),
+                          tokens.cpu())
+    assert torch.allclose(got, want, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,Dv", [(24, 24), (64, 32), (128, 64)])
+def test_attend_routes_what_the_kernel_does_not_take(card, D, Dv):
+    """``_attend`` with a head dim outside the kernel's, or v's head dim
+    unlike k's: the plain path on the card, counted, equal to the CPU."""
+    from repro_torch.configs.smoke import smoke_config
+    from repro_torch.models import transformer as TT
+    cfg = smoke_config("glm4-9b").replace(head_dim=D)
+    H, Hkv = TT._heads(cfg)
+    rng = np.random.default_rng(D + Dv)
+    arrs = [rng.standard_normal((2, 96, h, d)).astype(np.float32)
+            for h, d in ((H, D), (Hkv, D), (Hkv, Dv))]
+    launches, routed = FK.launches, FK.routed
+    got = TT._attend(cfg, *(torch.from_numpy(a).to(card) for a in arrs),
+                     causal=True, window=0)
+    assert (FK.launches, FK.routed) == (launches, routed + 1)
+    want = TT._attend(cfg, *(torch.from_numpy(a) for a in arrs),
+                      causal=True, window=0)
+    assert torch.allclose(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------ gradients (C2)
+def _close_grads(got, want, tol=1e-3):
+    for g, w in zip(got, want):
+        g = g.cpu()
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        assert float((g - w).abs().max()) <= tol * float(w.abs().max())
+
+
+def _layer_grads(apply, defs, names, dev, x_np, seed):
+    """Gradients of sum(apply(p, x) * cotangent) in the parameters
+    ``names``, with weights drawn on the CPU from ``seed``."""
+    from repro_torch.models.modules import init_params, tree_map
+    p = tree_map(lambda t: t.to(dev).requires_grad_(),
+                 init_params(defs, torch.Generator().manual_seed(seed),
+                             "cpu"), is_leaf=torch.is_tensor)
+    x = torch.from_numpy(x_np).to(dev)
+    out = apply(p, x)
+    cot = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        out.shape).astype(np.float32)).to(dev)
+    return torch.autograd.grad((out * cot).sum(), [p[n] for n in names])
+
+
+@pytest.mark.cuda
+def test_attention_gradients_through_flash_gqa_match_the_cpu(card):
+    from repro_torch.configs.smoke import smoke_config
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.modules import Sharder
+    cfg = smoke_config("glm4-9b").replace(compute_dtype=torch.float32)
+    x = np.random.default_rng(5).standard_normal(
+        (2, 64, cfg.d_model)).astype(np.float32)
+
+    def apply(p, x):
+        pos = torch.arange(x.shape[1], device=x.device)[None]
+        return TT.attn_apply(cfg, p, x, Sharder(), positions=pos)[0]
+
+    args = (apply, TT.attn_defs(cfg), ["wq", "wk", "wv"])
+    before = FK.launches
+    got = _layer_grads(*args, card, x, 6)
+    assert FK.launches == before + 1
+    _close_grads(got, _layer_grads(*args, "cpu", x, 6))
+
+
+@pytest.mark.cuda
+def test_mamba_gradients_through_ssd_scan_match_the_cpu(card):
+    from repro_torch.configs.smoke import smoke_config
+    from repro_torch.models import mamba2 as M
+    from repro_torch.models.modules import Sharder
+    cfg = smoke_config("mamba2-2.7b").replace(compute_dtype=torch.float32)
+    x = np.random.default_rng(7).standard_normal(
+        (2, 64, cfg.d_model)).astype(np.float32)
+    args = (lambda p, x: M.mamba_apply(cfg, p, x, Sharder())[0],
+            M.mamba_defs(cfg), ["in_proj"])
+    before = SK.launches
+    got = _layer_grads(*args, card, x, 8)
+    assert SK.launches == before + 1
+    _close_grads(got, _layer_grads(*args, "cpu", x, 8))
+
+
+@pytest.mark.cuda
+def test_packed_row_gradients_match_the_cpu(card):
+    """Float rows through ``pack`` (ids out of range, rows dropped past
+    capacity) and through ``pack_by_key``: their gradients are the CPU
+    plain version's, exactly; the int group gets none."""
+    rng = np.random.default_rng(9)
+    T = 5000
+    rows_np = rng.standard_normal((T, 3)).astype(np.float32)
+    ids_np = rng.integers(-1, 9, T).astype(np.int32)
+    key_np = rng.integers(0, 1 << 40, T)
+    cot = torch.from_numpy(rng.standard_normal((8, 1000, 3)).astype(
+        np.float32))
+
+    def grads(dev, by_key):
+        rows = torch.from_numpy(rows_np).to(dev).requires_grad_()
+        ints = torch.from_numpy(ids_np.astype(np.int64)[:, None]).to(dev)
+        if by_key:
+            key = torch.from_numpy(key_np).to(dev)
+            if dev == "cpu":
+                from repro_torch.relational.ops import partition_ids
+                ids = partition_ids(key, 8)
+                cap = int(torch.bincount(ids, minlength=8).max())
+                (buf, ibuf), _, _ = K.plain_pack([rows, ints], ids, 8, cap)
+            else:
+                (buf, ibuf), _, _ = K.pack_by_key([rows, ints], key, 8)
+        else:
+            ids = torch.from_numpy(ids_np).to(dev)
+            pack = K.plain_pack if dev == "cpu" else K.pack
+            (buf, ibuf), _, _ = pack([rows, ints], ids, 8, 550)
+        assert not ibuf.requires_grad
+        c = cot[:, :buf.shape[1]].to(dev)
+        (g,) = torch.autograd.grad((buf * c).sum(), rows)
+        return g.cpu()
+
+    for by_key in (False, True):
+        before = K.launches
+        got = grads(card, by_key)
+        assert K.launches == before + 1
+        assert torch.equal(got, grads("cpu", by_key))
+
+
+# ------------------------------------------------ fixed-order sums (F3)
+@pytest.mark.cuda
+def test_float_aggregation_gives_the_same_bytes_every_run(card):
+    """Group sums on the card add in a fixed order: the same inputs give
+    the same bytes on every run, under deterministic algorithms too, and
+    agree with the CPU's numpy-order sums at the oracle's tolerance."""
+    from repro_torch.relational import ops
+    from repro_torch.relational.table import Table
+    rng = np.random.default_rng(11)
+    n = 1_000_000
+    for groups in (4, 3000):
+        t = Table({"k": torch.from_numpy(rng.integers(0, groups, n)),
+                   "v": torch.from_numpy(rng.random(n) * 1e5)})
+        aggs = [("s", "sum", "v"), ("a", "avg", "v"), ("c", "count", None)]
+
+        def run():
+            out = ops.op_aggregate(t.to(card), ["k"], aggs)
+            return {c: out[c].cpu() for c in ("s", "a", "c")}
+
+        first = [run() for _ in range(3)]
+        torch.use_deterministic_algorithms(True)
+        try:
+            first.append(run())
+        finally:
+            torch.use_deterministic_algorithms(False)
+        for other in first[1:]:
+            for c in ("s", "a", "c"):
+                assert torch.equal(first[0][c].view(torch.int64),
+                                   other[c].view(torch.int64)), c
+        want = ops.op_aggregate(t, ["k"], aggs)
+        for c in ("s", "a", "c"):
+            assert torch.allclose(first[0][c], want[c], rtol=1e-9,
+                                  atol=1e-6), c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", ["q12", "q3"])
+def test_failover_replays_byte_identically_on_the_card(card, q):
+    """A coordinator killed halfway through q12 or q3 fails over, and the
+    replay passes the store's immutability audit (every re-PUT of a
+    partial aggregate byte-identical); the result equals a run with no
+    kill."""
+    from repro_torch.core.session import Session
+    from repro_torch.faults.journal import Journal
+    opts = dict(sf=0.01, seed=3, compute_scale=0.0, device="cuda")
+    journal = Journal()
+    whole_s = Session(**opts)
+    whole_s.coord.journal = journal
+    whole = whole_s.submit(q)
+    res, j = Session(**opts).run_with_failover(
+        q, kill_after=journal.count // 2)
+    assert j.frontier == journal.frontier
+    assert (res.latency_s, res.cost) == (whole.latency_s, whole.cost)
+    for c in whole.result.column_names():
+        a, b = res.result[c], whole.result[c]
+        a, b = getattr(a, "codes", a), getattr(b, "codes", b)
+        assert torch.equal(a.cpu(), b.cpu()), c

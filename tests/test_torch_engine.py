@@ -96,7 +96,8 @@ def test_entry_points_default_to_cuda():
 
 def test_session_paths_agree():
     """submit, run and the engine shims build the same plans; spawn keeps
-    the device; the parts that wait for later slices say so."""
+    the device; every other entry point of the reference's Session exists
+    and stays on the session's device."""
     sess = Session(device="cpu", **OPTS)
     a = sess.submit(("q12", {"join": 4}))
     b = PE.run_queries(PE.make_engine(device="cpu", **OPTS)[0],
@@ -104,9 +105,11 @@ def test_session_paths_agree():
     assert a.latency_s == b.latency_s and a.cost.total == b.cost.total
     assert sess.run([QuerySpec("q6")])[0].latency_s > 0
     assert sess.spawn().device == "cpu"
-    for call in (lambda: sess.run_mix([], None),
-                 lambda: sess.run_fleet([]),
-                 lambda: sess.run_with_failover("q6", kill_after=3),
-                 lambda: Session(trace=True, device="cpu", **OPTS)):
-        with pytest.raises(NotImplementedError):
-            call()
+    assert sess.run_mix([], []).records == []
+    with pytest.raises(ValueError):
+        sess.run_fleet([])
+    res, journal = sess.run_with_failover("q6", kill_after=3)
+    assert res.latency_s > 0 and journal.replaying
+    traced = Session(trace=True, metrics=True, device="cpu", **OPTS)
+    assert traced.coord.observers == [traced.tracer, traced.metrics]
+    assert traced.coord.device == "cpu"

@@ -26,6 +26,7 @@ from repro.kernels.flash_gqa.ref import attention_ref as jax_ref  # noqa
 from repro.models import attention as JA  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.configs.smoke import smoke_config  # noqa: E402
 from repro_torch.kernels.flash_gqa import flash_gqa as K  # noqa: E402
 from repro_torch.kernels.flash_gqa import ops  # noqa: E402
 from repro_torch.kernels.flash_gqa.ref import attention_ref  # noqa: E402
@@ -171,6 +172,41 @@ def test_refuses_what_the_kernel_does_not_take():
         ops.flash_gqa(q, k, v, kv_head=[0, 1])
     with pytest.raises(ValueError, match="window"):
         ops.flash_gqa(q, k, v, window=-1)
+
+
+@pytest.mark.parametrize("D,Dv,takes", [
+    (16, 16, True), (64, 64, True), (128, 128, True), (24, 24, False),
+    (256, 256, False), (24, 16, False), (64, 32, False)])
+def test_kernel_takes_by_shape(D, Dv, takes):
+    """``takes``, which the model's attention asks before it sends a CUDA
+    call to the kernel, says yes exactly where ``check_args`` does: head
+    dims 16-128, v's head dim equal to k's. Head dim 24 and v/k dims that
+    differ go to the plain path and are counted there."""
+    q, k, v = (torch.zeros(1, 8, 4, D), torch.zeros(1, 8, 2, D),
+               torch.zeros(1, 8, 2, Dv))
+    assert K.takes(q.shape, k.shape, v.shape) is takes
+    if takes:
+        K.check_args(q, k, v, 0)
+    else:
+        with pytest.raises(ValueError):
+            K.check_args(q, k, v, 0)
+
+
+@pytest.mark.parametrize("D,Dv", [(24, 24), (24, 16), (64, 32)])
+def test_attend_plain_path_takes_what_the_kernel_does_not(D, Dv):
+    """The plain path that the routed calls take computes attention for
+    those shapes: held against the reference's materialized oracle."""
+    cfg = smoke_config("glm4-9b").replace(head_dim=D)
+    rng = np.random.default_rng(D + Dv)
+    H, Hkv = TT._heads(cfg)
+    q = rng.standard_normal((2, 48, H, D)).astype(np.float32)
+    k = rng.standard_normal((2, 48, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((2, 48, Hkv, Dv)).astype(np.float32)
+    got = TT._attend(cfg, *(torch.from_numpy(a) for a in (q, k, v)),
+                     causal=True, window=0)
+    idx = np.asarray(TT._kv_index(cfg, "cpu"))
+    _close(got, jax_ref(jnp.asarray(q), jnp.asarray(k[:, :, idx]),
+                        jnp.asarray(v[:, :, idx]), causal=True), 2e-5)
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():

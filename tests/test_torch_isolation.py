@@ -21,7 +21,13 @@ COPIES = ["core/format.py", "relational/tpch.py", "objectstore/latency.py",
           "objectstore/__init__.py", "core/__init__.py",
           "core/stragglers.py", "core/shuffle.py", "core/plan.py",
           "core/cost.py", "core/events.py", "faults/retry.py",
-          "faults/inject.py", "faults/coldstart.py"]
+          "faults/inject.py", "faults/coldstart.py", "faults/journal.py",
+          "faults/__init__.py", "workload/arrivals.py", "workload/mix.py",
+          "workload/pricing.py", "workload/driver.py",
+          "workload/__init__.py", "planner/calibrate.py",
+          "planner/model.py", "planner/sla.py", "planner/__init__.py",
+          "obs/metrics.py", "obs/report.py", "obs/trace.py",
+          "obs/drift.py", "obs/__init__.py"]
 
 # the arch configs are pure data; their dtypes are torch's
 CONFIGS = ["configs/deepseek_v2_lite.py", "configs/glm4_9b.py",
@@ -43,6 +49,47 @@ COORDINATOR_DEVICE_PATCH = [
     ("                        self.compute_scale)\n",
      "                        self.compute_scale, device=self.device)\n"),
 ]
+
+# the modules that build coordinators are copies except for the device
+# those coordinators run on, which is the caller's
+DEVICE_PATCHES = {
+    "workload/tenancy.py": [
+        ("                             "
+         "executor_workers=coord.executor_workers)\n",
+         "                             "
+         "executor_workers=coord.executor_workers,\n"
+         "                             device=coord.device)\n"),
+        ("        bank = _ModelBank(probe_opts if probe_opts is not None\n"
+         "                          "
+         "else getattr(session, \"engine_opts\", {}) or {},\n"
+         "                          probe_runs=probe_runs)\n",
+         "        opts = probe_opts if probe_opts is not None \\\n"
+         "            else getattr(session, \"engine_opts\", {}) or {}\n"
+         "        # probe engines run on the session's device unless named\n"
+         "        opts = {\"device\": session.coord.device, **opts}\n"
+         "        bank = _ModelBank(opts, probe_runs=probe_runs)\n"),
+    ],
+    "planner/search.py": [
+        ("                 faults=None, coldstart=None, retry=None):\n"
+         "        from repro_torch.core.stragglers import StragglerConfig\n",
+         "                 faults=None, coldstart=None, retry=None,\n"
+         "                 device: str = \"cuda\"):\n"
+         "        from repro_torch.core.stragglers import StragglerConfig\n"
+         "        self.device = device    "
+         "# torch device confirmations run on\n"),
+        ("                faults=self.faults, coldstart=self.coldstart, "
+         "retry=retry)\n",
+         "                faults=self.faults, coldstart=self.coldstart, "
+         "retry=retry,\n"
+         "                device=self.device)\n"),
+    ],
+    "planner/adaptive.py": [
+        ("            executor_workers=coord.executor_workers,\n"
+         "            plan_kw=self.probe_plan_kw)\n",
+         "            executor_workers=coord.executor_workers,\n"
+         "            plan_kw=self.probe_plan_kw, device=coord.device)\n"),
+    ],
+}
 
 
 def _renamed(rel: str) -> str:
@@ -96,18 +143,19 @@ def test_config_module_equals_reference(rel):
     assert (PORT / rel).read_text() == _torch_dtypes(_renamed(rel))
 
 
-def test_coordinator_equals_reference_but_for_device():
-    want = _renamed("core/coordinator.py")
-    for old, new in COORDINATOR_DEVICE_PATCH:
+def _patched(rel: str, patch: list[tuple[str, str]]) -> str:
+    want = _renamed(rel)
+    for old, new in patch:
         assert want.count(old) == 1, old
         want = want.replace(old, new)
-    assert (PORT / "core/coordinator.py").read_text() == want
+    return want
 
 
-def test_planner_config_equals_reference():
-    ref = _renamed("planner/model.py")
-    start = ref.index("def _norm_shuffle")
-    end = ref.index("@dataclasses.dataclass(frozen=True)\nclass Prediction")
-    port = (PORT / "planner/model.py").read_text()
-    assert port[port.index("def _norm_shuffle"):] == \
-        ref[start:end].rstrip() + "\n"
+def test_coordinator_equals_reference_but_for_device():
+    assert (PORT / "core/coordinator.py").read_text() == \
+        _patched("core/coordinator.py", COORDINATOR_DEVICE_PATCH)
+
+
+@pytest.mark.parametrize("rel", sorted(DEVICE_PATCHES))
+def test_module_equals_reference_but_for_device(rel):
+    assert (PORT / rel).read_text() == _patched(rel, DEVICE_PATCHES[rel])
