@@ -53,13 +53,17 @@ Phases, each printing its own lines and seconds:
      rate and, beside it, at the 3xTF32 rate the kernels compute at);
   8. serve phase: the serve cell of launch/serve (mamba2-2.7b at full
      width and depth, 64 layers, random weights and prompts from
-     serve.random_request), 4 prompts of 512 tokens and 32 new tokens
-     through launch/serve.generate after a short warm-up request:
-     prefill s, decode ms a step, tokens/s, peak memory; ssd_scan must
-     launch once a layer (64) in the prefill; every logit finite; the
-     prompt replayed through decode gives the prefill's last logits, in
-     bf16 as near to the f32 answer as the bf16 prefill is, and in f32
-     (one prompt) within the reference test's 2e-3;
+     serve.random_request, drawn in f32). While only the f32 tree is on
+     the card: the f32 answer (prefill of the cell's prompts) and the
+     prompt of one sequence replayed through decode in f32 within the
+     reference test's 2e-3. Then the tree is cast to bf16 in place, leaf
+     by leaf, and 4 prompts of 512 tokens and 32 new tokens go through
+     launch/serve.generate after a short warm-up request: prefill s,
+     decode ms a step, tokens/s, peak memory (and the f32 part's and the
+     cast's); ssd_scan must launch once a layer (64) in the prefill and
+     nothing else may launch; every logit finite; the prompt replayed
+     through decode gives the prefill's last logits, in bf16 as near to
+     the f32 answer as the bf16 prefill is;
   9. serve parity phase: the same config at 4 layers, one 256-token
      prompt, prefill on the card (kernel) against prefill on the CPU
      (plain versions) on identical weights, in f32 (1e-3) and in bf16
@@ -69,23 +73,42 @@ Phases, each printing its own lines and seconds:
      (attention_ref over k/v gathered by the kv-head map) on the card at
      the Pallas kernel test's CASES, smollm-135m's padded-head map and the
      dense serve path's main shape (B=4, S=512, 32 q heads over 2 kv
-     heads, D 128, causal), within 2e-5 in f32 and 2e-2 in bf16, with
-     kernel, plain, library (scaled_dot_product_attention, timed as a
-     yardstick only) and bound times at the main shape;
+     heads, D 128, causal), and MLA's prefill pair (q/k 192, v 128) at a
+     ragged windowed shape and at deepseek-v2-lite's prefill (B=4, S=512,
+     16 heads), within 2e-5 in f32 and 2e-2 in bf16, with kernel, plain,
+     library (scaled_dot_product_attention, timed as a yardstick only, and
+     the kernels it ran, which name its backend) and bound times at both
+     main shapes;
  10a. grad: a dense smoke layer's wq/wk/wv gradients through flash_gqa
      (one launch forward, none backward) against the CPU's, f32;
  11. dense serve phase, after the Mamba weights are released: the serve
-     cell glm4-9b at full width and depth (40 layers, 9.4 B parameters)
-     through launch/serve.generate, 4 prompts of 512 tokens and 32 new
-     tokens, as in phase 8: flash_gqa must launch once a layer (40) in the
-     prefill and 0 attention calls routed to the plain path; replay vs
-     prefill in bf16 against the f32 answer and in f32 (one 128-token
-     prompt) within 2e-3;
+     cell glm4-9b at full width and depth (40 layers, 9.4 B parameters),
+     as in phase 8: flash_gqa must launch once a layer (40) in the prefill
+     and 0 attention calls routed to the plain path; replay vs prefill in
+     bf16 against the f32 answer and in f32 (one 128-token prompt) within
+     2e-3;
  12. dense parity phase: glm4-9b at 2 layers and full width, one
      128-token prompt, card prefill against CPU prefill in f32 (1e-3) and
      bf16 (5 % relative L2), and smollm-135m at full depth (30 layers, its
      9/3 heads padded to 16/4) the same way in f32, so that the padded
-     kv-head map runs on the card at a real width.
+     kv-head map runs on the card at a real width;
+ 13. moe dispatch: models/moe.dispatch (one partition_pack call over B·E
+     = 256 ids) at the deepseek serve cell's prefill (4 x 512 tokens, top
+     6 of 64 experts, capacity 72) and decode (4 tokens, capacity 8)
+     shapes against the plain per-group dispatch_indices, every slot and
+     drop bit for bit, the buffer against the plain pack exactly, and no
+     host sync; its time against B calls of 64 partitions, the plain
+     version, a stable sort and gather, and the memory bound;
+ 14. moe serve phase: the serve cell deepseek-v2-lite-16b at full width
+     and depth (27 layers, 15.7 B parameters drawn in f32 and cast in
+     place to bf16), as in phase 8: flash_gqa must launch
+     once a layer (27) in the prefill with 0 routed calls, and
+     partition_pack once a MoE layer (26) in the prefill and in every
+     decode step;
+ 15. moe parity phase: deepseek-v2-lite-16b at full width and 3 layers
+     (the dense layer 0 and two MoE layers), one 128-token prompt, card
+     prefill against CPU prefill in f32 (1e-3) and bf16 (5 % relative
+     L2), with the count of tokens whose experts differ between the two.
 Each path runs with every launch count set to 0 just before it and read
 just after; each phase prints its seconds and its peak device memory. It
 then prints the kernels line and, last, the device line. Any failure exits
@@ -93,6 +116,8 @@ non-zero before the last line; without a card it exits 2 at once.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import gc
 import json
 import subprocess
@@ -123,8 +148,9 @@ from repro_torch.launch.bench_pack import (  # noqa: E402
     host_syncs, is_kernel, is_pp, pack_bytes, profile_record, time_cold_ms,
     time_ms)
 from repro_torch.launch.steps import make_prefill_step  # noqa: E402
+from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
-from repro_torch.models.model import build_model  # noqa: E402
+from repro_torch.models.model import build_model, cast_params_  # noqa: E402
 from repro_torch.models.modules import (  # noqa: E402
     Sharder, init_params, tree_leaves, tree_map)
 from repro_torch import planner as PL  # noqa: E402
@@ -185,11 +211,24 @@ FLASH_CASES = [                    # B, S, H, Hkv, D, causal, window, map
     (1, 384, 2, 1, 64, True, 128, None), (1, 200, 2, 2, 64, True, 0, None),
     (2, 130, 16, 4, 64, True, 0, SMOLLM_MAP)]
 FLASH_MAIN = (4, 512, 32, 2, 128, True, 0, None)
+# MLA's prefill (deepseek-v2-lite: 16 heads over 16, q/k 192 = 128 nope +
+# 64 rope, v 128), and a ragged sequence with a window at that pair
+FLASH_MLA = (4, 512, 16, 16, 192, True, 0, None)
+FLASH_MLA_EDGE = (2, 65, 4, 4, 192, True, 24, None)
+MLA_DV = 128
 # f32: sums in another order; bf16: each side rounds its f32 output once
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 DENSE_ARCH, SMOLLM_ARCH = "glm4-9b", "smollm-135m"
 DENSE_F32_PROMPT = 128             # the f32 replay at full depth
 DENSE_PARITY_LAYERS, DENSE_PARITY_PROMPT = 2, 128
+MOE_ARCH = "deepseek-v2-lite-16b"
+MOE_F32_PROMPT = 128               # the f32 replay at full depth
+# card vs CPU at full width and a cut depth: the dense layer 0 and two
+# MoE layers
+MOE_PARITY_LAYERS, MOE_PARITY_PROMPT = 3, 128
+# the MoE dispatch at the serve cell's prefill and decode step: 4 groups
+# of S tokens, top 6 of 64 experts, d_model 2048 in bf16
+MOE_DISPATCH = {"prefill": 512, "decode": 1}
 
 # the workload phases: a TPC-H mix of 24 queries (weights of
 # workload.TPCH_MIX) with Poisson arrivals at a virtual mean of 5 s, on the
@@ -225,6 +264,64 @@ def zero_counts():
 def counts() -> dict:
     return {"partition_pack": K.launches, "ssd_scan": SK.launches,
             "flash_gqa": FK.launches}
+
+
+def no_drops(cfg):
+    """``cfg`` with a MoE capacity no expert can exceed (the capacity
+    factor E / k makes C >= S, and a token picks an expert once); other
+    configs as they are."""
+    if cfg.moe is None:
+        return cfg
+    return cfg.replace(moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+
+
+def prefill_launches(cfg) -> dict:
+    """The launches of each kernel that one prefill of ``cfg`` makes: one
+    a layer of its sequence kernel (ssd_scan, or flash_gqa for attention),
+    and for deepseek-v2 one partition_pack a MoE layer (the dispatch)."""
+    want = dict.fromkeys(counts(), 0)
+    want["ssd_scan" if cfg.family == "ssm" else "flash_gqa"] = cfg.num_layers
+    if cfg.family == "moe":
+        want["partition_pack"] = cfg.num_layers - cfg.moe.first_dense
+    return want
+
+
+def expected_launches(cfg, decode_steps: int) -> dict:
+    """The launches of a prefill and ``decode_steps`` decode steps: decode
+    attends in plain PyTorch, so only the MoE dispatch launches there."""
+    want = prefill_launches(cfg)
+    if cfg.family == "moe":
+        want["partition_pack"] *= 1 + decode_steps
+    return want
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """The experts [T, k] each MoE layer's router picks while the block is
+    open, in call order (moe_apply looks ``route`` up at each call)."""
+    picks, route = [], MOE.route
+
+    def recording(cfg, p, h):
+        w, e, aux = route(cfg, p, h)
+        picks.append(e.cpu())
+        return w, e, aux
+    MOE.route = recording
+    try:
+        yield picks
+    finally:
+        MOE.route = route
+
+
+def routing_differences(a: list, b: list) -> tuple[int, int]:
+    """(tokens whose set of k experts differs, tokens routed), over the
+    MoE layers of two runs."""
+    differ = total = 0
+    for x, y in zip(a, b, strict=True):
+        x, y = x.sort(-1).values, y.sort(-1).values
+        differ += int((x != y).any(-1).sum())
+        total += x.shape[0]
+    return differ, total
 
 
 def release():
@@ -811,16 +908,29 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).norm() / b.norm())
 
 
-def serve_phase(dev, arch: str, kernel: str, f32_prompt: int) -> int:
+def serve_phase(dev, arch: str, f32_prompt: int) -> dict:
     """The serve cell of ``arch`` (launch/serve.CELLS) at full width and
-    depth through launch/serve.generate; ``kernel`` must launch once a
-    layer in the prefill and no other kernel at all. Then the
-    serve-consistency property: the bf16 replay against the f32 answer,
-    and in f32 on one prompt of ``f32_prompt`` tokens at the reference
-    test's 2e-3. -> ``kernel``'s launches in the counted run."""
+    depth. The weights are drawn in f32 on the card, and while only that
+    tree is there the f32 answer is taken (the prefill of the cell's
+    prompts) and the serve-consistency property is held in f32 (one
+    prompt of ``f32_prompt`` tokens replayed through decode, at the
+    reference test's 2e-3). Then the tree is cast to bf16 in place, leaf
+    by leaf (``cast_params_``: the card never holds both trees), and the
+    cell is served through launch/serve.generate after a short warm-up
+    request: each kernel must launch as often as the path calls it
+    (``expected_launches``), no attention call may be routed to the plain
+    path, and the bf16 replay must lie within SERVE_BF16_FACTOR of the
+    bf16 prefill's distance from the f32 answer. A MoE prefill drops the
+    entries past each expert's capacity and a decode step never does, so
+    for a MoE cell the f32 answer, the f32 replay and the bf16 prefill
+    the replay is held against run with no drops (``no_drops``), as
+    tests/test_serve_consistency.py runs the reference. -> the kernels'
+    launches in the counted run."""
     cell = serve.CELLS[arch]
     cfg = get_config(cell.arch)
+    ccfg = no_drops(cfg)
     B = cell.batch
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params, tokens = serve.random_request(cfg, B, cell.prompt, cell.seed,
                                           dev)
@@ -830,53 +940,13 @@ def serve_phase(dev, arch: str, kernel: str, f32_prompt: int) -> int:
           f"parameters ({cfg.param_dtype}), compute {cfg.compute_dtype}; "
           f"init {time.perf_counter() - t0:.3f} s; allocated "
           f"{torch.cuda.memory_allocated()} bytes", flush=True)
-    serve.generate(cfg, params, tokens[:, :128], 2, dev)   # warm-up request
 
-    zero_counts()                                      # the serve path's count
-    torch.cuda.reset_peak_memory_stats()
-    out = serve.generate(cfg, params, tokens, cell.new, dev)
-    launched = counts()
-    launches = launched[kernel]
-    max_mem = torch.cuda.max_memory_allocated()
-    lp, lr = out.prefill_logits.float(), out.replay_logits.float()
-    # the f32 answer on the same weights and prompts (after the count)
-    cfg32 = cfg.replace(compute_dtype=torch.float32)
+    # the f32 answer on the same weights and prompts, and the f32 replay
+    cfg32 = ccfg.replace(compute_dtype=torch.float32)
     b32 = build_model(cfg32)
     l32, _ = make_prefill_step(b32)(params, serve.prefill_batch(
         b32, tokens.to(dev)))
-    e_prefill, e_replay = rel_l2(lp, l32), rel_l2(lr, l32)
-    rec = {"arch": cfg.name, "batch": B, "prompt": cell.prompt,
-           "new_tokens": cell.new, "prefill_s": out.prefill_s,
-           "decode_s": out.decode_s, "decode_steps": out.decode_steps,
-           "decode_ms_per_step": out.decode_s / out.decode_steps * 1e3,
-           "tokens_per_s": B * cell.new / (out.prefill_s + out.decode_s),
-           "max_memory_allocated": max_mem, "launches": launched,
-           "flash_gqa_routed": FK.routed,
-           "replay_vs_prefill_rel_l2": rel_l2(lr, lp),
-           "prefill_vs_f32_rel_l2": e_prefill,
-           "replay_vs_f32_rel_l2": e_replay,
-           "logit_scale_max_abs": float(l32.abs().max()),
-           "tokens": out.tokens[0, :8].tolist()}
-    print("[serve] " + json.dumps(rec), flush=True)
-    check(launches == cfg.num_layers,
-          f"{kernel} launched {launches} times in the prefill, want one a "
-          f"layer ({cfg.num_layers})")
-    check(sum(launched.values()) == launches,
-          f"other kernels launched on the {arch} serve path: {launched}")
-    check(FK.routed == 0, f"{FK.routed} attention calls routed to the "
-          f"plain path on the {arch} serve path")
-    check(tuple(lp.shape) == (B, 1, cfg.vocab_size),
-          f"prefill logits of shape {tuple(lp.shape)}")
-    check(bool(torch.isfinite(lp).all() and torch.isfinite(lr).all()
-               and torch.isfinite(l32).all()), "serve logits not finite")
-    check(tuple(out.tokens.shape) == (B, cell.new)
-          and int(out.tokens.min()) >= 0
-          and int(out.tokens.max()) < cfg.vocab_size,
-          f"generated tokens {tuple(out.tokens.shape)} out of range")
-    check(e_replay <= SERVE_BF16_FACTOR * e_prefill,
-          f"bf16 decode replay {e_replay} from the f32 answer, more than "
-          f"{SERVE_BF16_FACTOR} x the bf16 prefill's {e_prefill}")
-
+    l32 = l32.float()
     one = serve.generate(cfg32, params, tokens[:1, :f32_prompt], 1, dev)
     lp, lr = one.prefill_logits, one.replay_logits
     err = float((lr - lp).abs().max())
@@ -889,14 +959,76 @@ def serve_phase(dev, arch: str, kernel: str, f32_prompt: int) -> int:
     check(bool(((lr - lp).abs() <= SERVE_F32_TOL
                 + SERVE_F32_TOL * lp.abs()).all()),
           f"f32 decode replay vs prefill differ by {err}")
-    return launches
+    del one, lp, lr
+    f32_peak = torch.cuda.max_memory_allocated()
+
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cast_params_(cfg, params)
+    torch.cuda.synchronize()
+    cast_s, cast_peak = time.perf_counter() - t0, \
+        torch.cuda.max_memory_allocated()
+    release()
+    serve.generate(cfg, params, tokens[:, :128], 2, dev)   # warm-up request
+
+    zero_counts()                                      # the serve path's count
+    torch.cuda.reset_peak_memory_stats()
+    out = serve.generate(cfg, params, tokens, cell.new, dev)
+    launched, routed = counts(), FK.routed
+    max_mem = torch.cuda.max_memory_allocated()
+    want = expected_launches(cfg, out.decode_steps)
+    lp, lr = out.prefill_logits.float(), out.replay_logits.float()
+    if ccfg is not cfg:             # the bf16 prefill with no drops
+        bc = build_model(ccfg)
+        lp, _ = make_prefill_step(bc)(params, serve.prefill_batch(
+            bc, tokens.to(dev)))
+        lp = lp.float()
+    e_prefill, e_replay = rel_l2(lp, l32), rel_l2(lr, l32)
+    rec = {"arch": cfg.name, "batch": B, "prompt": cell.prompt,
+           "new_tokens": cell.new, "prefill_s": out.prefill_s,
+           "decode_s": out.decode_s, "decode_steps": out.decode_steps,
+           "decode_ms_per_step": out.decode_s / out.decode_steps * 1e3,
+           "tokens_per_s": B * cell.new / (out.prefill_s + out.decode_s),
+           "max_memory_allocated": max_mem,
+           "f32_peak_memory_allocated": f32_peak,
+           "cast_s": cast_s, "cast_peak_memory_allocated": cast_peak,
+           "launches": launched, "expected_launches": want,
+           "flash_gqa_routed": routed,
+           "replay_vs_prefill_rel_l2": rel_l2(lr, lp),
+           "prefill_vs_f32_rel_l2": e_prefill,
+           "replay_vs_f32_rel_l2": e_replay,
+           "cell_prefill_vs_no_drops_rel_l2": rel_l2(
+               out.prefill_logits.float(), lp),
+           "logit_scale_max_abs": float(l32.abs().max()),
+           "tokens": out.tokens[0, :8].tolist()}
+    print("[serve] " + json.dumps(rec), flush=True)
+    check(launched == want, f"{arch}: kernels launched {launched} times on "
+          f"the serve path, want {want}")
+    check(routed == 0, f"{routed} attention calls routed to the plain path "
+          f"on the {arch} serve path")
+    check(tuple(lp.shape) == (B, 1, cfg.vocab_size),
+          f"prefill logits of shape {tuple(lp.shape)}")
+    check(bool(torch.isfinite(lp).all() and torch.isfinite(lr).all()
+               and torch.isfinite(l32).all()), "serve logits not finite")
+    check(tuple(out.tokens.shape) == (B, cell.new)
+          and int(out.tokens.min()) >= 0
+          and int(out.tokens.max()) < cfg.vocab_size,
+          f"generated tokens {tuple(out.tokens.shape)} out of range")
+    check(e_replay <= SERVE_BF16_FACTOR * e_prefill,
+          f"bf16 decode replay {e_replay} from the f32 answer, more than "
+          f"{SERVE_BF16_FACTOR} x the bf16 prefill's {e_prefill}")
+    return launched
 
 
-def prefill_parity(cfg, prompt: int, dev, kernel: str, dtypes):
-    """Prefill on the card (``kernel`` once a layer) against prefill on the
-    CPU (plain versions) on identical weights, drawn on the card and
+def prefill_parity(cfg, prompt: int, dev, dtypes):
+    """Prefill on the card (each kernel as often as a prefill calls it,
+    ``prefill_launches``, and no attention call routed) against prefill on
+    the CPU (plain versions) on identical weights, drawn on the card and
     copied over: f32 within PARITY_TOL, bf16 within PARITY_BF16_TOL
-    relative L2."""
+    relative L2. For a MoE config it also counts the tokens whose experts
+    differ between the two sides: a router near a tie can pick another
+    expert under other rounding, and that shows as this count."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     params, tokens = serve.random_request(cfg, 1, prompt, 0, dev)
@@ -904,62 +1036,166 @@ def prefill_parity(cfg, prompt: int, dev, kernel: str, dtypes):
     for dtype in dtypes:
         bundle = build_model(cfg.replace(compute_dtype=dtype))
         step = make_prefill_step(bundle)
-        before, routed = counts()[kernel], FK.routed
-        got, _ = step(params, serve.prefill_batch(bundle, tokens.to(dev)))
+        before, routed = counts(), FK.routed
+        with recorded_routes() as on_card:
+            got, _ = step(params, serve.prefill_batch(bundle,
+                                                      tokens.to(dev)))
         got = got.cpu().float()
-        launched = counts()[kernel] - before
+        launched = {k: n - before[k] for k, n in counts().items()}
         routed = FK.routed - routed
-        want, _ = step(on_cpu, serve.prefill_batch(bundle, tokens))
+        with recorded_routes() as off_card:
+            want, _ = step(on_cpu, serve.prefill_batch(bundle, tokens))
         want = want.float()
+        differ, routed_tokens = routing_differences(on_card, off_card)
         err, rel = float((got - want).abs().max()), rel_l2(got, want)
         print("[parity-serve] " + json.dumps({
             "arch": cfg.name, "layers": cfg.num_layers, "prompt": prompt,
-            "dtype": str(dtype), f"{kernel}_launches": launched,
+            "dtype": str(dtype), "launches": launched,
             "flash_gqa_routed": routed,
+            "routing_tokens": routed_tokens,
+            "routing_tokens_differ": differ,
             "max_abs_err": err, "rel_l2": rel,
             "logit_scale_max_abs": float(want.abs().max())}), flush=True)
-        check(launched == cfg.num_layers and routed == 0,
-              f"{cfg.name}: {kernel} launched {launched} times, "
-              f"{routed} calls routed to the plain path")
+        check(launched == prefill_launches(cfg) and routed == 0,
+              f"{cfg.name}: kernels launched {launched}, want "
+              f"{prefill_launches(cfg)}; {routed} calls routed to the plain "
+              "path")
         check(bool(torch.isfinite(got).all()), "card logits not finite")
         if dtype == torch.float32:
             check(bool(((got - want).abs() <= PARITY_TOL
                         + PARITY_TOL * want.abs()).all()),
                   f"{cfg.name}: card vs cpu f32 prefill logits differ by "
-                  f"{err}")
+                  f"{err} ({differ} of {routed_tokens} routed tokens "
+                  "picked other experts)")
         else:
             check(rel <= PARITY_BF16_TOL, f"{cfg.name}: card vs cpu bf16 "
-                  f"prefill logits {rel} apart in relative L2")
+                  f"prefill logits {rel} apart in relative L2 ({differ} of "
+                  f"{routed_tokens} routed tokens picked other experts)")
+
+
+# ------------------------------------------------------------ moe dispatch
+def moe_dispatch_phase(dev) -> list[dict]:
+    """The MoE dispatch of the deepseek serve cell (``models/moe.dispatch``:
+    one partition_pack call over B·E ids packing each entry's token
+    number, then a gather of the token rows) at its prefill and decode
+    shapes, with experts picked as the router picks them (6 distinct of
+    64), against the plain per-group ``dispatch_indices``: every entry's
+    slot, drops included, bit for bit; the buffer against the plain pack
+    of the token rows on the card exactly; no host sync. Times: the pack
+    call on the path, B calls of E partitions each, the plain version, the
+    library yardstick (a stable sort and a gather), its memory bound; the
+    whole dispatch; and the pack of the 4 KB token rows themselves (the
+    route the dispatch does not take)."""
+    cfg = get_config(MOE_ARCH)
+    m, d = cfg.moe, cfg.d_model
+    E, k = m.num_experts, m.top_k
+    B = serve.CELLS[MOE_ARCH].batch
+    recs = []
+    for part, S in MOE_DISPATCH.items():
+        C = MOE.expert_capacity(S, E, k, m.capacity_factor)
+        rng = np.random.default_rng(S)
+        h = torch.from_numpy(rng.standard_normal((B, S, d)).astype(
+            np.float32)).to(dev).to(torch.bfloat16)
+        experts = torch.topk(torch.from_numpy(rng.standard_normal(
+            (B * S, E)).astype(np.float32)), k).indices.to(torch.int32)
+        e_dev = experts.to(dev)
+        before = K.launches
+        buf, ids, slots = MOE.dispatch(h, e_dev, E, C)
+        torch.cuda.synchronize()
+        launched = K.launches - before
+        per_group = experts.view(B, S * k)
+        got_slots = slots.cpu().view(B, S * k)
+        dropped = 0
+        for b in range(B):
+            sort_idx, dest, keep, _ = MOE.dispatch_indices(per_group[b], E,
+                                                           C)
+            order = sort_idx.long()
+            got = torch.where(got_slots[b] < C,
+                              per_group[b].long() * C + got_slots[b], E * C)
+            check(torch.equal(got[order].int(), dest)
+                  and torch.equal(got_slots[b][order] < C, keep),
+                  f"moe dispatch {part}: group {b}'s slots differ from "
+                  "dispatch_indices")
+            dropped += int((~keep).sum())
+        T = B * S * k
+        rows = h.repeat_interleave(k, dim=1).reshape(T, d)
+        (want_buf,), _, want_slots = K.plain_pack([rows], ids, B * E, C)
+        check(torch.equal(buf.reshape(B * E, C, d), want_buf)
+              and torch.equal(slots, want_slots),
+              f"moe dispatch {part}: buffer differs from the plain pack")
+        syncs = host_syncs(lambda: MOE.dispatch(h, e_dev, E, C))
+        check(syncs == 0, f"moe dispatch {part}: {syncs} host syncs")
+        token = torch.arange(1, B * S + 1, dtype=torch.int32,
+                             device=dev).repeat_interleave(k)[:, None]
+        ids_g, token_g = e_dev.view(B, S * k), token.view(B, S * k, 1)
+
+        def kernel():
+            K.pack([token], ids, B * E, C)
+
+        def per_group_kernel():
+            for b in range(B):
+                K.pack([token_g[b]], ids_g[b], E, C)
+
+        def plain():
+            slot, _, keep = pp_ref.pack_indices(ids, B * E, C)
+            pp_ref.pack_rows(token, ids, slot, keep, B * E, C)
+
+        def library():
+            token.index_select(0, torch.sort(ids, stable=True).indices)
+
+        moved = pack_bytes([token], T, B * E, C)
+        # the whole dispatch: ids and h read, buf and slots written
+        dispatch_bytes = 8 * T + (B * S + B * E * C) * d * h.element_size()
+        rec = {"case": part, "groups": B, "tokens": S, "entries": T,
+               "n_parts": B * E, "capacity": C, "dropped": dropped,
+               "launches": launched, "host_syncs": syncs,
+               "kernel_ms": time_ms(kernel),
+               "per_group_kernel_ms": time_ms(per_group_kernel),
+               "plain_ms": time_ms(plain), "library_ms": time_ms(library),
+               "bytes": moved, "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+               "dispatch_ms": time_ms(lambda: MOE.dispatch(h, e_dev, E, C)),
+               "dispatch_bound_ms": dispatch_bytes / HBM_BYTES_PER_S * 1e3,
+               "row_pack_ms": time_ms(lambda: K.pack([rows], ids, B * E,
+                                                     C))}
+        print("[moe-dispatch] " + json.dumps(rec), flush=True)
+        check(launched == 1, f"moe dispatch {part}: {launched} launches")
+        recs.append(rec)
+    return recs
 
 
 # ------------------------------------------------------------ flash kernel
-def flash_inputs(B, S, H, Hkv, D, seed, dev, dtype):
+def flash_inputs(B, S, H, Hkv, D, seed, dev, dtype, Dv=None):
     rng = np.random.default_rng(seed)
     arrs = (rng.standard_normal((B, S, H, D)),
             rng.standard_normal((B, S, Hkv, D)),
-            rng.standard_normal((B, S, Hkv, D)))
+            rng.standard_normal((B, S, Hkv, Dv or D)))
     return [torch.from_numpy(a.astype(np.float32)).to(dev).to(dtype)
             for a in arrs]
 
 
-def flash_bound(B, S, H, Hkv, D, causal, window, elem_bytes):
-    """(flops, bytes) the function needs: q.k and p.v, 2*D FLOP each, for
-    every (query, key) pair the masks leave, per (b, h); q, k, v read once
-    and o written once at model layout (k and v at kv-head layout)."""
+def flash_bound(B, S, H, Hkv, D, causal, window, elem_bytes, Dv=None):
+    """(flops, bytes) the function needs: q.k (2*D FLOP) and p.v (2*Dv
+    FLOP) for every (query, key) pair the masks leave, per (b, h); q, k, v
+    read once and o written once at model layout (k and v at kv-head
+    layout)."""
+    Dv = Dv or D
     pairs = 0
     for i in range(S):
         lo = max(0, i - window + 1) if window > 0 else 0
         pairs += (i + 1 if causal else S) - lo
-    flops = 4 * D * pairs * B * H
-    nbytes = (2 * B * S * H * D + 2 * B * S * Hkv * D) * elem_bytes + 4 * H
+    flops = 2 * (D + Dv) * pairs * B * H
+    nbytes = (B * S * H * (D + Dv) + B * S * Hkv * (D + Dv)) * elem_bytes \
+        + 4 * H
     return flops, nbytes
 
 
-def flash_case(shape, dev, dtype, timed=False) -> dict:
+def flash_case(shape, dev, dtype, timed=False, dv=None) -> dict:
     """Kernel vs plain on the card: |o - want| <= tol + tol * |want|, tol
-    2e-5 in f32, 2e-2 in bf16 (the Pallas kernel test's)."""
+    2e-5 in f32, 2e-2 in bf16 (the Pallas kernel test's); ``dv``: v's head
+    dim where it is not q's. Timed, also the library yardstick and the
+    kernels it ran (which name its backend)."""
     B, S, H, Hkv, D, causal, window, kv_head = shape
-    q, k, v = flash_inputs(B, S, H, Hkv, D, S + H, dev, dtype)
+    q, k, v = flash_inputs(B, S, H, Hkv, D, S + H, dev, dtype, dv)
     m = torch.tensor(kv_head if kv_head is not None
                      else [h // (H // Hkv) for h in range(H)], device=dev)
 
@@ -975,7 +1211,8 @@ def flash_case(shape, dev, dtype, timed=False) -> dict:
     torch.cuda.synchronize()
     want = plain()
     tol = FLASH_TOL[dtype]
-    label = f"{shape[:7]} {'padded map' if kv_head else ''} {dtype}"
+    label = (f"{shape[:7]}{f' Dv={dv}' if dv else ''}"
+             f"{' padded map' if kv_head else ''} {dtype}")
     err = float((o.float() - want.float()).abs().max())
     check(bool(torch.isfinite(o).all()), f"flash {label}: not finite")
     check(bool(((o.float() - want.float()).abs()
@@ -995,10 +1232,11 @@ def flash_case(shape, dev, dtype, timed=False) -> dict:
               f"flash {label}: the library yardstick computes something "
               f"else ({lib_err})")
         flops, nbytes = flash_bound(B, S, H, Hkv, D, causal, window,
-                                    q.element_size())
+                                    q.element_size(), dv)
         peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
         rec.update(kernel_ms=time_ms(kernel), plain_ms=time_ms(plain),
                    library_ms=time_ms(library), library_max_abs_err=lib_err,
+                   library_backend=sdpa_backend(library),
                    flops=flops, bytes=nbytes,
                    bound_ms=max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3,
                    bound_by="operations" if flops / peak
@@ -1007,9 +1245,28 @@ def flash_case(shape, dev, dtype, timed=False) -> dict:
     return rec
 
 
-def flash_phase(dev) -> tuple[dict, float]:
-    """-> (the main shape's record in the serve path's bf16, the largest
-    error of any case in either dtype)."""
+def sdpa_backend(call) -> str:
+    """The backend scaled_dot_product_attention's default dispatch ran for
+    ``call``: the one whose output, run alone, equals the default's bit
+    for bit (a backend that refuses the shapes raises and is passed
+    over)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    want = call()
+    for backend in (SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel(backend):
+                got = call()
+        except RuntimeError:
+            continue
+        if torch.equal(got, want):
+            return backend.name
+    return "none of the four alone"
+
+
+def flash_phase(dev) -> tuple[dict, dict, float]:
+    """-> (the main shape's record in the serve path's bf16, MLA's prefill
+    shape's in bf16, the largest error of any case in either dtype)."""
     torch.backends.cuda.matmul.allow_tf32 = False     # the plain version in
     torch.backends.cudnn.allow_tf32 = False           # full f32
     err = 0.0
@@ -1019,7 +1276,15 @@ def flash_phase(dev) -> tuple[dict, float]:
     err = max(err, flash_case(FLASH_MAIN, dev, torch.float32,
                               timed=True)["max_abs_err"])
     main_rec = flash_case(FLASH_MAIN, dev, torch.bfloat16, timed=True)
-    return main_rec, max(err, main_rec["max_abs_err"])
+    for dtype in (torch.float32, torch.bfloat16):
+        err = max(err, flash_case(FLASH_MLA_EDGE, dev, dtype,
+                                  dv=MLA_DV)["max_abs_err"])
+    err = max(err, flash_case(FLASH_MLA, dev, torch.float32,
+                              dv=MLA_DV)["max_abs_err"])
+    mla_rec = flash_case(FLASH_MLA, dev, torch.bfloat16, timed=True,
+                         dv=MLA_DV)
+    return main_rec, mla_rec, max(err, main_rec["max_abs_err"],
+                                  mla_rec["max_abs_err"])
 
 
 def main() -> int:
@@ -1104,18 +1369,18 @@ def main() -> int:
     phase("ssd kernel", t0)
 
     t0 = time.perf_counter()
-    ssd_launches = serve_phase(dev, "mamba2-2.7b", "ssd_scan",
-                               SERVE_F32_PROMPT)
+    ssd_launches = serve_phase(dev, "mamba2-2.7b",
+                               SERVE_F32_PROMPT)["ssd_scan"]
     phase("serve", t0)
 
     t0 = time.perf_counter()
     prefill_parity(get_config("mamba2-2.7b").replace(
-        num_layers=PARITY_LAYERS), PARITY_PROMPT, dev, "ssd_scan",
+        num_layers=PARITY_LAYERS), PARITY_PROMPT, dev,
         (torch.float32, torch.bfloat16))
     phase("serve parity", t0)
 
     t0 = time.perf_counter()
-    flash_rec, flash_err = flash_phase(dev)
+    flash_rec, mla_rec, flash_err = flash_phase(dev)
     phase("flash kernel", t0)
 
     t0 = time.perf_counter()
@@ -1125,30 +1390,55 @@ def main() -> int:
     t0 = time.perf_counter()
     print(f"[dense] allocated before the dense phases: {release()} bytes",
           flush=True)
-    flash_launches = serve_phase(dev, DENSE_ARCH, "flash_gqa",
-                                 DENSE_F32_PROMPT)
+    flash_launches = serve_phase(dev, DENSE_ARCH,
+                                 DENSE_F32_PROMPT)["flash_gqa"]
     phase("dense serve", t0)
 
     t0 = time.perf_counter()
     release()
     prefill_parity(get_config(DENSE_ARCH).replace(
         num_layers=DENSE_PARITY_LAYERS), DENSE_PARITY_PROMPT, dev,
-        "flash_gqa", (torch.float32, torch.bfloat16))
+        (torch.float32, torch.bfloat16))
     prefill_parity(get_config(SMOLLM_ARCH), DENSE_PARITY_PROMPT, dev,
-                   "flash_gqa", (torch.float32,))
+                   (torch.float32,))
     phase("dense parity", t0)
+
+    t0 = time.perf_counter()
+    release()
+    dispatch_recs = moe_dispatch_phase(dev)
+    phase("moe dispatch", t0)
+
+    t0 = time.perf_counter()
+    print(f"[moe] allocated before the MoE serve phase: {release()} bytes",
+          flush=True)
+    moe_launches = serve_phase(dev, MOE_ARCH, MOE_F32_PROMPT)
+    phase("moe serve", t0)
+
+    t0 = time.perf_counter()
+    release()
+    prefill_parity(get_config(MOE_ARCH).replace(
+        num_layers=MOE_PARITY_LAYERS), MOE_PARITY_PROMPT, dev,
+        (torch.float32, torch.bfloat16))
+    phase("moe parity", t0)
 
     print(json.dumps({"kernels": [{
         "name": "partition_pack", "route": "cuda",
         "source": "src/repro_torch/kernels/partition_pack/csrc/"
                   "partition_pack.cu",
         "replaces": "src/repro/kernels/partition_pack/partition_pack.py:83",
-        "launches": launches + wl_launches,
-        "launches_by_path": {"query": launches, "workload": wl_launches},
+        "launches": launches + wl_launches + moe_launches["partition_pack"],
+        "launches_by_path": {"query": launches, "workload": wl_launches,
+                             "moe serve": moe_launches["partition_pack"]},
         "max_abs_err": max(r["max_abs_err"] for r in recs),
         "ms": main_rec["kernel_ms"], "plain_ms": main_rec["plain_ms"],
         "bound_ms": main_rec["bound_ms"], "bound_by": "bytes",
-        "library_ms": main_rec["library_ms"]}, {
+        "library_ms": main_rec["library_ms"],
+        "moe_dispatch": {r["case"]: {
+            key: r[key] for key in ("n_parts", "capacity", "kernel_ms",
+                                    "per_group_kernel_ms", "plain_ms",
+                                    "library_ms", "bound_ms", "dispatch_ms",
+                                    "dispatch_bound_ms", "row_pack_ms")}
+            for r in dispatch_recs}}, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:65",
@@ -1159,11 +1449,18 @@ def main() -> int:
         "name": "flash_gqa", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_gqa/csrc/flash_gqa.cu",
         "replaces": "src/repro/kernels/flash_gqa/flash_gqa.py:72",
-        "launches": flash_launches, "max_abs_err": flash_err,
+        "launches": flash_launches + moe_launches["flash_gqa"],
+        "launches_by_path": {"dense serve": flash_launches,
+                             "moe serve": moe_launches["flash_gqa"]},
+        "max_abs_err": flash_err,
         "ms": flash_rec["kernel_ms"], "plain_ms": flash_rec["plain_ms"],
         "bound_ms": flash_rec["bound_ms"],
         "bound_by": flash_rec["bound_by"],
-        "library_ms": flash_rec["library_ms"]}]}), flush=True)
+        "library_ms": flash_rec["library_ms"],
+        "mla_prefill": {key: mla_rec[key] for key in (
+            "case", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_backend", "max_abs_err")}}]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

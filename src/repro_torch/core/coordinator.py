@@ -236,6 +236,10 @@ class _Task:
     failures: int = 0            # failed attempts so far (backoff level)
     retrying: bool = False       # awaiting a RETRY_FIRE re-dispatch
     retry_reason: str = ""       # "invoke" | "worker_loss"
+    # request events carry rq + req_base; a worker loss moves req_base
+    # past the lost attempt's requests, so that events of that attempt
+    # still in the queue are told apart from the next attempt's
+    req_base: int = 0
 
 
 class _Stage:
@@ -677,6 +681,11 @@ class Coordinator:
                     continue
                 if self.journal is not None:
                     self.journal.observe((t, kind, ridx, sidx, tidx, rq))
+                if rq >= 0:
+                    base = stage.tasks[tidx].req_base
+                    if rq < base:
+                        continue    # of an attempt a worker loss discarded
+                    rq -= base
                 if kind == _DONE:
                     self._on_done(ctx, run, stage, tidx, t)
                 elif kind == _BACKUP:
@@ -1195,6 +1204,14 @@ class Coordinator:
                                 stage.sidx, tidx, -1)
 
     # ---------------------------------------------------- request events
+    @staticmethod
+    def _push_req(ctx: _Ctx, t: float, kind: int, run: _Run,
+                  stage: _Stage, tidx: int, rq: int):
+        """Push an event of request ``rq`` of the task's current attempt,
+        tagged with the attempt by the task's ``req_base``."""
+        ctx.events.push(t, kind, run.ridx, stage.sidx, tidx,
+                        stage.tasks[tidx].req_base + rq)
+
     def _io_advance(self, ctx: _Ctx, run: _Run, stage: _Stage, tidx: int,
                     t: float):
         """Advance a task's timeline to the next phase that needs heap
@@ -1232,8 +1249,7 @@ class Coordinator:
             for s in specs:
                 rq = len(io.reqs)
                 io.reqs.append(_Req(s, True))
-                ctx.events.push(t, _PUT_ISSUE, run.ridx,
-                                stage.sidx, tidx, rq)
+                self._push_req(ctx, t, _PUT_ISSUE, run, stage, tidx, rq)
             return
 
     def _io_place_get(self, ctx: _Ctx, run: _Run, stage: _Stage, tidx: int,
@@ -1266,11 +1282,11 @@ class Coordinator:
             run.poll_gets += polls
             self._log(tt, "VISIBLE_AT", run, stage, tidx, rq, target=target,
                       polls=polls, avail=avail, lag=lag)
-            ctx.events.push(tt, _VISIBLE, run.ridx, stage.sidx, tidx, rq)
+            self._push_req(ctx, tt, _VISIBLE, run, stage, tidx, rq)
         else:
             # tt == max(lane_t, avail): issue as soon as the lane and the
             # producer allow
-            ctx.events.push(tt, _GET_ISSUE, run.ridx, stage.sidx, tidx, rq)
+            self._push_req(ctx, tt, _GET_ISSUE, run, stage, tidx, rq)
 
     @staticmethod
     def _req_stream(task: _Task, req: _Req) -> int:
@@ -1299,20 +1315,19 @@ class Coordinator:
             self._log(t, "GET_ISSUE", run, stage, tidx, rq, key=req.target,
                       nbytes=req.spec.nbytes, conc=io.conc,
                       retargeted=retargeted, failed=True, tries=req.tries)
-            ctx.events.push(t + t1, _INVOKE_FAIL, run.ridx,
-                            stage.sidx, tidx, rq)
+            self._push_req(ctx, t + t1, _INVOKE_FAIL, run, stage, tidx, rq)
             return
         req.end = t + t1
         pol = self.policy.rsm
         if pol.enabled:
             timeout = pol.timeout_s(req.spec.nbytes, io.conc)
             if t1 > timeout:
-                ctx.events.push(t + timeout, _DUP, run.ridx,
-                                stage.sidx, tidx, rq)
+                self._push_req(ctx, t + timeout, _DUP, run, stage, tidx,
+                               rq)
         self._log(t, "GET_ISSUE", run, stage, tidx, rq, key=req.target,
                   nbytes=req.spec.nbytes, conc=io.conc,
                   retargeted=retargeted)
-        ctx.events.push(req.end, _GET_DONE, run.ridx, stage.sidx, tidx, rq)
+        self._push_req(ctx, req.end, _GET_DONE, run, stage, tidx, rq)
 
     def _on_put_issue(self, ctx: _Ctx, run: _Run, stage: _Stage, tidx: int,
                       rq: int, t: float):
@@ -1334,19 +1349,18 @@ class Coordinator:
             self._log(t, "PUT_ISSUE", run, stage, tidx, rq,
                       key=req.spec.key, nbytes=req.spec.nbytes,
                       failed=True, tries=req.tries)
-            ctx.events.push(t + t1, _INVOKE_FAIL, run.ridx,
-                            stage.sidx, tidx, rq)
+            self._push_req(ctx, t + t1, _INVOKE_FAIL, run, stage, tidx, rq)
             return
         req.end = t + t1
         pol = self.policy.wsm
         if pol.enabled:
             start2 = pol.dup_start_s(send1, req.spec.nbytes)
             if t1 > start2:
-                ctx.events.push(t + start2, _DUP, run.ridx,
-                                stage.sidx, tidx, rq)
+                self._push_req(ctx, t + start2, _DUP, run, stage, tidx,
+                               rq)
         self._log(t, "PUT_ISSUE", run, stage, tidx, rq, key=req.spec.key,
                   nbytes=req.spec.nbytes)
-        ctx.events.push(req.end, _PUT_DONE, run.ridx, stage.sidx, tidx, rq)
+        self._push_req(ctx, req.end, _PUT_DONE, run, stage, tidx, rq)
 
     def _on_dup(self, ctx: _Ctx, run: _Run, stage: _Stage, tidx: int,
                 rq: int, t: float):
@@ -1381,8 +1395,9 @@ class Coordinator:
         if new_end < req.end - _EPS:
             run.attr["dup_saved_s"] += req.end - new_end
             req.end = new_end               # original DONE event goes stale
-            ctx.events.push(new_end, _PUT_DONE if req.put else _GET_DONE,
-                            run.ridx, stage.sidx, tidx, rq)
+            self._push_req(ctx, new_end,
+                           _PUT_DONE if req.put else _GET_DONE, run, stage,
+                           tidx, rq)
 
     def _on_req_done(self, ctx: _Ctx, run: _Run, stage: _Stage, tidx: int,
                      rq: int, t: float, is_put: bool):
@@ -1468,6 +1483,7 @@ class Coordinator:
         task.failures += 1
         task.retrying = True
         task.retry_reason = "worker_loss"
+        task.req_base += len(task.io.reqs)
         task.io = None
         task.io_done = False
         task.end = math.inf
@@ -1501,8 +1517,7 @@ class Coordinator:
                 return
             back = self.retry.backoff_s(req.tries)
             run.attr["retry_s"] = run.attr.get("retry_s", 0.0) + back
-            ctx.events.push(t + back, _RETRY, run.ridx, stage.sidx, tidx,
-                            rq)
+            self._push_req(ctx, t + back, _RETRY, run, stage, tidx, rq)
             return
         # rq == -1: the invoke API call itself failed (detected now)
         if task.failures >= self.retry.max_attempts:

@@ -4,13 +4,17 @@
 // Replaces the Pallas TPU kernel of src/repro/kernels/flash_gqa/
 // flash_gqa.py: flash_attention_pallas (body _flash_kernel) together with
 // the host-side preparation of its wrapper ops.flash_gqa. Inputs in model
-// layout: q [B,S,H,D], k/v [B,S,Hkv,D] and an int32 map kv_head [H] (query
-// head h reads kv head kv_head[h]); q, k, v and the output o [B,S,H,D]
-// share one type (f32 or bf16). For each (b, h) and query row i:
-//   o_i = sum_j softmax_j(q_i . k_j / sqrt(D)) v_j over the keys j with
-//   j <= i (causal), j > i - window (window > 0), j < S.
-// The scale is that of the true head dim: D is never padded here, and q is
-// never rescaled. Running max m, sum l and the accumulator are f32.
+// layout: q [B,S,H,D], k [B,S,Hkv,D], v [B,S,Hkv,DV] and an int32 map
+// kv_head [H] (query head h reads kv head kv_head[h]); q, k, v and the
+// output o [B,S,H,DV] share one type (f32 or bf16). For each (b, h) and
+// query row i:
+//   o_i = sum_j softmax_j(q_i . k_j * scale) v_j over the keys j with
+//   j <= i (causal), j > i - window (window > 0), j < S,
+// with scale 1/sqrt(D) from the wrapper. The scale is that of the true
+// head dim: D is never padded here, and q is never rescaled. Running max
+// m, sum l and the accumulator are f32. DV equals D, except for MLA's
+// prefill (deepseek-v2: q/k 192 = 128 nope + 64 rope, v 128), whose pair
+// the Pallas kernel cannot take (its wrapper pads v with q's padding).
 //
 // Shared by both bodies. The TPU grid's sequential kv axis is a loop
 // inside one block of 128 threads per (b, h, 64 query rows), with m, l and
@@ -41,15 +45,23 @@
 //   3. O += P.V by mma.sync.m16n8k16: the accumulator fragment of S is the
 //      A fragment of P once rounded to bf16 (no trip through shared
 //      memory); V's B fragments by ldmatrix.trans.
+// At D = 192 Q's fragments would take 48 registers a thread on top of the
+// 64 of the [16 x 128] accumulator and the 32 of S (the D = 128 build
+// already uses about 204), so above D = 128 they are not kept: each k-step
+// loads its fragment from the Q tile in shared memory by ldmatrix, 12 more
+// ldmatrix a kv tile and warp.
 // K and V tiles come in by cp.async (16 bytes a thread, zero-filled past
 // S) into a ring of two stages: tile t+1 loads while tile t is computed,
 // one __syncthreads a tile. Rows of shared memory are D + 8 elements, so
 // the 8 rows an ldmatrix reads fall in distinct banks. Shared memory:
-// (64 + 4 * 64) * (D + 8) * 2 bytes, 87,040 at D = 128, two blocks an SM.
+// ((64 + 2 * 64) * (D + 8) + 2 * 64 * (DV + 8)) * 2 bytes (V's rows are
+// DV + 8): 87,040 at D = DV = 128 and 111,616 at (192, 128), two blocks an
+// SM either way.
 // f32 body (flash_gqa_fwd): f32 FMA from shared memory, as the tests hold
 // f32 to 2e-5, which TF32 (about three digits) cannot meet: K^T and V by
 // plain loads (K transposed on the way), each thread a 4x8 score tile and
-// a 4 x D/8 output tile, P through shared memory; 98 KB, two blocks an SM.
+// a 4 x DV/8 output tile, P through shared memory; 98 KB, two blocks an SM
+// at D = 128; 134 KB, one block an SM, at (192, 128).
 //
 // Bound. At the serve path's shape (B=4, S=512, H=32, Hkv=2, D=128,
 // causal) the function needs, over the causal triangle (512*513/2 =
@@ -66,8 +78,14 @@
 // blocks an SM the 128-register cap spills at D = 128, and they ran
 // slower.
 //
-// Limits: D in {16, 32, 64, 128}; S >= 1; every kv_head[h] in [0, Hkv)
-// (the wrapper checks the map). Anything else is cudaErrorInvalidValue.
+// MLA prefill (deepseek-v2-lite: B=4, S=512, H=Hkv=16, D=192, DV=128,
+// causal): 4 * 16 * 131,328 pairs of 2 * (192 + 128) FLOP, 5.38 GFLOP;
+// q, k (2 * 12.6 MB), v and o (2 * 8.4 MB) in bf16: 41.9 MB, 0.0125 ms at
+// 3.35 TB/s, against 0.0054 ms for the FLOP at 989 TFLOP/s.
+//
+// Limits: (D, DV) in {(16, 16), (32, 32), (64, 64), (128, 128), (192,
+// 128)}; S >= 1; every kv_head[h] in [0, Hkv) (the wrapper checks the
+// map). Anything else is cudaErrorInvalidValue.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -77,7 +95,7 @@
 #define FA_BQ 64                    // query rows a block
 #define FA_BK 64                    // kv rows a tile
 #define FA_LDK (FA_BK + 4)          // row of K^T and of P in shared memory
-#define FA_MAX_D 128
+#define FA_MAX_D 192
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -102,25 +120,25 @@ __device__ __forceinline__ void store(float* p, const float* v) {
   else
     *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
 }
-static inline size_t smem_bytes(int D) {
+static inline size_t smem_bytes(int D, int DV) {
   const int kt_rows = D > FA_BQ ? D : FA_BQ;   // K^T [D][..], then P [64][..]
   return ((size_t)D * FA_BQ + (size_t)kt_rows * FA_LDK
-          + (size_t)FA_BK * D) * sizeof(float);
+          + (size_t)FA_BK * DV) * sizeof(float);
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(FA_THREADS, 2)
 flash_gqa_fwd(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const int* __restrict__ kv_head,
               float* __restrict__ o, int S, int H, int Hkv, int BH, int causal,
               int window, float scale) {
-  constexpr int VEC = D >= 32 ? 4 : 2;          // output columns a chunk
-  constexpr int NCH = D / (8 * VEC);            // chunks a thread owns
+  constexpr int VEC = DV >= 32 ? 4 : 2;         // output columns a chunk
+  constexpr int NCH = DV / (8 * VEC);           // chunks a thread owns
   constexpr int DO = VEC * NCH;                 // output columns a thread
   extern __shared__ __align__(16) float smem[];
   float* Qt = smem;                             // [D][FA_BQ]
   float* Kt = Qt + D * FA_BQ;                   // [D][FA_LDK], then P
-  float* Vs = Kt + (D > FA_BQ ? D : FA_BQ) * FA_LDK;   // [FA_BK][D]
+  float* Vs = Kt + (D > FA_BQ ? D : FA_BQ) * FA_LDK;   // [FA_BK][DV]
 
   const int n_qt = (S + FA_BQ - 1) / FA_BQ;
   const int qt = n_qt - 1 - (int)(blockIdx.x / BH);  // heaviest tiles first
@@ -131,9 +149,10 @@ flash_gqa_fwd(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x, rg = tid >> 3, cg = tid & 7;
 
   const int64_t qs = (int64_t)H * D, ks = (int64_t)Hkv * D;   // row strides
+  const int64_t vs = (int64_t)Hkv * DV;
   const float* qb = q + ((int64_t)b * S * H + h) * D;
   const float* kb = k + ((int64_t)b * S * Hkv + hk) * D;
-  const float* vb = v + ((int64_t)b * S * Hkv + hk) * D;
+  const float* vb = v + ((int64_t)b * S * Hkv + hk) * DV;
 
   // Q^T, rows fastest across threads (conflict-free transposed stores)
   for (int e = tid; e < FA_BQ * (D / 4); e += FA_THREADS) {
@@ -171,11 +190,11 @@ flash_gqa_fwd(const float* __restrict__ q, const float* __restrict__ k,
       Kt[(d + 2) * FA_LDK + r] = t.z;
       Kt[(d + 3) * FA_LDK + r] = t.w;
     }
-    for (int e = tid; e < FA_BK * (D / 4); e += FA_THREADS) {
-      const int r = e / (D / 4), d = (e % (D / 4)) * 4;
-      const float4 t = k0 + r < S ? load4(vb + (k0 + r) * ks + d)
+    for (int e = tid; e < FA_BK * (DV / 4); e += FA_THREADS) {
+      const int r = e / (DV / 4), d = (e % (DV / 4)) * 4;
+      const float4 t = k0 + r < S ? load4(vb + (k0 + r) * vs + d)
                                   : make_float4(0.f, 0.f, 0.f, 0.f);
-      *reinterpret_cast<float4*>(Vs + r * D + d) = t;
+      *reinterpret_cast<float4*>(Vs + r * DV + d) = t;
     }
     __syncthreads();
 
@@ -262,7 +281,7 @@ flash_gqa_fwd(const float* __restrict__ q, const float* __restrict__ k,
         float vv[DO];
 #pragma unroll
         for (int jj = 0; jj < NCH; ++jj)
-          lds<VEC>(Vs + (kk + e) * D + cg * VEC + 8 * VEC * jj,
+          lds<VEC>(Vs + (kk + e) * DV + cg * VEC + 8 * VEC * jj,
                    vv + jj * VEC);
 #pragma unroll
         for (int i = 0; i < 4; ++i)
@@ -279,7 +298,7 @@ flash_gqa_fwd(const float* __restrict__ q, const float* __restrict__ k,
     const int r = q0 + rg * 4 + i;
     if (r >= S) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    float* orow = o + (((int64_t)b * S + r) * H + h) * D;
+    float* orow = o + (((int64_t)b * S + r) * H + h) * DV;
 #pragma unroll
     for (int jj = 0; jj < NCH; ++jj) {
       float w[VEC];
@@ -352,11 +371,12 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* tile,
   }
 }
 
-static inline size_t smem_bytes_mma(int D) {
-  return (size_t)(FA_BQ + 4 * FA_BK) * FM_LD(D) * sizeof(__nv_bfloat16);
+static inline size_t smem_bytes_mma(int D, int DV) {
+  return ((size_t)(FA_BQ + 2 * FA_BK) * FM_LD(D)
+          + (size_t)2 * FA_BK * FM_LD(DV)) * sizeof(__nv_bfloat16);
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(FA_THREADS, 2)
 flash_gqa_fwd_mma(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
@@ -364,14 +384,15 @@ flash_gqa_fwd_mma(const __nv_bfloat16* __restrict__ q,
                   const int* __restrict__ kv_head,
                   __nv_bfloat16* __restrict__ o, int S, int H, int Hkv,
                   int BH, int causal, int window, float scale_log2) {
-  constexpr int LD = FM_LD(D);
+  constexpr int LD = FM_LD(D), LDV = FM_LD(DV);
   constexpr int KS = D / 16;                    // k-steps of Q.K^T
-  constexpr int NO = D / 8;                     // n-tiles of O
+  constexpr int NO = DV / 8;                    // n-tiles of O
   constexpr int NS = FA_BK / 8;                 // n-tiles of S
+  constexpr bool QREG = D <= 128;               // Q's fragments in registers
   extern __shared__ __align__(16) __nv_bfloat16 smb[];
   __nv_bfloat16* Qs = smb;                      // [64][LD]
   __nv_bfloat16* Ks = Qs + FA_BQ * LD;          // [2][64][LD]
-  __nv_bfloat16* Vs = Ks + 2 * FA_BK * LD;      // [2][64][LD]
+  __nv_bfloat16* Vs = Ks + 2 * FA_BK * LD;      // [2][64][LDV]
 
   const int n_qt = (S + FA_BQ - 1) / FA_BQ;
   const int qt = n_qt - 1 - (int)(blockIdx.x / BH);  // heaviest tiles first
@@ -383,9 +404,10 @@ flash_gqa_fwd_mma(const __nv_bfloat16* __restrict__ q,
   const int g = lane >> 2, t = lane & 3;        // fragment row, column pair
 
   const int64_t qs = (int64_t)H * D, ks = (int64_t)Hkv * D;   // row strides
+  const int64_t vs = (int64_t)Hkv * DV;
   const __nv_bfloat16* qb = q + ((int64_t)b * S * H + h) * D;
   const __nv_bfloat16* kb = k + ((int64_t)b * S * Hkv + hk) * D;
-  const __nv_bfloat16* vb = v + ((int64_t)b * S * Hkv + hk) * D;
+  const __nv_bfloat16* vb = v + ((int64_t)b * S * Hkv + hk) * DV;
 
   // the kv tiles holding an unmasked key for some row q0..q_end-1
   const int q_end = min(S, q0 + FA_BQ);
@@ -395,12 +417,12 @@ flash_gqa_fwd_mma(const __nv_bfloat16* __restrict__ q,
 
   load_tile<D>(Qs, qb, qs, q0, S, tid);
   load_tile<D>(Ks, kb, ks, kt0 * FA_BK, S, tid);
-  load_tile<D>(Vs, vb, ks, kt0 * FA_BK, S, tid);
+  load_tile<DV>(Vs, vb, vs, kt0 * FA_BK, S, tid);
   cp_async_commit();
 
   // rows of this thread: r0 (fragment rows 0-7) and r0 + 8
   const int r0 = q0 + warp * 16 + g;
-  uint32_t qf[KS][4];
+  uint32_t qf[QREG ? KS : 1][4];
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   float acc[NO][4];
 #pragma unroll
@@ -414,17 +436,19 @@ flash_gqa_fwd_mma(const __nv_bfloat16* __restrict__ q,
     if (it + 1 < n_kt) {
       const int st = (it + 1) & 1, row0 = (kt0 + it + 1) * FA_BK;
       load_tile<D>(Ks + st * FA_BK * LD, kb, ks, row0, S, tid);
-      load_tile<D>(Vs + st * FA_BK * LD, vb, ks, row0, S, tid);
+      load_tile<DV>(Vs + st * FA_BK * LDV, vb, vs, row0, S, tid);
     }
     cp_async_commit();
-    if (it == 0) {
+    if constexpr (QREG) {
+      if (it == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk)
-        ldsm_x4(qf[kk], smem_addr(Qs + (warp * 16 + (lane & 15)) * LD
-                                  + kk * 16 + (lane >> 4) * 8));
+        for (int kk = 0; kk < KS; ++kk)
+          ldsm_x4(qf[kk], smem_addr(Qs + (warp * 16 + (lane & 15)) * LD
+                                    + kk * 16 + (lane >> 4) * 8));
+      }
     }
     const __nv_bfloat16* Kt = Ks + (it & 1) * FA_BK * LD;
-    const __nv_bfloat16* Vt = Vs + (it & 1) * FA_BK * LD;
+    const __nv_bfloat16* Vt = Vs + (it & 1) * FA_BK * LDV;
     const int k0 = (kt0 + it) * FA_BK;
 
     // 1. S = Q.K^T
@@ -434,16 +458,21 @@ flash_gqa_fwd_mma(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk)
+    for (int kk = 0; kk < KS; ++kk) {
+      if constexpr (!QREG)      // this k-step's Q fragment from the tile
+        ldsm_x4(qf[0], smem_addr(Qs + (warp * 16 + (lane & 15)) * LD
+                                 + kk * 16 + (lane >> 4) * 8));
+      const uint32_t* qa = qf[QREG ? kk : 0];
 #pragma unroll
       for (int n = 0; n < NS; n += 2) {
         uint32_t kf[4];
         ldsm_x4(kf, smem_addr(Kt + (n * 8 + ((lane >> 4) << 3) + (lane & 7))
                                        * LD
                               + kk * 16 + ((lane >> 3) & 1) * 8));
-        mma_bf16(s[n], qf[kk], kf[0], kf[1]);
-        mma_bf16(s[n + 1], qf[kk], kf[2], kf[3]);
+        mma_bf16(s[n], qa, kf[0], kf[1]);
+        mma_bf16(s[n + 1], qa, kf[2], kf[3]);
       }
+    }
 
     // 2. mask, online softmax (log2 domain)
     float mx[2] = {-INFINITY, -INFINITY};
@@ -494,7 +523,7 @@ flash_gqa_fwd_mma(const __nv_bfloat16* __restrict__ q,
       for (int n = 0; n < NO; n += 2) {
         uint32_t vf[4];
         ldsm_x4_t(vf, smem_addr(Vt + (kk * 16 + ((lane >> 3) & 1) * 8
-                                      + (lane & 7)) * LD
+                                      + (lane & 7)) * LDV
                                 + n * 8 + (lane >> 4) * 8));
         mma_bf16(acc[n], pf, vf[0], vf[1]);
         mma_bf16(acc[n + 1], pf, vf[2], vf[3]);
@@ -510,7 +539,7 @@ flash_gqa_fwd_mma(const __nv_bfloat16* __restrict__ q,
     const int r = r0 + i * 8;
     if (r >= S) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    __nv_bfloat16* orow = o + (((int64_t)b * S + r) * H + h) * D;
+    __nv_bfloat16* orow = o + (((int64_t)b * S + r) * H + h) * DV;
 #pragma unroll
     for (int n = 0; n < NO; ++n)
       *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t) =
@@ -528,7 +557,7 @@ static int set_smem(const void* fn, size_t shm) {
       (int)cudaSharedmemCarveoutMaxShared);
 }
 
-template <int D>
+template <int D, int DV>
 static int launch(int dtype, const void* q, const void* k, const void* v,
                   const void* kv_head, void* o, int B, int S, int H,
                   int Hkv, int causal, int window, float scale,
@@ -536,18 +565,18 @@ static int launch(int dtype, const void* q, const void* k, const void* v,
   const int64_t blocks = (int64_t)B * H * ((S + FA_BQ - 1) / FA_BQ);
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
   if (dtype == 0) {
-    const size_t shm = smem_bytes(D);
-    const int err = set_smem((const void*)flash_gqa_fwd<D>, shm);
+    const size_t shm = smem_bytes(D, DV);
+    const int err = set_smem((const void*)flash_gqa_fwd<D, DV>, shm);
     if (err) return err;
-    flash_gqa_fwd<D><<<(unsigned)blocks, FA_THREADS, shm, stream>>>(
+    flash_gqa_fwd<D, DV><<<(unsigned)blocks, FA_THREADS, shm, stream>>>(
         (const float*)q, (const float*)k, (const float*)v,
         (const int*)kv_head, (float*)o, S, H, Hkv, B * H, causal, window,
         scale);
   } else {
-    const size_t shm = smem_bytes_mma(D);
-    const int err = set_smem((const void*)flash_gqa_fwd_mma<D>, shm);
+    const size_t shm = smem_bytes_mma(D, DV);
+    const int err = set_smem((const void*)flash_gqa_fwd_mma<D, DV>, shm);
     if (err) return err;
-    flash_gqa_fwd_mma<D><<<(unsigned)blocks, FA_THREADS, shm, stream>>>(
+    flash_gqa_fwd_mma<D, DV><<<(unsigned)blocks, FA_THREADS, shm, stream>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
         (const __nv_bfloat16*)v, (const int*)kv_head, (__nv_bfloat16*)o, S,
         H, Hkv, B * H, causal, window, scale * 1.4426950408889634f);
@@ -563,32 +592,28 @@ const char* fa_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// dtype 0: q, k, v, o are f32; 1: bf16. q/o [B,S,H,D], k/v [B,S,Hkv,D],
-// kv_head [H] int32, all contiguous on one device; scale multiplies q.k.
-// Returns a cudaError_t (0 = launched).
+// dtype 0: q, k, v, o are f32; 1: bf16. q [B,S,H,D], k [B,S,Hkv,D], v
+// [B,S,Hkv,Dv], o [B,S,H,Dv], kv_head [H] int32, all contiguous on one
+// device; scale multiplies q.k. Returns a cudaError_t (0 = launched).
 int flash_gqa(int dtype, const void* q, const void* k, const void* v,
               const void* kv_head, void* o, int B, int S, int H, int Hkv,
-              int D, int causal, int window, float scale, void* stream) {
+              int D, int Dv, int causal, int window, float scale,
+              void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || window < 0 ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (D) {
-    case 16:
-      return launch<16>(dtype, q, k, v, kv_head, o, B, S, H, Hkv, causal,
-                        window, scale, s);
-    case 32:
-      return launch<32>(dtype, q, k, v, kv_head, o, B, S, H, Hkv, causal,
-                        window, scale, s);
-    case 64:
-      return launch<64>(dtype, q, k, v, kv_head, o, B, S, H, Hkv, causal,
-                        window, scale, s);
-    case 128:
-      return launch<128>(dtype, q, k, v, kv_head, o, B, S, H, Hkv, causal,
+#define FA_CASE(d, dv)                                                      \
+  if (D == d && Dv == dv)                                                   \
+    return launch<d, dv>(dtype, q, k, v, kv_head, o, B, S, H, Hkv, causal,  \
                          window, scale, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  FA_CASE(16, 16)
+  FA_CASE(32, 32)
+  FA_CASE(64, 64)
+  FA_CASE(128, 128)
+  FA_CASE(192, 128)
+#undef FA_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -3,8 +3,10 @@ replaces the Pallas ``flash_attention_pallas`` of src/repro/kernels/
 flash_gqa/flash_gqa.py; the source's note gives the design and its bound).
 
 ``flash_gqa`` takes the model layout as it is: q [B,S,H,D] and k/v at kv
-head layout [B,S,Hkv,D], with a query-head -> kv-head map instead of a
-repeat of k and v. bf16 runs on the tensor cores, f32 on the f32 pipes.
+head layout (k [B,S,Hkv,D], v [B,S,Hkv,Dv]), with a query-head -> kv-head
+map instead of a repeat of k and v. Dv is D but for MLA's prefill (q/k
+192, v 128: ``HEAD_DIM_PAIRS``). bf16 runs on the tensor cores, f32 on the
+f32 pipes.
 It checks device, dtype, shape, contiguity, alignment and the map,
 allocates the output, launches on the current stream, checks the error
 code, and counts one launch per call in ``launches``. Where grad is needed
@@ -29,7 +31,9 @@ from repro_torch.kernels.flash_gqa.ref import attention_ref
 
 launches = 0                      # flash_gqa() calls that launched the kernel
 routed = 0                        # calls the model sent to the plain path
-HEAD_DIMS = (16, 32, 64, 128)     # the head dims the kernel takes
+# the (q/k, v) head dims the kernel is built for: equal dims, and MLA's
+# prefill (deepseek-v2: 128 nope + 64 rope, v 128)
+HEAD_DIM_PAIRS = ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128))
 _count_lock = threading.Lock()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,7 +44,7 @@ _maps: dict[tuple, torch.Tensor] = {}     # kv maps already on a device
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_gqa")
     lib.flash_gqa.argtypes = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _I, _I, ctypes.c_float, _P]
+                              _I, _I, _I, ctypes.c_float, _P]
     lib.flash_gqa.restype = _I
     lib.fa_error_string.argtypes = [_I]
     lib.fa_error_string.restype = ctypes.c_char_p
@@ -49,15 +53,16 @@ def _lib() -> ctypes.CDLL:
 
 def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                window: int, kv_head=None) -> tuple[int, ...]:
-    """What the kernel takes, on any device: q [B,S,H,D], k/v [B,S,Hkv,D]
-    alike, one floating dtype (f32 or bf16), Sq == Skv, D in HEAD_DIMS,
-    window >= 0, and a map of H kv heads in [0, Hkv) (``None``: h // (H /
-    Hkv), which needs Hkv to divide H). Raises ValueError otherwise.
-    -> the map as a tuple of ints."""
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"want q [B,S,H,D] and k/v [B,S,Hkv,D]; got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+    """What the kernel takes, on any device: q [B,S,H,D], k [B,S,Hkv,D],
+    v [B,S,Hkv,Dv], one floating dtype (f32 or bf16), Sq == Skv, (D, Dv)
+    in HEAD_DIM_PAIRS, window >= 0, and a map of H kv heads in [0, Hkv)
+    (``None``: h // (H / Hkv), which needs Hkv to divide H). Raises
+    ValueError otherwise. -> the map as a tuple of ints."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
+            or k.shape[:3] != v.shape[:3]:
+        raise ValueError(f"want q [B,S,H,D], k [B,S,Hkv,D] and v "
+                         f"[B,S,Hkv,Dv]; got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, S, H, D = q.shape
     Bk, Skv, Hkv, Dk = k.shape
     if Skv != S:
@@ -66,8 +71,9 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if Bk != B or Dk != D:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} "
                          "disagree on batch or head dim")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_gqa takes head dims {HEAD_DIMS}; got {D}")
+    if (D, v.shape[3]) not in HEAD_DIM_PAIRS:
+        raise ValueError(f"flash_gqa takes (q/k, v) head dims "
+                         f"{HEAD_DIM_PAIRS}; got ({D}, {v.shape[3]})")
     if S < 1 or B < 1 or Hkv < 1:
         raise ValueError(f"empty input {tuple(q.shape)}, {tuple(k.shape)}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -88,11 +94,13 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def takes(q_shape, k_shape, v_shape) -> bool:
-    """Whether the kernel takes q/k/v of these shapes: k and v alike
-    (so v's head dim is k's), Sq == Skv and a head dim in HEAD_DIMS."""
-    return (len(q_shape) == 4 and tuple(k_shape) == tuple(v_shape)
-            and len(k_shape) == 4 and q_shape[1] == k_shape[1]
-            and q_shape[3] == k_shape[3] and q_shape[3] in HEAD_DIMS)
+    """Whether the kernel takes q/k/v of these shapes: k and v alike but
+    for their head dims, Sq == Skv, and (q/k, v) head dims in
+    HEAD_DIM_PAIRS."""
+    return (len(q_shape) == 4 and len(k_shape) == 4 and len(v_shape) == 4
+            and tuple(k_shape[:3]) == tuple(v_shape[:3])
+            and q_shape[1] == k_shape[1] and q_shape[3] == k_shape[3]
+            and (q_shape[3], v_shape[3]) in HEAD_DIM_PAIRS)
 
 
 def count_routed():
@@ -124,12 +132,12 @@ def _map_on(m: tuple[int, ...], dev: torch.device) -> torch.Tensor:
 def flash_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int = 0,
               kv_head=None) -> torch.Tensor:
-    """q [B,S,H,D], k/v [B,S,Hkv,D], contiguous on one CUDA device, f32 or
-    bf16 alike; ``kv_head``: query head -> kv head (host ints, default h //
-    (H / Hkv)). -> o [B,S,H,D] in q's dtype: softmax(q.k / sqrt(D)) v over
-    the keys at or before each query (``causal``) and within the last
-    ``window`` positions (``window`` > 0). Differentiable in q, k and v
-    through the plain version."""
+    """q [B,S,H,D], k [B,S,Hkv,D], v [B,S,Hkv,Dv], contiguous on one CUDA
+    device, f32 or bf16 alike; ``kv_head``: query head -> kv head (host
+    ints, default h // (H / Hkv)). -> o [B,S,H,Dv] in q's dtype:
+    softmax(q.k / sqrt(D)) v over the keys at or before each query
+    (``causal``) and within the last ``window`` positions (``window`` >
+    0). Differentiable in q, k and v through the plain version."""
     kw = {"causal": causal, "window": window, "kv_head": kv_head}
     return kernel_call(lambda *t: (_launch(*t, **kw),),
                        lambda *t: (plain(*t, **kw),), q, k, v)[0]
@@ -151,15 +159,15 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              "loads rows 16 bytes at a time)")
     m = check_args(q, k, v, window, kv_head)
     B, S, H, D = q.shape
-    Hkv = k.shape[2]
+    Hkv, Dv = k.shape[2], v.shape[3]
     lib = _lib()
     kvh = _map_on(m, dev)
-    o = torch.empty_like(q)
+    o = q.new_empty((B, S, H, Dv))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.flash_gqa(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
                             v.data_ptr(), kvh.data_ptr(), o.data_ptr(), B, S,
-                            H, Hkv, D, int(causal), window,
+                            H, Hkv, D, Dv, int(causal), window,
                             1.0 / math.sqrt(D), stream)
     if err:
         raise RuntimeError(f"flash_gqa: CUDA error {err}: "

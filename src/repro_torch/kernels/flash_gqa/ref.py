@@ -9,7 +9,8 @@ import torch
 
 
 def attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
-    """q [B,Sq,H,D], k/v [B,Skv,H,D]; full score materialization (oracle).
+    """q [B,Sq,H,D], k [B,Skv,H,D], v [B,Skv,H,Dv]; full score
+    materialization (oracle) -> [B,Sq,H,Dv].
     When Skv > Sq the queries are aligned to the END of kv (query i sits at
     kv position i + Skv - Sq), as in the reference."""
     B, Sq, H, D = q.shape

@@ -4,7 +4,8 @@ defines (``CELLS``: 4 prompts of 512 tokens at full width and depth,
 weights and prompts from ``random_request``), after a warm-up.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
-      [--arch mamba2-2.7b|glm4-9b] [--trace serve_trace.json]
+      [--arch mamba2-2.7b|glm4-9b|deepseek-v2-lite-16b] \\
+      [--trace serve_trace.json]
 
 Prints one JSON line per part (prefill, decode): wall seconds (host clock,
 ending in ``torch.cuda.synchronize()``), device-busy seconds (the union of
@@ -12,8 +13,10 @@ kernel intervals on the card), the idle share 1 - busy / wall, the
 kernels launched, the device time and CUDA launches of the port's kernels
 on the serve path (ssd_scan: its four CUDA kernels ssd_cb,
 ssd_chunk_state, ssd_state_pass and ssd_chunk_scan a call; flash_gqa: one
-a call) and the ten kernels with the most device time. Runs on CUDA
-only.
+a call; partition_pack, the MoE dispatch: three a call at B·E = 256
+partitions, its multi-pass route) and the ten kernels with the most
+device time. The weights are cast to bf16 in place (``cast_params_``),
+so the card holds one copy. Runs on CUDA only.
 """
 from __future__ import annotations
 
@@ -29,12 +32,13 @@ from repro_torch.launch import serve
 from repro_torch.launch.profile_query import (busy_s, device_kernels,
                                               is_kernel)
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
-from repro_torch.models.model import build_model, cast_params
+from repro_torch.models.model import build_model, cast_params_
 from repro_torch.models.modules import init_params
 
 DECODE_STEPS = 8                                        # traced decode steps
 # the port's kernels on the serve path, by the prefix of their CUDA functions
-KERNELS = {"ssd_scan": "ssd_", "flash_gqa": "flash_gqa_fwd"}
+KERNELS = {"ssd_scan": "ssd_", "flash_gqa": "flash_gqa_fwd",
+           "partition_pack": "pp_"}
 
 
 def _profiled(name: str, fn, trace: str | None) -> dict:
@@ -76,7 +80,7 @@ def main(argv=None):
     bundle = build_model(cfg)
     params, tokens = serve.random_request(cfg, cell.batch, cell.prompt,
                                           cell.seed, dev)
-    params, tokens = cast_params(cfg, params), tokens.to(dev)
+    params, tokens = cast_params_(cfg, params), tokens.to(dev)
     prefill, decode = make_prefill_step(bundle), make_decode_step(bundle)
     batch = serve.prefill_batch(bundle, tokens)
 

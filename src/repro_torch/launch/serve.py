@@ -5,11 +5,13 @@
       --smoke --prompt-len 16 --new-tokens 8 --batch 2 [--device cuda|cpu]
 
 ``--arch`` defaults to smollm-135m, as in the reference; the port serves
-the ``ssm``, ``dense`` and ``vlm`` families. ``--device`` defaults to cuda
-and raises without a card. Weights are random, drawn from ``--seed``; so
-are the prompts (numpy, as the reference draws them). A vlm's vision
-embeddings and mrope positions are zeros, as the reference's serve makes
-them.
+the ``ssm``, ``dense`` and ``vlm`` families and ``moe`` with MLA attention
+(deepseek-v2-lite-16b). ``--device`` defaults to cuda and raises without a
+card. Weights are random, drawn from ``--seed`` in f32 and cast in place
+to the compute dtype before serving (``cast_params_``), so the card holds
+one copy of them; so are the prompts (numpy, as the reference draws
+them). A vlm's vision embeddings and mrope positions are zeros, as the
+reference's serve makes them.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig, get_config
 from repro_torch.configs.smoke import smoke_config
 from repro_torch.core.engine import resolve_device
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
-from repro_torch.models.model import build_model, cast_params
+from repro_torch.models.model import build_model, cast_params, cast_params_
 from repro_torch.models.modules import init_params, tree_map
 
 
@@ -51,7 +53,8 @@ class ServeCell:
 # traces. Each arch at full width and depth, 4 prompts of 512 tokens, 32
 # new tokens, weights and prompts from seed 0.
 CELLS = {c.arch: c for c in (ServeCell("mamba2-2.7b"),
-                              ServeCell("glm4-9b"))}
+                              ServeCell("glm4-9b"),
+                              ServeCell("deepseek-v2-lite-16b"))}
 
 
 def _sync(dev: torch.device):
@@ -114,7 +117,9 @@ def generate(cfg: ModelConfig, params, tokens: torch.Tensor, new_tokens: int,
     """Prefill ``tokens`` [B, S] int32, then decode greedily as the
     reference's loop does: a fresh cache sized for the whole generation,
     the prompt replayed through decode, then ``new_tokens`` greedy tokens.
-    Weights are cast to the compute dtype once (``cast_params``)."""
+    Weights are cast to the compute dtype once (``cast_params``): a copy of
+    the tree, unless the caller cast it already (``cast_params_``, in
+    place)."""
     dev = resolve_device(device)
     bundle = build_model(cfg)
     params = cast_params(cfg, tree_map(lambda t: t.to(dev), params))
@@ -161,6 +166,7 @@ def main(argv=None):
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     params, tokens = random_request(cfg, args.batch, args.prompt_len,
                                     args.seed, dev)
+    cast_params_(cfg, params)            # one copy of the weights, cast
 
     out = generate(cfg, params, tokens, args.new_tokens, dev)
     print(f"{cfg.name}: generated {out.tokens.shape[1]} tokens/seq on {dev} "

@@ -11,8 +11,9 @@ A bundle is everything launch/ needs:
 
 Layers are stacked on a leading "layers" dim as in the reference; its
 ``jax.lax.scan`` over that dim is a Python loop here. The port has the
-``ssm`` family (Mamba-2) and the homogeneous decoder LMs (``dense`` and
-``vlm``: glm4, granite, smollm, starcoder2, qwen2-vl); the others raise
+``ssm`` family (Mamba-2), the homogeneous decoder LMs (``dense`` and
+``vlm``: glm4, granite, smollm, starcoder2, qwen2-vl) and deepseek-v2 (the
+``moe`` family with MLA attention); the others raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -233,6 +234,70 @@ def _mamba(cfg: ModelConfig, rules=None, mesh=None) -> ModelBundle:
 
 
 # ---------------------------------------------------------------------------
+# family: deepseek-v2 (MLA; layer0 dense, rest MoE)
+# ---------------------------------------------------------------------------
+
+def _deepseek(cfg: ModelConfig, rules=None, mesh=None) -> ModelBundle:
+    sh = Sharder(mesh, rules)
+    n_moe = cfg.num_layers - cfg.moe.first_dense
+    defs = {**_embed_defs(cfg),
+            "layer0": T.layer_defs(cfg, attn="mla", mlp="mlp", d_ff=cfg.d_ff),
+            "layers": stack_specs(
+                T.layer_defs(cfg, attn="mla", mlp="moe"), n_moe)}
+
+    def fwd(p, x, positions, cache=None, cache_len=None):
+        """-> (final-normed x, the layers' summed aux loss, the dense
+        layer's cache and the MoE layers' list of caches: each layer's
+        compressed {"ckv", "krope"} of the prefill or, in decode, the
+        caches written in place)."""
+        c0 = cache["l0"] if cache is not None else None
+        x, c0n, aux = T.layer_apply(cfg, p["layer0"], x, sh,
+                                    positions=positions, attn="mla",
+                                    cache=c0, cache_len=cache_len)
+        cs = []
+        for i in range(n_moe):
+            cl = _layer(cache["ls"], i) if cache is not None else None
+            x, c, a = T.layer_apply(cfg, _layer(p["layers"], i), x, sh,
+                                    positions=positions, attn="mla",
+                                    mlp="moe", cache=cl, cache_len=cache_len)
+            aux = aux + a
+            cs.append(c)
+        x = apply_norm(cfg.norm_kind, p["final_ln"], x, cfg.norm_eps)
+        return x, aux, c0n, cs
+
+    def loss_fn(p, batch):
+        raise NotImplementedError("training is not ported yet (ROADMAP A5)")
+
+    def prefill_fn(p, batch):
+        B, S = batch["tokens"].shape
+        x = _embed(cfg, p, batch["tokens"], sh)
+        x, _, c0, cs = fwd(p, x, _positions(B, S, x.device))
+        logits = _logits(cfg, p, x[:, -1:], sh)
+        return logits, {"l0": c0, "ls": _stack(cs),
+                        "len": torch.tensor(S, dtype=torch.int32,
+                                            device=x.device)}
+
+    def decode_fn(p, cache, batch):
+        """One token at ``cache["len"]``; writes the token's compressed kv
+        into ``cache["l0"]`` and ``cache["ls"]`` in place and returns them
+        with ``len`` + 1."""
+        B = batch["token"].shape[0]
+        pos = cache["len"]
+        x = _embed(cfg, p, batch["token"], sh)
+        positions = pos.reshape(1, 1).expand(B, 1)
+        x, _, _, _ = fwd(p, x, positions, cache=cache, cache_len=pos)
+        logits = _logits(cfg, p, x, sh)
+        return logits, {"l0": cache["l0"], "ls": cache["ls"], "len": pos + 1}
+
+    def cache_defs(batch, cache_len, long=False):
+        one = T.mla_cache_defs(cfg, batch, cache_len, long)
+        return {"l0": one, "ls": stack_specs(one, n_moe), "len": _len_def()}
+
+    return ModelBundle(cfg, defs, loss_fn, prefill_fn, decode_fn, cache_defs,
+                       functools.partial(_base_batch_defs, cfg))
+
+
+# ---------------------------------------------------------------------------
 
 def _apply_param_dtype(defs, dtype):
     """In-place: weight matrices (ndim>=2) take cfg.param_dtype; 1D scales,
@@ -251,16 +316,21 @@ def _apply_param_dtype(defs, dtype):
 
 
 _FAMILIES = {"ssm": _mamba, "dense": _decoder_lm, "vlm": _decoder_lm}
-# ROADMAP items of the families the port does not have yet
-_NOT_PORTED = {"moe": "A7", "hybrid": "A8", "audio": "A8"}
+# ROADMAP items of the families the port does not have yet; of the moe
+# family only deepseek-v2 (MLA attention) is ported, llama4 waits
+_NOT_PORTED = {"moe": "A7b", "hybrid": "A8", "audio": "A8"}
 
 
 def build_model(cfg: ModelConfig, mesh=None, rules=None) -> ModelBundle:
-    if cfg.family not in _FAMILIES:
+    if cfg.family == "moe" and cfg.attn_kind == "mla":
+        family = _deepseek
+    elif cfg.family in _FAMILIES:
+        family = _FAMILIES[cfg.family]
+    else:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet (ROADMAP "
             f"{_NOT_PORTED.get(cfg.family, 'Queue A')})")
-    b = _FAMILIES[cfg.family](cfg, rules, mesh)
+    b = family(cfg, rules, mesh)
     if cfg.param_dtype != torch.float32:
         _apply_param_dtype(b.param_defs, cfg.param_dtype)
     return b
@@ -278,16 +348,28 @@ def cast_params(cfg: ModelConfig, params):
     """The parameter tree as the forward pass reads it: every floating leaf
     in ``cfg.compute_dtype`` but those the model reads in f32
     (``_F32_AT_USE``, and ``_LN_F32_AT_USE`` where the norms are
-    LayerNorms). The model casts each weight to the compute dtype at every
-    use, as the reference does (``.to(h.dtype)``); casting once here makes
-    those casts no-ops, with identical numbers, and keeps decode from
-    re-reading the f32 weights at every token."""
-    keep = _F32_AT_USE + (_LN_F32_AT_USE if cfg.norm_kind == "ln" else ())
+    LayerNorms), as a new tree (``params`` is left as it was). The model
+    casts each weight to the compute dtype at every use, as the reference
+    does (``.to(h.dtype)``); casting once here makes those casts no-ops,
+    with identical numbers, and keeps decode from re-reading the f32
+    weights at every token."""
+    return cast_params_(cfg, tree_map(lambda t: t, params,
+                                      is_leaf=torch.is_tensor))
 
-    def walk(t, key=None):
-        if isinstance(t, dict):
-            return {k: walk(v, k) for k, v in t.items()}
-        if key in keep or not t.is_floating_point():
-            return t
-        return t.to(cfg.compute_dtype)
-    return walk(params)
+
+def cast_params_(cfg: ModelConfig, params):
+    """``cast_params`` in place, leaf by leaf: each leaf of the dict tree
+    ``params`` is replaced by its cast before the next one is cast, so the
+    old leaf is freed at once where the caller holds no other reference to
+    it. A tree drawn in f32 on the card then never needs more than its f32
+    size plus its largest leaf in the compute dtype, where ``cast_params``
+    holds both trees whole. -> ``params``."""
+    keep = _F32_AT_USE + (_LN_F32_AT_USE if cfg.norm_kind == "ln" else ())
+    for k in list(params):
+        v = params[k]
+        if isinstance(v, dict):
+            cast_params_(cfg, v)
+        elif k not in keep and v.is_floating_point():
+            params[k] = v.to(cfg.compute_dtype)
+        del v
+    return params

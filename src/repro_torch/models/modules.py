@@ -73,9 +73,12 @@ def _init_one(spec: ParamSpec, generator: torch.Generator | None,
                          "torch.Generator")
 
     def normal(scale):
-        return (torch.randn(spec.shape, generator=generator,
-                            dtype=torch.float32, device=device) * scale
-                ).to(spec.dtype)
+        # scaled in place: a large f32 leaf (deepseek-v2-lite's stacked
+        # expert weights, 26 x 64 x 2048 x 1408 values each) is never
+        # held twice
+        return torch.randn(spec.shape, generator=generator,
+                           dtype=torch.float32, device=device
+                           ).mul_(scale).to(spec.dtype)
 
     if spec.init == "embed":
         return normal(spec.init_scale if spec.init_scale is not None else 1.0)

@@ -1,5 +1,7 @@
-"""Decoder blocks of the dense and VLM architectures (PyTorch port of the
-GQA and MLP half of ``repro.models.transformer``).
+"""Decoder blocks (PyTorch port of ``repro.models.transformer``): the GQA
+attention block of the dense and VLM architectures, deepseek-v2's MLA
+block, the MLPs, and the generic layer over them (its MoE block is
+``models/moe.py``).
 
 Each block is (param-defs fn, apply fn) over plain parameter trees. Caches
 are trees of the same kind; decode writes the new token's k/v at its slot
@@ -16,14 +18,16 @@ Attention layer kinds:
 The full-sequence attention of every kind runs the hand-written Hopper
 kernel (``kernels/flash_gqa/ops.flash_gqa``) on a CUDA device where the
 kernel takes the shapes, and the reference's plain algorithm
-(``attention.attention``) elsewhere: on the CPU, and on CUDA for head dims
-the kernel does not take or a v head dim other than k's, which
-``flash_gqa.routed`` counts. MLA and MoE blocks are not ported yet
-(ROADMAP A7).
+(``attention.attention``) elsewhere: on the CPU, and on CUDA for head dim
+pairs the kernel does not take (``flash_gqa.takes``), which
+``flash_gqa.routed`` counts. MLA's prefill attends through the same path
+(q/k 192, v 128 at deepseek-v2-lite's width); its decode attends over the
+compressed cache with the absorbed projections, in plain PyTorch.
 """
 from __future__ import annotations
 
 import functools
+import math
 from typing import Any
 
 import numpy as np
@@ -32,6 +36,7 @@ import torch
 from repro_torch.kernels.flash_gqa import flash_gqa as FK
 from repro_torch.kernels.flash_gqa import ops as flash_ops
 from repro_torch.models import attention as A
+from repro_torch.models.moe import moe_apply, moe_defs
 from repro_torch.models.modules import (ParamSpec, apply_norm, gelu,
                                         norm_defs, swiglu)
 
@@ -225,14 +230,108 @@ def _chunk_local_attention(cfg, q, k, v):
 
 
 # ---------------------------------------------------------------------------
-# MLA attention block (deepseek-v2): not ported yet
+# MLA attention block (deepseek-v2)
 # ---------------------------------------------------------------------------
 
-def _mla_not_ported(*_, **__):
-    raise NotImplementedError("MLA attention is not ported yet (ROADMAP A7)")
+def mla_defs(cfg) -> dict:
+    d, H = cfg.d_model, cfg.num_heads
+    nope, rope_d = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    vd = cfg.v_head_dim
+    r = cfg.kv_lora_rank
+    return {
+        "ln": norm_defs(cfg.norm_kind, d),
+        "wq": ParamSpec((d, H * (nope + rope_d)), ("embed", "heads_q")),
+        "w_dkv": ParamSpec((d, r + rope_d), ("embed", "kv_lora")),
+        "kv_ln": norm_defs("rms", r),
+        "w_uk": ParamSpec((r, H * nope), ("kv_lora", "heads_q")),
+        "w_uv": ParamSpec((r, H * vd), ("kv_lora", "heads_q")),
+        "wo": ParamSpec((H * vd, d), ("heads_q", "embed")),
+    }
 
 
-mla_defs = mla_cache_defs = mla_apply = _mla_not_ported
+def mla_cache_defs(cfg, batch: int, cache_len: int, long: bool = False
+                   ) -> dict:
+    seq_ax = "cache_seq_sharded" if long else "cache_seq"
+    return {
+        "ckv": ParamSpec((batch, cache_len, cfg.kv_lora_rank),
+                         ("cache_batch", seq_ax, None),
+                         init="zeros", dtype=cfg.compute_dtype),
+        "krope": ParamSpec((batch, cache_len, cfg.qk_rope_head_dim),
+                           ("cache_batch", seq_ax, None),
+                           init="zeros", dtype=cfg.compute_dtype),
+    }
+
+
+def _mla_qc(cfg, p, h, positions):
+    """Shared q / compressed-kv computation. Returns q_nope, q_rope, ckv,
+    krope."""
+    B, S, _ = h.shape
+    H = cfg.num_heads
+    nope, rope_d = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    r = cfg.kv_lora_rank
+    q = (h @ p["wq"].to(h.dtype)).reshape(B, S, H, nope + rope_d)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = A.apply_rope(q_rope, positions, cfg.rope_theta)
+    c = h @ p["w_dkv"].to(h.dtype)                              # [B,S,r+rope]
+    ckv = apply_norm("rms", p["kv_ln"], c[..., :r], cfg.norm_eps)
+    krope = A.apply_rope(c[..., None, r:], positions, cfg.rope_theta)[:, :, 0]
+    return q_nope, q_rope, ckv, krope
+
+
+def mla_apply(cfg, p, x, sh, *, positions, cache: dict | None = None,
+              cache_len=None, **_):
+    """Returns (out, cache). Full-sequence mode when ``cache`` is None: k
+    and v are materialized per head and attend through ``_attend`` (the
+    flash_gqa kernel on CUDA where it takes the head dims, q/k 192 with v
+    128 at full width); the cache is this layer's compressed {"ckv",
+    "krope"}. Decode mode (one token at ``cache_len``, an int32 tensor on
+    the device) writes the token's ckv and krope into ``cache`` IN PLACE,
+    as the GQA block does, and attends with the absorbed projections over
+    the compressed cache."""
+    B, S, d = x.shape
+    H = cfg.num_heads
+    nope, rope_d = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    vd = cfg.v_head_dim
+    r = cfg.kv_lora_rank
+    h = apply_norm(cfg.norm_kind, p["ln"], x, cfg.norm_eps)
+    q_nope, q_rope, ckv, krope = _mla_qc(cfg, p, h, positions)
+
+    if cache is None:
+        # decompressed path: materialize per-head k/v (prefill). The
+        # softmax scale is 1/sqrt(nope + rope), q's head dim.
+        k_nope = (ckv @ p["w_uk"].to(h.dtype)).reshape(B, S, H, nope)
+        v = (ckv @ p["w_uv"].to(h.dtype)).reshape(B, S, H, vd)
+        k = torch.cat([k_nope, krope[:, :, None].expand(B, S, H, rope_d)],
+                      -1)
+        q = torch.cat([q_nope, q_rope], -1)
+        q = sh(q, "batch", "act_seq_q", "act_heads", None)
+        o = _attend(cfg, q, k, v, causal=True, window=0)
+        out = o.reshape(B, S, -1) @ p["wo"].to(h.dtype)
+        new_cache = {"ckv": ckv, "krope": krope}
+        return x + sh(out, "batch", "seq", "act_embed"), new_cache
+
+    # ---- decode with absorbed projections (cache stays compressed) ----
+    pos = torch.as_tensor(cache_len, dtype=torch.int32, device=x.device)
+    idx = pos.reshape(1).long()
+    cache["ckv"].index_copy_(1, idx, ckv.to(cache["ckv"].dtype))
+    cache["krope"].index_copy_(1, idx, krope.to(cache["krope"].dtype))
+    ckv_c, krope_c = cache["ckv"], cache["krope"]
+    w_uk = p["w_uk"].to(h.dtype).reshape(r, H, nope)
+    w_uv = p["w_uv"].to(h.dtype).reshape(r, H, vd)
+    q_abs = torch.einsum("bqhd,rhd->bqhr", q_nope, w_uk)         # [B,1,H,r]
+    # the reference asks these two products for f32 results: the operands
+    # widened to f32 give the same exact products, summed in f32
+    s = (torch.einsum("bqhr,bkr->bhqk", q_abs.float(), ckv_c.float())
+         + torch.einsum("bqhd,bkd->bhqk", q_rope.float(), krope_c.float())
+         ) * (1.0 / math.sqrt(nope + rope_d))
+    Sc = ckv_c.shape[1]
+    valid = torch.arange(Sc, device=x.device) < (pos + 1)
+    s = s.masked_fill(~valid, A.NEG_INF)
+    pr = torch.softmax(s, dim=-1).to(h.dtype)
+    o_c = torch.einsum("bhqk,bkr->bqhr", pr, ckv_c)              # [B,1,H,r]
+    o = torch.einsum("bqhr,rhd->bqhd", o_c, w_uv)
+    out = o.reshape(B, S, -1) @ p["wo"].to(h.dtype)
+    return x + sh(out, "batch", "seq", "act_embed"), cache
 
 
 # ---------------------------------------------------------------------------
@@ -269,31 +368,28 @@ def mlp_apply(cfg, p, x, sh):
 
 
 # ---------------------------------------------------------------------------
-# Generic decoder layer = attention block + mlp block
+# Generic decoder layer = attention block + mlp/moe block
 # ---------------------------------------------------------------------------
-
-def _check_ported(attn: str, mlp: str):
-    if attn == "mla" or mlp == "moe":
-        raise NotImplementedError(f"{attn}/{mlp} layers are not ported yet "
-                                  "(ROADMAP A7)")
-
 
 def layer_defs(cfg, *, attn: str = "gqa", mlp: str = "mlp",
                d_ff: int | None = None) -> dict:
-    _check_ported(attn, mlp)
     defs: dict[str, Any] = {}
-    defs["attn"] = attn_defs(cfg)
-    defs["mlp"] = mlp_defs(cfg, d_ff)
+    defs["attn"] = mla_defs(cfg) if attn == "mla" else attn_defs(cfg)
+    defs["mlp"] = moe_defs(cfg) if mlp == "moe" else mlp_defs(cfg, d_ff)
     return defs
 
 
 def layer_apply(cfg, p, x, sh, *, positions, attn="gqa", mlp="mlp",
                 layer_kind="full", cache=None, cache_len=None,
                 mrope_positions=None):
-    """-> (x, kv or cache, aux); see ``attn_apply`` for the cache."""
-    _check_ported(attn, mlp)
-    x, new_cache = attn_apply(cfg, p["attn"], x, sh, positions=positions,
-                              layer_kind=layer_kind, cache=cache,
-                              cache_len=cache_len,
-                              mrope_positions=mrope_positions)
-    return mlp_apply(cfg, p["mlp"], x, sh), new_cache, 0.0
+    """-> (x, kv or cache, aux); see ``attn_apply`` and ``mla_apply`` for
+    the cache."""
+    fn = mla_apply if attn == "mla" else attn_apply
+    x, new_cache = fn(cfg, p["attn"], x, sh, positions=positions,
+                      layer_kind=layer_kind, cache=cache, cache_len=cache_len,
+                      mrope_positions=mrope_positions)
+    if mlp == "moe":
+        x, aux = moe_apply(cfg, p["mlp"], x, sh)
+    else:
+        x, aux = mlp_apply(cfg, p["mlp"], x, sh), 0.0
+    return x, new_cache, aux

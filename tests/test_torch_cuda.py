@@ -469,8 +469,10 @@ def test_ssd_scan_tile_edges(card, B, S, H, P, G, N, chunk, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel,functions", [
-    ("flash_gqa", ["flash_gqa_fwd_mma<16>", "flash_gqa_fwd_mma<32>",
-                   "flash_gqa_fwd_mma<64>", "flash_gqa_fwd_mma<128>"]),
+    ("flash_gqa", ["flash_gqa_fwd_mma<16, 16>", "flash_gqa_fwd_mma<32, 32>",
+                   "flash_gqa_fwd_mma<64, 64>",
+                   "flash_gqa_fwd_mma<128, 128>",
+                   "flash_gqa_fwd_mma<192, 128>"]),
     ("ssd_scan", ["ssd_cb<float>", "ssd_cb<__nv_bfloat16>",
                   "ssd_chunk_state<float>", "ssd_chunk_state<__nv_bfloat16>",
                   "ssd_chunk_scan<float>", "ssd_chunk_scan<__nv_bfloat16>"]),
@@ -695,3 +697,126 @@ def test_failover_replays_byte_identically_on_the_card(card, q):
         a, b = res.result[c], whole.result[c]
         a, b = getattr(a, "codes", a), getattr(b, "codes", b)
         assert torch.equal(a.cpu(), b.cpu()), c
+
+
+# ------------------------------------------------ MoE and MLA (deepseek)
+# MLA's prefill pair (q/k 192, v 128): deepseek-v2-lite's prefill shape,
+# ragged sequences around a 64-row tile, and a window
+MLA_FLASH_CASES = [
+    # B, S, H, D, Dv, causal, window
+    (4, 512, 16, 192, 128, True, 0),
+    (1, 1, 2, 192, 128, True, 0),
+    (2, 65, 4, 192, 128, True, 0),
+    (1, 200, 4, 192, 128, False, 0),
+    (1, 130, 4, 192, 128, True, 24),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,D,Dv,causal,window", MLA_FLASH_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_gqa_kernel_with_v_head_dim_unlike_k(card, B, S, H, D, Dv,
+                                                   causal, window, dtype):
+    """The (192, 128) instantiation of both bodies against attention_ref:
+    2e-5 in f32, 2e-2 (one bf16 step of the output) in bf16; the output
+    has v's head dim."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(S + D)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(card).to(dt) for shape in
+        ((B, S, H, D), (B, S, H, D), (B, S, H, Dv)))
+    before = FK.launches
+    o = FK.flash_gqa(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert FK.launches == before + 1
+    assert o.dtype == dt and o.shape == (B, S, H, Dv)
+    want = attention_ref(q, k, v, causal=causal, window=window)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(o.float(), want.float(), rtol=tol, atol=tol)
+
+
+# MoE dispatch: deepseek-v2-lite's prefill (4 x 512 tokens, top 6 of 64,
+# capacity 72) and decode (4 tokens, capacity 8) shapes, and a hot expert
+# with capacity drops
+DISPATCH_CASES = [
+    # B, S, E, k, capacity_factor, hot
+    (4, 512, 64, 6, 1.5, False),
+    (4, 1, 64, 6, 1.5, False),
+    (2, 256, 64, 6, 0.25, True),
+    (3, 40, 4, 2, 1.5, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,E,k,capacity_factor,hot", DISPATCH_CASES)
+def test_moe_dispatch_through_pack_equals_dispatch_indices(
+        card, B, S, E, k, capacity_factor, hot):
+    """One ``pack`` call over B·E ids places every entry where the plain
+    per-group ``dispatch_indices`` does, bit for bit, dropped entries
+    included; the buffer equals the CPU's plain pack exactly."""
+    from repro_torch.models import moe as TM
+    C = TM.expert_capacity(S, E, k, capacity_factor)
+    rng = np.random.default_rng(S + E)
+    e = rng.integers(0, E, (B * S, k)).astype(np.int32)
+    if hot:
+        e[rng.random((B * S, k)) < 0.5] = E - 1
+    h = torch.from_numpy(rng.standard_normal((B, S, 2048)).astype(
+        np.float32)).to(torch.bfloat16)
+    before = K.launches
+    buf, ids, slots = TM.dispatch(h.to(card), torch.from_numpy(e).to(card),
+                                  E, C)
+    torch.cuda.synchronize()
+    assert K.launches == before + 1
+    want_buf, want_ids, want_slots = TM.dispatch(h, torch.from_numpy(e), E,
+                                                 C)
+    assert torch.equal(ids.cpu(), want_ids)
+    assert torch.equal(slots.cpu(), want_slots)
+    assert torch.equal(buf.cpu(), want_buf)
+    slots = slots.cpu().view(B, S * k)
+    dropped = 0
+    for b in range(B):
+        eb = torch.from_numpy(e[b * S:(b + 1) * S].reshape(-1))
+        sort_idx, dest, keep, _ = TM.dispatch_indices(eb, E, C)
+        got = torch.where(slots[b] < C, eb * C + slots[b], E * C)
+        assert torch.equal(got[sort_idx.long()].int(), dest)
+        assert torch.equal(slots[b][sort_idx.long()] < C, keep)
+        dropped += int((~keep).sum())
+    if capacity_factor < 1:
+        assert dropped > 0
+
+
+def _deepseek_cfg(mla_dims: bool):
+    """deepseek-v2-lite's smoke config in f32; with ``mla_dims`` its MLA
+    head dims are the published ones (q/k 128 + 64, v 128), which the
+    kernel takes, else the smoke config's 16 + 8 and 16, which it does
+    not."""
+    from repro_torch.configs.smoke import smoke_config
+    cfg = smoke_config("deepseek-v2-lite-16b").replace(
+        compute_dtype=torch.float32)
+    if mla_dims:
+        cfg = cfg.replace(qk_nope_head_dim=128, qk_rope_head_dim=64,
+                          v_head_dim=128, head_dim=192)
+    return cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mla_dims", [False, True],
+                         ids=["smoke-dims", "mla-dims"])
+def test_deepseek_prefill_on_the_card_matches_the_cpu(card, mla_dims):
+    """A deepseek smoke model prefills on the card with one pack a MoE
+    layer and its MLA attention on the kernel (at the published head
+    dims) or routed to the plain path (at the smoke config's), and equals
+    the CPU's prefill in f32."""
+    from repro_torch.launch import serve
+    from repro_torch.models.modules import tree_map
+    cfg = _deepseek_cfg(mla_dims)
+    params, tokens = serve.random_request(cfg, 2, 64, 0, card)
+    launches = FK.launches, FK.routed, K.launches
+    got = _dense_prefill(cfg, card, params, tokens)
+    n_moe = cfg.num_layers - cfg.moe.first_dense
+    attn = (cfg.num_layers, 0) if mla_dims else (0, cfg.num_layers)
+    assert (FK.launches - launches[0], FK.routed - launches[1]) == attn
+    assert K.launches == launches[2] + n_moe
+    want = _dense_prefill(cfg, "cpu", tree_map(lambda t: t.cpu(), params),
+                          tokens.cpu())
+    assert torch.allclose(got, want, rtol=1e-3, atol=1e-3)

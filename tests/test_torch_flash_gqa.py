@@ -175,13 +175,15 @@ def test_refuses_what_the_kernel_does_not_take():
 
 
 @pytest.mark.parametrize("D,Dv,takes", [
-    (16, 16, True), (64, 64, True), (128, 128, True), (24, 24, False),
-    (256, 256, False), (24, 16, False), (64, 32, False)])
+    (16, 16, True), (64, 64, True), (128, 128, True), (192, 128, True),
+    (24, 24, False), (256, 256, False), (24, 16, False), (64, 32, False),
+    (192, 192, False), (128, 192, False)])
 def test_kernel_takes_by_shape(D, Dv, takes):
     """``takes``, which the model's attention asks before it sends a CUDA
     call to the kernel, says yes exactly where ``check_args`` does: head
-    dims 16-128, v's head dim equal to k's. Head dim 24 and v/k dims that
-    differ go to the plain path and are counted there."""
+    dims 16-128 with v's head dim equal to k's, and MLA's q/k 192 with v
+    128. Head dim 24 and the other v/k pairs go to the plain path and are
+    counted there."""
     q, k, v = (torch.zeros(1, 8, 4, D), torch.zeros(1, 8, 2, D),
                torch.zeros(1, 8, 2, Dv))
     assert K.takes(q.shape, k.shape, v.shape) is takes
@@ -228,11 +230,11 @@ def _mma_plan(q, k, v, *, causal, window, kv_head):
     m_idx = torch.tensor(kv_head)
     qf = q.float().transpose(1, 2)                          # [B,H,S,D]
     kf = k.index_select(2, m_idx).float().transpose(1, 2)
-    vf = v.index_select(2, m_idx).float().transpose(1, 2)
+    vf = v.index_select(2, m_idx).float().transpose(1, 2)   # [B,H,S,Dv]
     c = math.log2(math.e) / math.sqrt(D)
     m = torch.full((B, H, S, 1), float("-inf"))
     l = torch.zeros((B, H, S, 1))
-    acc = torch.zeros((B, H, S, D))
+    acc = torch.zeros((B, H, S, v.shape[-1]))
     qpos = torch.arange(S)[:, None]
     for k0 in range(0, S, 64):
         kpos = torch.arange(k0, min(k0 + 64, S))[None, :]
@@ -280,5 +282,64 @@ def test_bf16_mma_plan_meets_card_tolerance(B, S, H, Hkv, D, causal, window,
     want = attention_ref(q, k.index_select(2, m), v.index_select(2, m),
                          causal=causal, window=window)
     assert bool(torch.isfinite(got.float()).all())
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+# MLA's prefill (deepseek-v2): q/k head dim 192 (128 nope + 64 rope), v
+# 128, 16 heads over 16 kv heads; the smoke config's 24 / 16 pair, which
+# the kernel does not take, goes through the plain path
+MLA_CASES = [
+    # B, S, H, D, Dv
+    (2, 130, 4, 192, 128),
+    (1, 64, 16, 192, 128),
+    (2, 48, 4, 24, 16),
+]
+
+
+def _mla_inputs(B, S, H, D, Dv, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, S, H, D)).astype(np.float32),
+            rng.standard_normal((B, S, H, D)).astype(np.float32),
+            rng.standard_normal((B, S, H, Dv)).astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("B,S,H,D,Dv", MLA_CASES)
+def test_v_head_dim_unlike_k_matches_reference(B, S, H, D, Dv, dtype):
+    """attention_ref with v's head dim unlike q's and k's, scaled by
+    1/sqrt(D), against the reference's materialized oracle and the
+    model's chunked attention, which MLA's prefill calls
+    (src/repro/models/transformer.py:250-251); where the kernel takes the
+    pair, ops.flash_gqa's CPU path gives the same. (The Pallas kernel
+    cannot take the pair: its wrapper pads v with q's padding.)"""
+    jdt, tdt, tol = DTYPES[dtype]
+    (qj, kj, vj), (qt, kt, vt) = _pair(_mla_inputs(B, S, H, D, Dv, S + D),
+                                       jdt, tdt)
+    got = attention_ref(qt, kt, vt, causal=True)
+    assert got.dtype == tdt and tuple(got.shape) == (B, S, H, Dv)
+    _close(got, jax_ref(qj, kj, vj, causal=True), tol)
+    _close(got, JA.attention(qj, kj, vj, causal=True, chunk=64), tol)
+    if K.takes(qt.shape, kt.shape, vt.shape):
+        _close(ops.flash_gqa(qt, kt, vt, causal=True), np.asarray(
+            got.float()), tol)
+    else:
+        with pytest.raises(ValueError, match="head dims"):
+            ops.flash_gqa(qt, kt, vt, causal=True)
+
+
+@pytest.mark.parametrize("B,S,H,D,Dv", [(4, 512, 16, 192, 128),
+                                        (2, 130, 4, 192, 128)],
+                         ids=["deepseek-prefill", "ragged"])
+def test_bf16_mma_plan_meets_card_tolerance_for_mla(B, S, H, D, Dv):
+    """The bf16 body's precision plan at MLA's head dims, at
+    deepseek-v2-lite's prefill shape and a ragged one, within the card's
+    bf16 tolerance (2e-2) of attention_ref."""
+    q, k, v = (torch.from_numpy(a).bfloat16()
+               for a in _mla_inputs(B, S, H, D, Dv, S + H))
+    kv_head = tuple(range(H))
+    got = _mma_plan(q, k, v, causal=True, window=0, kv_head=kv_head)
+    want = attention_ref(q, k, v, causal=True)
+    assert got.shape == (B, S, H, Dv)
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
                                atol=2e-2)

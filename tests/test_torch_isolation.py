@@ -50,6 +50,109 @@ COORDINATOR_DEVICE_PATCH = [
      "                        self.compute_scale, device=self.device)\n"),
 ]
 
+# C3: the coordinator tags each request event with its task's attempt
+# (``_Task.req_base``) and drops, at its pop, an event of an attempt
+# that a worker loss discarded, which the reference applies to the
+# next attempt's requests (src/repro/core/coordinator.py:1386-1390)
+COORDINATOR_C3_PATCH = [
+    ('    retry_reason: str = ""       # "invoke" | "worker_loss"\n'
+     "\n",
+     '    retry_reason: str = ""       # "invoke" | "worker_loss"\n'
+     "    # request events carry rq + req_base; a worker loss "
+     "moves req_base\n"
+     "    # past the lost attempt's requests, so that events of "
+     "that attempt\n"
+     "    # still in the queue are told apart from the next "
+     "attempt's\n"
+     "    req_base: int = 0\n"
+     "\n"),
+    ("                if kind == _DONE:\n",
+     "                if rq >= 0:\n"
+     "                    base = stage.tasks[tidx].req_base\n"
+     "                    if rq < base:\n"
+     "                        continue    # of an attempt a "
+     "worker loss discarded\n"
+     "                    rq -= base\n"
+     "                if kind == _DONE:\n"),
+    ("    def _io_advance(self, ctx: _Ctx, run: _Run, stage: "
+     "_Stage, tidx: int,\n",
+     "    @staticmethod\n"
+     "    def _push_req(ctx: _Ctx, t: float, kind: int, run: _Run,\n"
+     "                  stage: _Stage, tidx: int, rq: int):\n"
+     '        """Push an event of request ``rq`` of the task\'s '
+     "current attempt,\n"
+     "        tagged with the attempt by the task's "
+     '``req_base``."""\n'
+     "        ctx.events.push(t, kind, run.ridx, stage.sidx, tidx,\n"
+     "                        stage.tasks[tidx].req_base + rq)\n"
+     "\n"
+     "    def _io_advance(self, ctx: _Ctx, run: _Run, stage: "
+     "_Stage, tidx: int,\n"),
+    ("                ctx.events.push(t, _PUT_ISSUE, run.ridx,\n"
+     "                                stage.sidx, tidx, rq)\n",
+     "                self._push_req(ctx, t, _PUT_ISSUE, run, "
+     "stage, tidx, rq)\n"),
+    ("            ctx.events.push(tt, _VISIBLE, run.ridx, "
+     "stage.sidx, tidx, rq)\n",
+     "            self._push_req(ctx, tt, _VISIBLE, run, stage, "
+     "tidx, rq)\n"),
+    ("            ctx.events.push(tt, _GET_ISSUE, run.ridx, "
+     "stage.sidx, tidx, rq)\n",
+     "            self._push_req(ctx, tt, _GET_ISSUE, run, stage, "
+     "tidx, rq)\n"),
+    ("                      retargeted=retargeted, failed=True, "
+     "tries=req.tries)\n"
+     "            ctx.events.push(t + t1, _INVOKE_FAIL, run.ridx,\n"
+     "                            stage.sidx, tidx, rq)\n"
+     "            return\n",
+     "                      retargeted=retargeted, failed=True, "
+     "tries=req.tries)\n"
+     "            self._push_req(ctx, t + t1, _INVOKE_FAIL, run, "
+     "stage, tidx, rq)\n"
+     "            return\n"),
+    ("                ctx.events.push(t + timeout, _DUP, run.ridx,\n"
+     "                                stage.sidx, tidx, rq)\n",
+     "                self._push_req(ctx, t + timeout, _DUP, run, "
+     "stage, tidx,\n"
+     "                               rq)\n"),
+    ("        ctx.events.push(req.end, _GET_DONE, run.ridx, "
+     "stage.sidx, tidx, rq)\n",
+     "        self._push_req(ctx, req.end, _GET_DONE, run, stage, "
+     "tidx, rq)\n"),
+    ("                      failed=True, tries=req.tries)\n"
+     "            ctx.events.push(t + t1, _INVOKE_FAIL, run.ridx,\n"
+     "                            stage.sidx, tidx, rq)\n"
+     "            return\n",
+     "                      failed=True, tries=req.tries)\n"
+     "            self._push_req(ctx, t + t1, _INVOKE_FAIL, run, "
+     "stage, tidx, rq)\n"
+     "            return\n"),
+    ("                ctx.events.push(t + start2, _DUP, run.ridx,\n"
+     "                                stage.sidx, tidx, rq)\n",
+     "                self._push_req(ctx, t + start2, _DUP, run, "
+     "stage, tidx,\n"
+     "                               rq)\n"),
+    ("        ctx.events.push(req.end, _PUT_DONE, run.ridx, "
+     "stage.sidx, tidx, rq)\n",
+     "        self._push_req(ctx, req.end, _PUT_DONE, run, stage, "
+     "tidx, rq)\n"),
+    ("            ctx.events.push(new_end, _PUT_DONE if req.put "
+     "else _GET_DONE,\n"
+     "                            run.ridx, stage.sidx, tidx, rq)\n",
+     "            self._push_req(ctx, new_end,\n"
+     "                           _PUT_DONE if req.put else "
+     "_GET_DONE, run, stage,\n"
+     "                           tidx, rq)\n"),
+    ("        task.io = None\n",
+     "        task.req_base += len(task.io.reqs)\n"
+     "        task.io = None\n"),
+    ("            ctx.events.push(t + back, _RETRY, run.ridx, "
+     "stage.sidx, tidx,\n"
+     "                            rq)\n",
+     "            self._push_req(ctx, t + back, _RETRY, run, "
+     "stage, tidx, rq)\n"),
+]
+
 # the modules that build coordinators are copies except for the device
 # those coordinators run on, which is the caller's
 DEVICE_PATCHES = {
@@ -153,7 +256,8 @@ def _patched(rel: str, patch: list[tuple[str, str]]) -> str:
 
 def test_coordinator_equals_reference_but_for_device():
     assert (PORT / "core/coordinator.py").read_text() == \
-        _patched("core/coordinator.py", COORDINATOR_DEVICE_PATCH)
+        _patched("core/coordinator.py",
+                 COORDINATOR_DEVICE_PATCH + COORDINATOR_C3_PATCH)
 
 
 @pytest.mark.parametrize("rel", sorted(DEVICE_PATCHES))
