@@ -73,12 +73,16 @@ Phases, each printing its own lines and seconds:
      (attention_ref over k/v gathered by the kv-head map) on the card at
      the Pallas kernel test's CASES, smollm-135m's padded-head map and the
      dense serve path's main shape (B=4, S=512, 32 q heads over 2 kv
-     heads, D 128, causal), and MLA's prefill pair (q/k 192, v 128) at a
+     heads, D 128, causal), MLA's prefill pair (q/k 192, v 128) at a
      ragged windowed shape and at deepseek-v2-lite's prefill (B=4, S=512,
-     16 heads), within 2e-5 in f32 and 2e-2 in bf16, with kernel, plain,
-     library (scaled_dot_product_attention, timed as a yardstick only, and
-     the kernels it ran, which name its backend) and bound times at both
-     main shapes;
+     16 heads), recurrentgemma-9b's head dim 256 (16 q heads over 1, B=4,
+     S=512, causal; and B=1, S=4096, window 2048) and whisper-tiny's
+     shapes (6 heads of 64, no mask: cross attention of 64 and of 1 query
+     against 1500 frames, the encoder's 1500 x 1500), within 2e-5 in f32
+     and 2e-2 in bf16, with kernel, plain, library
+     (scaled_dot_product_attention with enable_gqa, a window as an
+     explicit mask, timed as a yardstick only, and the kernels it ran,
+     which name its backend) and bound times at every main shape;
  10a. grad: a dense smoke layer's wq/wk/wv gradients through flash_gqa
      (one launch forward, none backward) against the CPU's, f32;
  11. dense serve phase, after the Mamba weights are released: the serve
@@ -108,7 +112,26 @@ Phases, each printing its own lines and seconds:
  15. moe parity phase: deepseek-v2-lite-16b at full width and 3 layers
      (the dense layer 0 and two MoE layers), one 128-token prompt, card
      prefill against CPU prefill in f32 (1e-3) and bf16 (5 % relative
-     L2), with the count of tokens whose experts differ between the two.
+     L2), with the count of tokens whose experts differ between the two;
+ 16. griffin serve phase: the serve cell recurrentgemma-9b at full width
+     and depth (38 layers, 10.4 B parameters drawn in f32), as in phase 8:
+     flash_gqa at head dim 256 once an attention layer (12) in the
+     prefill, none in decode, 0 routed; then its parity phase: the smoke
+     config (window 8) card vs CPU over a 64-token prompt (f32 1e-3, bf16
+     5 %), and the f32 replay of 16 tokens on the card within 2e-3 of the
+     prefill (the window's ring wraps);
+ 17. whisper serve phase: the serve cell whisper-tiny at its published
+     size (4 + 4 layers, 1500 frames drawn after the prompts), 64 prompt
+     tokens and 32 new, as in phase 8: flash_gqa 12 a prefill (4 encoder,
+     4 self, 4 cross) and 8 each decode step (the frames encoded again,
+     and cross attention of one query); then its smoke config card vs CPU;
+ 18. llama4 serve phase: the serve cell llama4-maverick-400b-a17b at full
+     width and 4 of 48 layers (one super-block; 35.3 B parameters drawn in
+     bf16, 70.7 GB, no f32 tree): flash_gqa 4 a prefill, partition_pack 2
+     a prefill and 2 each decode step, 0 routed; finite logits, tokens in
+     range, the bf16 replay within 0.25 relative L2 of the bf16 prefill
+     with no drops; its peak memory; then its smoke config card vs CPU,
+     with the tokens routed to other experts counted.
 Each path runs with every launch count set to 0 just before it and read
 just after; each phase prints its seconds and its peak device memory. It
 then prints the kernels line and, last, the device line. Any failure exits
@@ -148,9 +171,11 @@ from repro_torch.launch.bench_pack import (  # noqa: E402
     host_syncs, is_kernel, is_pp, pack_bytes, profile_record, time_cold_ms,
     time_ms)
 from repro_torch.launch.steps import make_prefill_step  # noqa: E402
+from repro_torch.models import griffin as GR  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
-from repro_torch.models.model import build_model, cast_params_  # noqa: E402
+from repro_torch.models.model import (  # noqa: E402
+    _llama4_subkinds, build_model, cast_params_)
 from repro_torch.models.modules import (  # noqa: E402
     Sharder, init_params, tree_leaves, tree_map)
 from repro_torch import planner as PL  # noqa: E402
@@ -216,6 +241,19 @@ FLASH_MAIN = (4, 512, 32, 2, 128, True, 0, None)
 FLASH_MLA = (4, 512, 16, 16, 192, True, 0, None)
 FLASH_MLA_EDGE = (2, 65, 4, 4, 192, True, 24, None)
 MLA_DV = 128
+# this slice's shapes (B, Skv, H, Hkv, D, causal, window, map; Sq where it
+# differs from Skv): recurrentgemma-9b's prefill (16 q heads over 1 kv
+# head of 256, causal; its window of 2048 does not bind at 512 tokens),
+# the same heads at 4096 tokens where the window binds, and whisper-tiny's
+# cross attention (6 heads of 64, no mask: 64 prompt tokens at the
+# prefill, one at a decode step, against 1500 frames) and encoder
+FLASH_NEW = {
+    "head_dim_256": ((4, 512, 16, 1, 256, True, 0, None), None),
+    "head_dim_256_window": ((1, 4096, 16, 1, 256, True, 2048, None), None),
+    "cross_prefill": ((4, 1500, 6, 6, 64, False, 0, None), 64),
+    "cross_decode": ((4, 1500, 6, 6, 64, False, 0, None), 1),
+    "encoder": ((4, 1500, 6, 6, 64, False, 0, None), None),
+}
 # f32: sums in another order; bf16: each side rounds its f32 output once
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 DENSE_ARCH, SMOLLM_ARCH = "glm4-9b", "smollm-135m"
@@ -229,6 +267,21 @@ MOE_PARITY_LAYERS, MOE_PARITY_PROMPT = 3, 128
 # the MoE dispatch at the serve cell's prefill and decode step: 4 groups
 # of S tokens, top 6 of 64 experts, d_model 2048 in bf16
 MOE_DISPATCH = {"prefill": 512, "decode": 1}
+# this slice's serve cells (launch/serve.CELLS). recurrentgemma-9b and
+# whisper-tiny draw f32 weights and take the f32 answer, as the earlier
+# cells do; llama4 draws bf16 (4 of 48 layers, 70.7 GB) and has no f32
+# tree on the card. Its bf16 replay is held against its bf16 prefill with
+# no drops: through 4 random bf16 layers the two round at other places,
+# as deepseek's 27 layers left them 0.1028 apart (PERF.md, PR 19); a
+# cache fault puts them O(1) apart
+GRIFFIN_ARCH, WHISPER_ARCH = "recurrentgemma-9b", "whisper-tiny"
+LLAMA4_ARCH = "llama4-maverick-400b-a17b"
+GRIFFIN_F32_PROMPT, WHISPER_F32_PROMPT = 128, 64
+LLAMA4_REPLAY_TOL = 0.25
+# card vs CPU at each new family's smoke width (d_model 64): a prompt
+# longer than griffin's window (8) and llama4's chunk (8); the f32 replay
+# on the card at griffin's smoke width, 16 tokens over a window of 8
+FAMILY_PARITY_PROMPT, GRIFFIN_REPLAY_PROMPT = 64, 16
 
 # the workload phases: a TPC-H mix of 24 queries (weights of
 # workload.TPCH_MIX) with Poisson arrivals at a virtual mean of 5 s, on the
@@ -276,23 +329,54 @@ def no_drops(cfg):
         cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
 
 
+def attention_layers(cfg) -> int:
+    """flash_gqa calls of one prefill of ``cfg``: one an attention layer
+    (llama4's chunked-local layers make one call over B·S/C chunks),
+    griffin's attention layers only (one of each (rec, rec, attn) triple),
+    and whisper's encoder, decoder self and cross attention layers."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        pat = cfg.block_pattern
+        return cfg.num_layers // len(pat) * pat.count("attn")
+    if cfg.family == "audio":
+        return cfg.encoder_layers + 2 * cfg.num_layers
+    return cfg.num_layers
+
+
+def moe_layers(cfg) -> int:
+    """partition_pack calls of one prefill or decode step of ``cfg``: one
+    a MoE layer (deepseek-v2: every layer after ``first_dense``; llama4:
+    the MoE sub-layers of each super-block, every second one)."""
+    if cfg.family != "moe":
+        return 0
+    if cfg.attn_kind == "mla":
+        return cfg.num_layers - cfg.moe.first_dense
+    kinds = _llama4_subkinds(cfg)
+    return cfg.num_layers // len(kinds) * sum(m == "moe" for _, m in kinds)
+
+
 def prefill_launches(cfg) -> dict:
-    """The launches of each kernel that one prefill of ``cfg`` makes: one
-    a layer of its sequence kernel (ssd_scan, or flash_gqa for attention),
-    and for deepseek-v2 one partition_pack a MoE layer (the dispatch)."""
-    want = dict.fromkeys(counts(), 0)
-    want["ssd_scan" if cfg.family == "ssm" else "flash_gqa"] = cfg.num_layers
-    if cfg.family == "moe":
-        want["partition_pack"] = cfg.num_layers - cfg.moe.first_dense
-    return want
+    """The launches of each kernel that one prefill of ``cfg`` makes:
+    ssd_scan once a Mamba layer, flash_gqa once an attention layer
+    (``attention_layers``), partition_pack once a MoE layer (the
+    dispatch, ``moe_layers``)."""
+    return {"partition_pack": moe_layers(cfg),
+            "ssd_scan": cfg.num_layers if cfg.family == "ssm" else 0,
+            "flash_gqa": attention_layers(cfg)}
 
 
 def expected_launches(cfg, decode_steps: int) -> dict:
     """The launches of a prefill and ``decode_steps`` decode steps: decode
-    attends in plain PyTorch, so only the MoE dispatch launches there."""
+    attends over its caches in plain PyTorch, so there the MoE dispatch
+    launches once a MoE layer, and whisper's step launches flash_gqa once
+    an encoder layer (it encodes the frames again) and once a cross
+    attention layer (one query against the frames)."""
     want = prefill_launches(cfg)
-    if cfg.family == "moe":
-        want["partition_pack"] *= 1 + decode_steps
+    want["partition_pack"] *= 1 + decode_steps
+    if cfg.family == "audio":
+        want["flash_gqa"] += decode_steps * (cfg.encoder_layers
+                                             + cfg.num_layers)
     return want
 
 
@@ -924,16 +1008,18 @@ def serve_phase(dev, arch: str, f32_prompt: int) -> dict:
     entries past each expert's capacity and a decode step never does, so
     for a MoE cell the f32 answer, the f32 replay and the bf16 prefill
     the replay is held against run with no drops (``no_drops``), as
-    tests/test_serve_consistency.py runs the reference. -> the kernels'
-    launches in the counted run."""
+    tests/test_serve_consistency.py runs the reference. Whisper's frames
+    go with every prefill and decode step. -> the kernels' launches in the
+    counted run."""
     cell = serve.CELLS[arch]
-    cfg = get_config(cell.arch)
+    cfg = cell.config()
     ccfg = no_drops(cfg)
     B = cell.batch
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params, tokens = serve.random_request(cfg, B, cell.prompt, cell.seed,
-                                          dev)
+    params, tokens, frames = serve.random_request(cfg, B, cell.prompt,
+                                                  cell.seed, dev)
+    first = frames[:1] if frames is not None else None
     torch.cuda.synchronize()
     print(f"[serve] {cfg.name}: {cfg.num_layers} layers, d_model "
           f"{cfg.d_model}, {sum(t.numel() for t in tree_leaves(params))} "
@@ -945,9 +1031,10 @@ def serve_phase(dev, arch: str, f32_prompt: int) -> dict:
     cfg32 = ccfg.replace(compute_dtype=torch.float32)
     b32 = build_model(cfg32)
     l32, _ = make_prefill_step(b32)(params, serve.prefill_batch(
-        b32, tokens.to(dev)))
+        b32, tokens.to(dev), frames))
     l32 = l32.float()
-    one = serve.generate(cfg32, params, tokens[:1, :f32_prompt], 1, dev)
+    one = serve.generate(cfg32, params, tokens[:1, :f32_prompt], 1, dev,
+                         first)
     lp, lr = one.prefill_logits, one.replay_logits
     err = float((lr - lp).abs().max())
     print("[serve-f32] " + json.dumps({
@@ -970,23 +1057,22 @@ def serve_phase(dev, arch: str, f32_prompt: int) -> dict:
     cast_s, cast_peak = time.perf_counter() - t0, \
         torch.cuda.max_memory_allocated()
     release()
-    serve.generate(cfg, params, tokens[:, :128], 2, dev)   # warm-up request
+    serve.generate(cfg, params, tokens[:, :128], 2, dev,
+                   frames)                                 # warm-up request
 
     zero_counts()                                      # the serve path's count
     torch.cuda.reset_peak_memory_stats()
-    out = serve.generate(cfg, params, tokens, cell.new, dev)
+    out = serve.generate(cfg, params, tokens, cell.new, dev, frames)
     launched, routed = counts(), FK.routed
     max_mem = torch.cuda.max_memory_allocated()
     want = expected_launches(cfg, out.decode_steps)
     lp, lr = out.prefill_logits.float(), out.replay_logits.float()
     if ccfg is not cfg:             # the bf16 prefill with no drops
-        bc = build_model(ccfg)
-        lp, _ = make_prefill_step(bc)(params, serve.prefill_batch(
-            bc, tokens.to(dev)))
-        lp = lp.float()
+        lp = no_drop_prefill(ccfg, params, tokens.to(dev))
     e_prefill, e_replay = rel_l2(lp, l32), rel_l2(lr, l32)
-    rec = {"arch": cfg.name, "batch": B, "prompt": cell.prompt,
-           "new_tokens": cell.new, "prefill_s": out.prefill_s,
+    rec = {"arch": cfg.name, "layers": cfg.num_layers, "batch": B,
+           "prompt": cell.prompt, "new_tokens": cell.new,
+           "prefill_s": out.prefill_s,
            "decode_s": out.decode_s, "decode_steps": out.decode_steps,
            "decode_ms_per_step": out.decode_s / out.decode_steps * 1e3,
            "tokens_per_s": B * cell.new / (out.prefill_s + out.decode_s),
@@ -1001,7 +1087,8 @@ def serve_phase(dev, arch: str, f32_prompt: int) -> dict:
            "cell_prefill_vs_no_drops_rel_l2": rel_l2(
                out.prefill_logits.float(), lp),
            "logit_scale_max_abs": float(l32.abs().max()),
-           "tokens": out.tokens[0, :8].tolist()}
+           "tokens": out.tokens[0, :8].tolist(),
+           **part_times(cfg, params, tokens, frames, dev)}
     print("[serve] " + json.dumps(rec), flush=True)
     check(launched == want, f"{arch}: kernels launched {launched} times on "
           f"the serve path, want {want}")
@@ -1021,6 +1108,148 @@ def serve_phase(dev, arch: str, f32_prompt: int) -> dict:
     return launched
 
 
+def part_times(cfg, params, tokens, frames, dev) -> dict:
+    """Parts of this slice's serve cells that no kernel of the port covers
+    (CUDA events, mean of 20 calls, on the cell's bf16 weights):
+    griffin's RG-LRU scan (plain PyTorch, models/griffin._rglru) at one
+    recurrent layer's prefill shape, and whisper's encoder, which every
+    decode step runs again, beside a whole decode step."""
+    B, S = tokens.shape
+    with torch.inference_mode():
+        if cfg.family == "hybrid":
+            gen = torch.Generator(device=dev).manual_seed(0)
+            xc, ag, ig = (torch.randn(B, S, cfg.lru_width, generator=gen,
+                                      device=dev).to(cfg.compute_dtype)
+                          for _ in range(3))
+            lam = torch.randn(cfg.lru_width, generator=gen, device=dev)
+            return {"rglru_scan_ms": time_ms(
+                lambda: GR._rglru(xc, ag, ig, lam)),
+                "rglru_shape": [B, S, cfg.lru_width]}
+        if cfg.family == "audio":
+            bundle = build_model(cfg)
+            f = frames.to(dev, cfg.compute_dtype)
+            cache = init_params(bundle.cache_defs(B, S + 1), None, dev)
+            cache["len"] = torch.tensor(S, dtype=torch.int32, device=dev)
+            batch = {"token": tokens[:, -1:].to(dev), "frames": f}
+            enc = time_ms(lambda: bundle.encode(params, f))
+            step = time_ms(lambda: bundle.decode_fn(params, cache, batch))
+            return {"encode_ms": enc, "decode_step_ms": step,
+                    "encode_share_of_step": enc / step}
+    return {}
+
+
+def no_drop_prefill(ccfg, params, tokens) -> torch.Tensor:
+    """The last logits of a prefill of ``tokens`` [B, S] at ``ccfg``'s
+    capacity with no drops (``no_drops``), one batch row at a time: a MoE
+    layer dispatches each row as its own group, so with nothing dropped a
+    row's logits do not depend on the others, and one row's expert buffer
+    (C = S at capacity factor E/k) is a B-th of the batch's. -> f32."""
+    bc = build_model(ccfg)
+    step = make_prefill_step(bc)
+    return torch.cat([step(params, serve.prefill_batch(
+        bc, tokens[b:b + 1]))[0].float() for b in range(tokens.shape[0])])
+
+
+def llama4_serve_phase(dev) -> dict:
+    """The serve cell of llama4 (launch/serve.CELLS): its published width,
+    4 of its 48 layers (one super-block: chunked + dense, chunked + MoE,
+    chunked + dense, global NoPE + MoE), its parameters drawn in bf16 as
+    the config declares (35.3 B, 70.7 GB; an f32 tree would take 141 GB,
+    so this cell has no f32 answer, and its f32 properties are held at the
+    smoke width in the llama4 parity phase). After a short warm-up
+    request, 4 prompts of 512 tokens and 32 new tokens go through
+    launch/serve.generate: each kernel must launch as often as the path
+    calls it, no attention call may be routed to the plain path, every
+    logit is finite and every token in range, and the bf16 replay of the
+    prompts through decode must lie within LLAMA4_REPLAY_TOL (relative L2)
+    of the bf16 prefill with no drops (``no_drop_prefill``; decode never
+    drops, the cell's prefill does at capacity 8). -> the kernels'
+    launches in the counted run."""
+    cell = serve.CELLS[LLAMA4_ARCH]
+    cfg = cell.config()
+    B = cell.batch
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, tokens, _ = serve.random_request(cfg, B, cell.prompt, cell.seed,
+                                             dev)
+    torch.cuda.synchronize()
+    init_s, init_peak = time.perf_counter() - t0, \
+        torch.cuda.max_memory_allocated()
+    print(f"[serve] {cfg.name}: {cfg.num_layers} of 48 layers, d_model "
+          f"{cfg.d_model}, {sum(t.numel() for t in tree_leaves(params))} "
+          f"parameters ({cfg.param_dtype}), compute {cfg.compute_dtype}; "
+          f"init {init_s:.3f} s, peak {init_peak} bytes; allocated "
+          f"{torch.cuda.memory_allocated()} bytes", flush=True)
+    cast_params_(cfg, params)                  # the norm scales, to bf16
+    serve.generate(cfg, params, tokens[:, :128], 2, dev)   # warm-up request
+
+    zero_counts()                                      # the serve path's count
+    torch.cuda.reset_peak_memory_stats()
+    out = serve.generate(cfg, params, tokens, cell.new, dev)
+    launched, routed = counts(), FK.routed
+    max_mem = torch.cuda.max_memory_allocated()
+    want = expected_launches(cfg, out.decode_steps)
+    torch.cuda.reset_peak_memory_stats()
+    lp = no_drop_prefill(no_drops(cfg), params, tokens.to(dev))
+    no_drop_peak = torch.cuda.max_memory_allocated()
+    lr = out.replay_logits.float()
+    rec = {"arch": cfg.name, "layers": cfg.num_layers, "batch": B,
+           "prompt": cell.prompt, "new_tokens": cell.new,
+           "prefill_s": out.prefill_s, "decode_s": out.decode_s,
+           "decode_steps": out.decode_steps,
+           "decode_ms_per_step": out.decode_s / out.decode_steps * 1e3,
+           "tokens_per_s": B * cell.new / (out.prefill_s + out.decode_s),
+           "init_s": init_s, "init_peak_memory_allocated": init_peak,
+           "max_memory_allocated": max_mem,
+           "no_drop_prefill_peak_memory_allocated": no_drop_peak,
+           "card_memory": torch.cuda.get_device_properties(dev).total_memory,
+           "launches": launched, "expected_launches": want,
+           "flash_gqa_routed": routed,
+           "replay_vs_no_drop_prefill_rel_l2": rel_l2(lr, lp),
+           "cell_prefill_vs_no_drops_rel_l2": rel_l2(
+               out.prefill_logits.float(), lp),
+           "logit_scale_max_abs": float(lp.abs().max()),
+           "tokens": out.tokens[0, :8].tolist()}
+    print("[serve] " + json.dumps(rec), flush=True)
+    check(launched == want, f"{cfg.name}: kernels launched {launched} "
+          f"times on the serve path, want {want}")
+    check(routed == 0, f"{routed} attention calls routed to the plain path "
+          f"on the {cfg.name} serve path")
+    check(tuple(out.prefill_logits.shape) == (B, 1, cfg.vocab_size),
+          f"prefill logits of shape {tuple(out.prefill_logits.shape)}")
+    check(bool(torch.isfinite(out.prefill_logits).all()
+               and torch.isfinite(lr).all() and torch.isfinite(lp).all()),
+          "serve logits not finite")
+    check(tuple(out.tokens.shape) == (B, cell.new)
+          and int(out.tokens.min()) >= 0
+          and int(out.tokens.max()) < cfg.vocab_size,
+          f"generated tokens {tuple(out.tokens.shape)} out of range")
+    check(rec["replay_vs_no_drop_prefill_rel_l2"] <= LLAMA4_REPLAY_TOL,
+          f"bf16 decode replay {rec['replay_vs_no_drop_prefill_rel_l2']} "
+          f"from the bf16 prefill with no drops, above {LLAMA4_REPLAY_TOL}")
+    return launched
+
+
+def replay_parity(cfg, prompt: int, dev):
+    """The serve-consistency property on the card at ``cfg`` in f32: the
+    prompt replayed through decode (for griffin, a prompt longer than its
+    window, so the ring of the window layers wraps) gives the prefill's
+    last logits within SERVE_F32_TOL."""
+    cfg = cfg.replace(compute_dtype=torch.float32)
+    params, tokens, frames = serve.random_request(cfg, 2, prompt, 0, dev)
+    out = serve.generate(cfg, params, tokens, 1, dev, frames)
+    lp, lr = out.prefill_logits.float(), out.replay_logits.float()
+    err = float((lr - lp).abs().max())
+    print("[replay] " + json.dumps({
+        "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "window": cfg.window, "prompt": prompt, "max_abs_err": err,
+        "rel_l2": rel_l2(lr, lp)}), flush=True)
+    check(bool(((lr - lp).abs() <= SERVE_F32_TOL
+                + SERVE_F32_TOL * lp.abs()).all()),
+          f"{cfg.name}: f32 decode replay vs prefill differ by {err} on "
+          "the card")
+
+
 def prefill_parity(cfg, prompt: int, dev, dtypes):
     """Prefill on the card (each kernel as often as a prefill calls it,
     ``prefill_launches``, and no attention call routed) against prefill on
@@ -1031,7 +1260,7 @@ def prefill_parity(cfg, prompt: int, dev, dtypes):
     expert under other rounding, and that shows as this count."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    params, tokens = serve.random_request(cfg, 1, prompt, 0, dev)
+    params, tokens, frames = serve.random_request(cfg, 1, prompt, 0, dev)
     on_cpu = tree_map(lambda t: t.cpu(), params)
     for dtype in dtypes:
         bundle = build_model(cfg.replace(compute_dtype=dtype))
@@ -1039,12 +1268,14 @@ def prefill_parity(cfg, prompt: int, dev, dtypes):
         before, routed = counts(), FK.routed
         with recorded_routes() as on_card:
             got, _ = step(params, serve.prefill_batch(bundle,
-                                                      tokens.to(dev)))
+                                                      tokens.to(dev),
+                                                      frames))
         got = got.cpu().float()
         launched = {k: n - before[k] for k, n in counts().items()}
         routed = FK.routed - routed
         with recorded_routes() as off_card:
-            want, _ = step(on_cpu, serve.prefill_batch(bundle, tokens))
+            want, _ = step(on_cpu, serve.prefill_batch(bundle, tokens,
+                                                       frames))
         want = want.float()
         differ, routed_tokens = routing_differences(on_card, off_card)
         err, rel = float((got - want).abs().max()), rel_l2(got, want)
@@ -1164,38 +1395,46 @@ def moe_dispatch_phase(dev) -> list[dict]:
 
 
 # ------------------------------------------------------------ flash kernel
-def flash_inputs(B, S, H, Hkv, D, seed, dev, dtype, Dv=None):
+def flash_inputs(B, S, H, Hkv, D, seed, dev, dtype, Dv=None, Sq=None):
+    """q [B, Sq (default S), H, D], k [B, S, Hkv, D], v [B, S, Hkv, Dv]."""
     rng = np.random.default_rng(seed)
-    arrs = (rng.standard_normal((B, S, H, D)),
+    arrs = (rng.standard_normal((B, Sq or S, H, D)),
             rng.standard_normal((B, S, Hkv, D)),
             rng.standard_normal((B, S, Hkv, Dv or D)))
     return [torch.from_numpy(a.astype(np.float32)).to(dev).to(dtype)
             for a in arrs]
 
 
-def flash_bound(B, S, H, Hkv, D, causal, window, elem_bytes, Dv=None):
+def flash_bound(B, Sq, Skv, H, Hkv, D, causal, window, elem_bytes,
+                Dv=None):
     """(flops, bytes) the function needs: q.k (2*D FLOP) and p.v (2*Dv
-    FLOP) for every (query, key) pair the masks leave, per (b, h); q, k, v
-    read once and o written once at model layout (k and v at kv-head
-    layout)."""
+    FLOP) for every (query, key) pair the masks leave, per (b, h): the
+    causal triangle, within the window where there is one (causal and
+    window imply Sq == Skv), and all Sq x Skv pairs with no mask; q and o
+    (Sq rows) and k and v (Skv rows, at kv-head layout) read or written
+    once."""
     Dv = Dv or D
     pairs = 0
-    for i in range(S):
+    for i in range(Sq):
         lo = max(0, i - window + 1) if window > 0 else 0
-        pairs += (i + 1 if causal else S) - lo
+        pairs += (i + 1 if causal else Skv) - lo
     flops = 2 * (D + Dv) * pairs * B * H
-    nbytes = (B * S * H * (D + Dv) + B * S * Hkv * (D + Dv)) * elem_bytes \
-        + 4 * H
+    nbytes = (B * Sq * H * (D + Dv) + B * Skv * Hkv * (D + Dv)) \
+        * elem_bytes + 4 * H
     return flops, nbytes
 
 
-def flash_case(shape, dev, dtype, timed=False, dv=None) -> dict:
+def flash_case(shape, dev, dtype, timed=False, dv=None, sq=None) -> dict:
     """Kernel vs plain on the card: |o - want| <= tol + tol * |want|, tol
     2e-5 in f32, 2e-2 in bf16 (the Pallas kernel test's); ``dv``: v's head
-    dim where it is not q's. Timed, also the library yardstick and the
-    kernels it ran (which name its backend)."""
+    dim where it is not q's; ``sq``: the queries' length where it is not
+    the keys' (no mask: cross attention). Timed, also the library
+    yardstick (``scaled_dot_product_attention`` with ``enable_gqa``, the
+    window as an explicit mask) and the kernels it ran (which name its
+    backend)."""
     B, S, H, Hkv, D, causal, window, kv_head = shape
-    q, k, v = flash_inputs(B, S, H, Hkv, D, S + H, dev, dtype, dv)
+    Sq = sq or S
+    q, k, v = flash_inputs(B, S, H, Hkv, D, S + H, dev, dtype, dv, Sq)
     m = torch.tensor(kv_head if kv_head is not None
                      else [h // (H // Hkv) for h in range(H)], device=dev)
 
@@ -1211,7 +1450,8 @@ def flash_case(shape, dev, dtype, timed=False, dv=None) -> dict:
     torch.cuda.synchronize()
     want = plain()
     tol = FLASH_TOL[dtype]
-    label = (f"{shape[:7]}{f' Dv={dv}' if dv else ''}"
+    label = (f"{shape[:7]}{f' Sq={sq}' if sq else ''}"
+             f"{f' Dv={dv}' if dv else ''}"
              f"{' padded map' if kv_head else ''} {dtype}")
     err = float((o.float() - want.float()).abs().max())
     check(bool(torch.isfinite(o).all()), f"flash {label}: not finite")
@@ -1221,17 +1461,23 @@ def flash_case(shape, dev, dtype, timed=False, dv=None) -> dict:
     rec = {"case": label, "max_abs_err": err}
     if timed:
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        mask = None
+        if window:
+            i = torch.arange(S, device=dev)
+            mask = ((i[None] <= i[:, None]) | (not causal)) \
+                & (i[None] > i[:, None] - window)
 
         def library():
             return torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, enable_gqa=True)
+                qt, kt, vt, attn_mask=mask, is_causal=causal and not window,
+                enable_gqa=True)
 
         lib_err = float((library().transpose(1, 2).float()
                          - want.float()).abs().max())
         check(lib_err <= tol + tol * float(want.float().abs().max()),
               f"flash {label}: the library yardstick computes something "
               f"else ({lib_err})")
-        flops, nbytes = flash_bound(B, S, H, Hkv, D, causal, window,
+        flops, nbytes = flash_bound(B, Sq, S, H, Hkv, D, causal, window,
                                     q.element_size(), dv)
         peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
         rec.update(kernel_ms=time_ms(kernel), plain_ms=time_ms(plain),
@@ -1264,9 +1510,12 @@ def sdpa_backend(call) -> str:
     return "none of the four alone"
 
 
-def flash_phase(dev) -> tuple[dict, dict, float]:
+def flash_phase(dev) -> tuple[dict, dict, dict, float]:
     """-> (the main shape's record in the serve path's bf16, MLA's prefill
-    shape's in bf16, the largest error of any case in either dtype)."""
+    shape's in bf16, the records of this slice's shapes in bf16 by name
+    (head dim 256 causal and windowed, whisper's cross attention at the
+    prefill and a decode step, its encoder), the largest error of any
+    case in either dtype)."""
     torch.backends.cuda.matmul.allow_tf32 = False     # the plain version in
     torch.backends.cudnn.allow_tf32 = False           # full f32
     err = 0.0
@@ -1283,8 +1532,16 @@ def flash_phase(dev) -> tuple[dict, dict, float]:
                               dv=MLA_DV)["max_abs_err"])
     mla_rec = flash_case(FLASH_MLA, dev, torch.bfloat16, timed=True,
                          dv=MLA_DV)
-    return main_rec, mla_rec, max(err, main_rec["max_abs_err"],
-                                  mla_rec["max_abs_err"])
+    new = {}
+    for name, (shape, sq) in FLASH_NEW.items():
+        f32 = flash_case(shape, dev, torch.float32, timed=True, sq=sq)
+        new[name] = flash_case(shape, dev, torch.bfloat16, timed=True, sq=sq)
+        new[name]["f32"] = {key: f32[key] for key in (
+            "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "max_abs_err")}
+        err = max(err, f32["max_abs_err"], new[name]["max_abs_err"])
+    return main_rec, mla_rec, new, max(err, main_rec["max_abs_err"],
+                                       mla_rec["max_abs_err"])
 
 
 def main() -> int:
@@ -1361,7 +1618,7 @@ def main() -> int:
     t0 = time.perf_counter()
     planner_phase()
     phase("planner", t0)
-    print(f"[phase] new phases of this slice: "
+    print(f"[phase] query-engine phases (workload to planner): "
           f"{time.perf_counter() - t_new:.3f} s", flush=True)
 
     t0 = time.perf_counter()
@@ -1380,7 +1637,7 @@ def main() -> int:
     phase("serve parity", t0)
 
     t0 = time.perf_counter()
-    flash_rec, mla_rec, flash_err = flash_phase(dev)
+    flash_rec, mla_rec, flash_new, flash_err = flash_phase(dev)
     phase("flash kernel", t0)
 
     t0 = time.perf_counter()
@@ -1421,14 +1678,40 @@ def main() -> int:
         (torch.float32, torch.bfloat16))
     phase("moe parity", t0)
 
+    t_new = time.perf_counter()
+    family = {}
+    for arch, f32_prompt in ((GRIFFIN_ARCH, GRIFFIN_F32_PROMPT),
+                             (WHISPER_ARCH, WHISPER_F32_PROMPT),
+                             (LLAMA4_ARCH, None)):
+        t0 = time.perf_counter()
+        print(f"[{arch}] allocated before its serve phase: {release()} "
+              "bytes", flush=True)
+        family[arch] = (llama4_serve_phase(dev) if f32_prompt is None
+                        else serve_phase(dev, arch, f32_prompt))
+        phase(f"{arch} serve", t0)
+
+        t0 = time.perf_counter()
+        release()
+        prefill_parity(smoke_config(arch), FAMILY_PARITY_PROMPT, dev,
+                       (torch.float32, torch.bfloat16))
+        if arch == GRIFFIN_ARCH:
+            replay_parity(smoke_config(arch), GRIFFIN_REPLAY_PROMPT, dev)
+        phase(f"{arch} parity", t0)
+    print(f"[phase] serve phases of recurrentgemma, whisper and llama4: "
+          f"{time.perf_counter() - t_new:.3f} s", flush=True)
+    new_paths = {f"{arch} serve": n for arch, n in family.items()}
+
     print(json.dumps({"kernels": [{
         "name": "partition_pack", "route": "cuda",
         "source": "src/repro_torch/kernels/partition_pack/csrc/"
                   "partition_pack.cu",
         "replaces": "src/repro/kernels/partition_pack/partition_pack.py:83",
-        "launches": launches + wl_launches + moe_launches["partition_pack"],
+        "launches": launches + wl_launches + moe_launches["partition_pack"]
+        + new_paths[f"{LLAMA4_ARCH} serve"]["partition_pack"],
         "launches_by_path": {"query": launches, "workload": wl_launches,
-                             "moe serve": moe_launches["partition_pack"]},
+                             "moe serve": moe_launches["partition_pack"],
+                             f"{LLAMA4_ARCH} serve": new_paths[
+                                 f"{LLAMA4_ARCH} serve"]["partition_pack"]},
         "max_abs_err": max(r["max_abs_err"] for r in recs),
         "ms": main_rec["kernel_ms"], "plain_ms": main_rec["plain_ms"],
         "bound_ms": main_rec["bound_ms"], "bound_by": "bytes",
@@ -1449,9 +1732,12 @@ def main() -> int:
         "name": "flash_gqa", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_gqa/csrc/flash_gqa.cu",
         "replaces": "src/repro/kernels/flash_gqa/flash_gqa.py:72",
-        "launches": flash_launches + moe_launches["flash_gqa"],
+        "launches": flash_launches + moe_launches["flash_gqa"]
+        + sum(n["flash_gqa"] for n in new_paths.values()),
         "launches_by_path": {"dense serve": flash_launches,
-                             "moe serve": moe_launches["flash_gqa"]},
+                             "moe serve": moe_launches["flash_gqa"],
+                             **{path: n["flash_gqa"]
+                                for path, n in new_paths.items()}},
         "max_abs_err": flash_err,
         "ms": flash_rec["kernel_ms"], "plain_ms": flash_rec["plain_ms"],
         "bound_ms": flash_rec["bound_ms"],
@@ -1459,7 +1745,11 @@ def main() -> int:
         "library_ms": flash_rec["library_ms"],
         "mla_prefill": {key: mla_rec[key] for key in (
             "case", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "library_backend", "max_abs_err")}}]}),
+            "library_ms", "library_backend", "max_abs_err")},
+        **{name: {key: r[key] for key in (
+            "case", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_backend", "max_abs_err", "f32")}
+           for name, r in flash_new.items()}}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

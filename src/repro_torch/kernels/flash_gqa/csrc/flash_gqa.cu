@@ -4,34 +4,45 @@
 // Replaces the Pallas TPU kernel of src/repro/kernels/flash_gqa/
 // flash_gqa.py: flash_attention_pallas (body _flash_kernel) together with
 // the host-side preparation of its wrapper ops.flash_gqa. Inputs in model
-// layout: q [B,S,H,D], k [B,S,Hkv,D], v [B,S,Hkv,DV] and an int32 map
+// layout: q [B,Sq,H,D], k [B,Skv,Hkv,D], v [B,Skv,Hkv,DV] and an int32 map
 // kv_head [H] (query head h reads kv head kv_head[h]); q, k, v and the
-// output o [B,S,H,DV] share one type (f32 or bf16). For each (b, h) and
-// query row i:
-//   o_i = sum_j softmax_j(q_i . k_j * scale) v_j over the keys j with
-//   j <= i (causal), j > i - window (window > 0), j < S,
-// with scale 1/sqrt(D) from the wrapper. The scale is that of the true
-// head dim: D is never padded here, and q is never rescaled. Running max
-// m, sum l and the accumulator are f32. DV equals D, except for MLA's
-// prefill (deepseek-v2: q/k 192 = 128 nope + 64 rope, v 128), whose pair
-// the Pallas kernel cannot take (its wrapper pads v with q's padding).
+// output o [B,Sq,H,DV] share one type (f32 or bf16). For each (b, h) and
+// query row i < Sq:
+//   o_i = sum_j softmax_j(q_i . k_j * scale) v_j over the keys j < Skv with
+//   j <= i (causal) and j > i - window (window > 0),
+// with scale 1/sqrt(D) from the wrapper. Sq differs from Skv only in a
+// call with no mask at all (whisper's cross attention: the decoder's
+// queries against the encoder's 1500 frames); a causal or windowed call
+// has Sq == Skv, as the Pallas kernel has no query offset. The scale is
+// that of the true head dim: D is never padded here, and q is never
+// rescaled. Running max m, sum l and the accumulator are f32. DV equals
+// D, except for MLA's prefill (deepseek-v2: q/k 192 = 128 nope + 64 rope,
+// v 128), whose pair the Pallas kernel cannot take (its wrapper pads v
+// with q's padding).
 //
 // Shared by both bodies. The TPU grid's sequential kv axis is a loop
-// inside one block of 128 threads per (b, h, 64 query rows), with m, l and
-// the accumulator in registers for the whole row range. Blocks are
-// numbered so that the last query tiles, which see the most keys under the
-// causal mask, start first, and consecutive blocks share a kv head, whose
-// tiles then come from L2. The head repeat of the reference wrapper is
-// never built: a block reads its kv head through kv_head, which is
-// irregular when heads are padded (padded query heads read kv head 0), so
-// no h / rep is assumed. Only the kv tiles of 64 rows that hold an
-// unmasked key for some row of the block are visited: those wholly above
-// the diagonal or wholly before the window are skipped, which leaves m, l
-// and the accumulator exactly as a fully masked tile would. Masked scores
-// are -inf, and a row whose keys are all masked so far keeps m = -inf,
-// l = 0 and a zero accumulator (the reference's -1e30 gives the same
-// output once the row meets an unmasked key, which every row does: its
-// own position). Rows and keys past S are zero-filled on load and masked.
+// inside one block of 128 threads per (b, h, 64 query rows, DVB output
+// columns), with m, l and the accumulator in registers for the whole row
+// range. DVB is DV up to 128; at DV = 256 (recurrentgemma-9b: 16 heads
+// over 1 kv head of 256) each block computes one 128-column half of O and
+// recomputes S = Q.K^T in full, so the accumulator stays the D = 128
+// body's (two blocks read the same Q and K tiles, back to back, from L2).
+// Blocks are numbered so that the last query tiles, which see the most
+// keys under the causal mask, start first (with no mask every tile has
+// the same work and the order does not matter), and consecutive blocks
+// share a kv head, whose tiles then come from L2. The head repeat of the
+// reference wrapper is never built: a block reads its kv head through
+// kv_head, which is irregular when heads are padded (padded query heads
+// read kv head 0), so no h / rep is assumed. Only the kv tiles of 64 rows
+// that hold an unmasked key for some row of the block are visited: those
+// wholly above the diagonal or wholly before the window are skipped,
+// which leaves m, l and the accumulator exactly as a fully masked tile
+// would. Masked scores are -inf, and a row whose keys are all masked so
+// far keeps m = -inf, l = 0 and a zero accumulator (the reference's -1e30
+// gives the same output once the row meets an unmasked key, which every
+// row does: its own position, or with no mask any key). Query rows past
+// Sq and keys past Skv are zero-filled on load; keys past Skv are masked,
+// and rows past Sq are never stored.
 //
 // bf16 body (flash_gqa_fwd_mma, the serve path): FA2-style on the tensor
 // cores. Each of the 4 warps owns 16 query rows. Per kv tile:
@@ -48,20 +59,22 @@
 // At D = 192 Q's fragments would take 48 registers a thread on top of the
 // 64 of the [16 x 128] accumulator and the 32 of S (the D = 128 build
 // already uses about 204), so above D = 128 they are not kept: each k-step
-// loads its fragment from the Q tile in shared memory by ldmatrix, 12 more
-// ldmatrix a kv tile and warp.
+// loads its fragment from the Q tile in shared memory by ldmatrix, 12 (at
+// D = 256, 16) more ldmatrix a kv tile and warp.
 // K and V tiles come in by cp.async (16 bytes a thread, zero-filled past
-// S) into a ring of two stages: tile t+1 loads while tile t is computed,
-// one __syncthreads a tile. Rows of shared memory are D + 8 elements, so
-// the 8 rows an ldmatrix reads fall in distinct banks. Shared memory:
-// ((64 + 2 * 64) * (D + 8) + 2 * 64 * (DV + 8)) * 2 bytes (V's rows are
-// DV + 8): 87,040 at D = DV = 128 and 111,616 at (192, 128), two blocks an
-// SM either way.
+// Skv) into a ring of two stages: tile t+1 loads while tile t is
+// computed, one __syncthreads a tile. V's tile holds only the block's DVB
+// columns. Rows of shared memory are D + 8 (V: DVB + 8) elements, so the
+// 8 rows an ldmatrix reads fall in distinct banks. Shared memory:
+// ((64 + 2 * 64) * (D + 8) + 2 * 64 * (DVB + 8)) * 2 bytes: 87,040 at
+// D = DV = 128 and 111,616 at (192, 128), two blocks an SM either way;
+// 136,192 at (256, 256), one block an SM (opt-in above 48 KB).
 // f32 body (flash_gqa_fwd): f32 FMA from shared memory, as the tests hold
 // f32 to 2e-5, which TF32 (about three digits) cannot meet: K^T and V by
 // plain loads (K transposed on the way), each thread a 4x8 score tile and
-// a 4 x DV/8 output tile, P through shared memory; 98 KB, two blocks an SM
-// at D = 128; 134 KB, one block an SM, at (192, 128).
+// a 4 x DVB/8 output tile, P through shared memory; 98 KB, two blocks an
+// SM at D = 128; 134 KB, one block an SM, at (192, 128); 164 KB at
+// (256, 256) with the same 128-column halves of O.
 //
 // Bound. At the serve path's shape (B=4, S=512, H=32, Hkv=2, D=128,
 // causal) the function needs, over the causal triangle (512*513/2 =
@@ -82,10 +95,19 @@
 // causal): 4 * 16 * 131,328 pairs of 2 * (192 + 128) FLOP, 5.38 GFLOP;
 // q, k (2 * 12.6 MB), v and o (2 * 8.4 MB) in bf16: 41.9 MB, 0.0125 ms at
 // 3.35 TB/s, against 0.0054 ms for the FLOP at 989 TFLOP/s.
+// recurrentgemma-9b prefill (B=4, S=512, 16 heads over 1, D = DV = 256,
+// causal): 8.61 GFLOP, 0.0087 ms at 989 TFLOP/s, under its 35.7 MB of
+// q, k, v and o (0.0107 ms at 3.35 TB/s); the S recomputed by the second
+// half of O adds a quarter to the FLOP the kernel does. whisper-tiny (6 heads of 64, no
+// mask): the encoder's 1500 x 1500 pairs a head and the cross
+// attention's 64 (prefill) or 1 (decode) query rows against 1500 frames;
+// at Sq = 1 a block computes 64 query rows for one, so such a call is
+// bound by the k and v it reads (2.3 MB in bf16 at B = 4), not by FLOP.
 //
 // Limits: (D, DV) in {(16, 16), (32, 32), (64, 64), (128, 128), (192,
-// 128)}; S >= 1; every kv_head[h] in [0, Hkv) (the wrapper checks the
-// map). Anything else is cudaErrorInvalidValue.
+// 128), (256, 256)}; Sq, Skv >= 1; Sq == Skv unless causal == 0 and
+// window == 0; every kv_head[h] in [0, Hkv) (the wrapper checks the map).
+// Anything else is cudaErrorInvalidValue.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -95,7 +117,8 @@
 #define FA_BQ 64                    // query rows a block
 #define FA_BK 64                    // kv rows a tile
 #define FA_LDK (FA_BK + 4)          // row of K^T and of P in shared memory
-#define FA_MAX_D 192
+#define FA_MAX_D 256
+#define FA_DVB 128                  // output columns a block, at most
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -120,45 +143,67 @@ __device__ __forceinline__ void store(float* p, const float* v) {
   else
     *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
 }
-static inline size_t smem_bytes(int D, int DV) {
+// the output columns a block computes: all of DV up to FA_DVB, else one
+// FA_DVB-column slice (DV a multiple of it)
+template <int DV>
+__host__ __device__ constexpr int dv_block() {
+  return DV > FA_DVB ? FA_DVB : DV;
+}
+
+static inline size_t smem_bytes(int D, int DVB) {
   const int kt_rows = D > FA_BQ ? D : FA_BQ;   // K^T [D][..], then P [64][..]
   return ((size_t)D * FA_BQ + (size_t)kt_rows * FA_LDK
-          + (size_t)FA_BK * DV) * sizeof(float);
+          + (size_t)FA_BK * DVB) * sizeof(float);
+}
+
+// The block's place in the grid: query tile qt (the last first), (b, h),
+// and the first output column vc0 of its slice of DV; the slices of one
+// (b, h, qt) are consecutive blocks.
+struct Tile {
+  int qt, b, h, vc0;
+};
+template <int DV>
+__device__ __forceinline__ Tile tile_of(int Sq, int H, int BH) {
+  constexpr int NSL = DV / dv_block<DV>();      // slices of the output
+  const int n_qt = (Sq + FA_BQ - 1) / FA_BQ;
+  const int x = (int)(blockIdx.x / NSL);
+  const int bh = x % BH;
+  return {n_qt - 1 - x / BH, bh / H, bh % H,
+          (int)(blockIdx.x % NSL) * dv_block<DV>()};
 }
 
 template <int D, int DV>
 __global__ void __launch_bounds__(FA_THREADS, 2)
 flash_gqa_fwd(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const int* __restrict__ kv_head,
-              float* __restrict__ o, int S, int H, int Hkv, int BH, int causal,
-              int window, float scale) {
-  constexpr int VEC = DV >= 32 ? 4 : 2;         // output columns a chunk
-  constexpr int NCH = DV / (8 * VEC);           // chunks a thread owns
+              float* __restrict__ o, int Sq, int Skv, int H, int Hkv, int BH,
+              int causal, int window, float scale) {
+  constexpr int DVB = dv_block<DV>();           // output columns a block
+  constexpr int VEC = DVB >= 32 ? 4 : 2;        // output columns a chunk
+  constexpr int NCH = DVB / (8 * VEC);          // chunks a thread owns
   constexpr int DO = VEC * NCH;                 // output columns a thread
   extern __shared__ __align__(16) float smem[];
   float* Qt = smem;                             // [D][FA_BQ]
   float* Kt = Qt + D * FA_BQ;                   // [D][FA_LDK], then P
-  float* Vs = Kt + (D > FA_BQ ? D : FA_BQ) * FA_LDK;   // [FA_BK][DV]
+  float* Vs = Kt + (D > FA_BQ ? D : FA_BQ) * FA_LDK;   // [FA_BK][DVB]
 
-  const int n_qt = (S + FA_BQ - 1) / FA_BQ;
-  const int qt = n_qt - 1 - (int)(blockIdx.x / BH);  // heaviest tiles first
-  const int bh = (int)(blockIdx.x % BH);
-  const int h = bh % H, b = bh / H;
+  const Tile tl = tile_of<DV>(Sq, H, BH);
+  const int h = tl.h, b = tl.b;
   const int hk = kv_head[h];
-  const int q0 = qt * FA_BQ;
+  const int q0 = tl.qt * FA_BQ;
   const int tid = threadIdx.x, rg = tid >> 3, cg = tid & 7;
 
   const int64_t qs = (int64_t)H * D, ks = (int64_t)Hkv * D;   // row strides
   const int64_t vs = (int64_t)Hkv * DV;
-  const float* qb = q + ((int64_t)b * S * H + h) * D;
-  const float* kb = k + ((int64_t)b * S * Hkv + hk) * D;
-  const float* vb = v + ((int64_t)b * S * Hkv + hk) * DV;
+  const float* qb = q + ((int64_t)b * Sq * H + h) * D;
+  const float* kb = k + ((int64_t)b * Skv * Hkv + hk) * D;
+  const float* vb = v + ((int64_t)b * Skv * Hkv + hk) * DV + tl.vc0;
 
   // Q^T, rows fastest across threads (conflict-free transposed stores)
   for (int e = tid; e < FA_BQ * (D / 4); e += FA_THREADS) {
     const int r = e % FA_BQ, d = (e / FA_BQ) * 4;
-    const float4 t = q0 + r < S ? load4(qb + (q0 + r) * qs + d)
-                                : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4 t = q0 + r < Sq ? load4(qb + (q0 + r) * qs + d)
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
     Qt[(d + 0) * FA_BQ + r] = t.x;
     Qt[(d + 1) * FA_BQ + r] = t.y;
     Qt[(d + 2) * FA_BQ + r] = t.z;
@@ -175,26 +220,27 @@ flash_gqa_fwd(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   // the kv tiles holding an unmasked key for some row q0..q_end-1
-  const int q_end = min(S, q0 + FA_BQ);
+  // (causal and window imply Sq == Skv)
+  const int q_end = min(Sq, q0 + FA_BQ);
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int k_hi = causal ? q_end : S;                       // exclusive
+  const int k_hi = causal ? q_end : Skv;                     // exclusive
   for (int kt = k_lo / FA_BK; kt <= (k_hi - 1) / FA_BK; ++kt) {
     const int k0 = kt * FA_BK;
     __syncthreads();            // the previous tile's P and V are consumed
     for (int e = tid; e < FA_BK * (D / 4); e += FA_THREADS) {
       const int r = e % FA_BK, d = (e / FA_BK) * 4;
-      const float4 t = k0 + r < S ? load4(kb + (k0 + r) * ks + d)
-                                  : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float4 t = k0 + r < Skv ? load4(kb + (k0 + r) * ks + d)
+                                    : make_float4(0.f, 0.f, 0.f, 0.f);
       Kt[(d + 0) * FA_LDK + r] = t.x;
       Kt[(d + 1) * FA_LDK + r] = t.y;
       Kt[(d + 2) * FA_LDK + r] = t.z;
       Kt[(d + 3) * FA_LDK + r] = t.w;
     }
-    for (int e = tid; e < FA_BK * (DV / 4); e += FA_THREADS) {
-      const int r = e / (DV / 4), d = (e % (DV / 4)) * 4;
-      const float4 t = k0 + r < S ? load4(vb + (k0 + r) * vs + d)
-                                  : make_float4(0.f, 0.f, 0.f, 0.f);
-      *reinterpret_cast<float4*>(Vs + r * DV + d) = t;
+    for (int e = tid; e < FA_BK * (DVB / 4); e += FA_THREADS) {
+      const int r = e / (DVB / 4), d = (e % (DVB / 4)) * 4;
+      const float4 t = k0 + r < Skv ? load4(vb + (k0 + r) * vs + d)
+                                    : make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<float4*>(Vs + r * DVB + d) = t;
     }
     __syncthreads();
 
@@ -229,7 +275,7 @@ flash_gqa_fwd(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
         const int kpos = k0 + cg * 4 + (c >> 2) * 32 + (c & 3);
-        const bool ok = kpos < S && (!causal || kpos <= qpos)
+        const bool ok = kpos < Skv && (!causal || kpos <= qpos)
                         && (window <= 0 || kpos > qpos - window);
         s[i][c] = ok ? s[i][c] * scale : -INFINITY;
         mx = fmaxf(mx, s[i][c]);
@@ -281,7 +327,7 @@ flash_gqa_fwd(const float* __restrict__ q, const float* __restrict__ k,
         float vv[DO];
 #pragma unroll
         for (int jj = 0; jj < NCH; ++jj)
-          lds<VEC>(Vs + (kk + e) * DV + cg * VEC + 8 * VEC * jj,
+          lds<VEC>(Vs + (kk + e) * DVB + cg * VEC + 8 * VEC * jj,
                    vv + jj * VEC);
 #pragma unroll
         for (int i = 0; i < 4; ++i)
@@ -296,9 +342,9 @@ flash_gqa_fwd(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + rg * 4 + i;
-    if (r >= S) continue;
+    if (r >= Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    float* orow = o + (((int64_t)b * S + r) * H + h) * DV;
+    float* orow = o + (((int64_t)b * Sq + r) * H + h) * DV + tl.vc0;
 #pragma unroll
     for (int jj = 0; jj < NCH; ++jj) {
       float w[VEC];
@@ -371,9 +417,9 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* tile,
   }
 }
 
-static inline size_t smem_bytes_mma(int D, int DV) {
+static inline size_t smem_bytes_mma(int D, int DVB) {
   return ((size_t)(FA_BQ + 2 * FA_BK) * FM_LD(D)
-          + (size_t)2 * FA_BK * FM_LD(DV)) * sizeof(__nv_bfloat16);
+          + (size_t)2 * FA_BK * FM_LD(DVB)) * sizeof(__nv_bfloat16);
 }
 
 template <int D, int DV>
@@ -382,11 +428,13 @@ flash_gqa_fwd_mma(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
                   const int* __restrict__ kv_head,
-                  __nv_bfloat16* __restrict__ o, int S, int H, int Hkv,
-                  int BH, int causal, int window, float scale_log2) {
-  constexpr int LD = FM_LD(D), LDV = FM_LD(DV);
+                  __nv_bfloat16* __restrict__ o, int Sq, int Skv, int H,
+                  int Hkv, int BH, int causal, int window,
+                  float scale_log2) {
+  constexpr int DVB = dv_block<DV>();           // output columns a block
+  constexpr int LD = FM_LD(D), LDV = FM_LD(DVB);
   constexpr int KS = D / 16;                    // k-steps of Q.K^T
-  constexpr int NO = DV / 8;                    // n-tiles of O
+  constexpr int NO = DVB / 8;                   // n-tiles of O
   constexpr int NS = FA_BK / 8;                 // n-tiles of S
   constexpr bool QREG = D <= 128;               // Q's fragments in registers
   extern __shared__ __align__(16) __nv_bfloat16 smb[];
@@ -394,30 +442,29 @@ flash_gqa_fwd_mma(const __nv_bfloat16* __restrict__ q,
   __nv_bfloat16* Ks = Qs + FA_BQ * LD;          // [2][64][LD]
   __nv_bfloat16* Vs = Ks + 2 * FA_BK * LD;      // [2][64][LDV]
 
-  const int n_qt = (S + FA_BQ - 1) / FA_BQ;
-  const int qt = n_qt - 1 - (int)(blockIdx.x / BH);  // heaviest tiles first
-  const int bh = (int)(blockIdx.x % BH);
-  const int h = bh % H, b = bh / H;
+  const Tile tl = tile_of<DV>(Sq, H, BH);
+  const int h = tl.h, b = tl.b;
   const int hk = kv_head[h];
-  const int q0 = qt * FA_BQ;
+  const int q0 = tl.qt * FA_BQ;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;        // fragment row, column pair
 
   const int64_t qs = (int64_t)H * D, ks = (int64_t)Hkv * D;   // row strides
   const int64_t vs = (int64_t)Hkv * DV;
-  const __nv_bfloat16* qb = q + ((int64_t)b * S * H + h) * D;
-  const __nv_bfloat16* kb = k + ((int64_t)b * S * Hkv + hk) * D;
-  const __nv_bfloat16* vb = v + ((int64_t)b * S * Hkv + hk) * DV;
+  const __nv_bfloat16* qb = q + ((int64_t)b * Sq * H + h) * D;
+  const __nv_bfloat16* kb = k + ((int64_t)b * Skv * Hkv + hk) * D;
+  const __nv_bfloat16* vb = v + ((int64_t)b * Skv * Hkv + hk) * DV + tl.vc0;
 
   // the kv tiles holding an unmasked key for some row q0..q_end-1
-  const int q_end = min(S, q0 + FA_BQ);
+  // (causal and window imply Sq == Skv)
+  const int q_end = min(Sq, q0 + FA_BQ);
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int k_hi = causal ? q_end : S;                       // exclusive
+  const int k_hi = causal ? q_end : Skv;                     // exclusive
   const int kt0 = k_lo / FA_BK, n_kt = (k_hi - 1) / FA_BK - kt0 + 1;
 
-  load_tile<D>(Qs, qb, qs, q0, S, tid);
-  load_tile<D>(Ks, kb, ks, kt0 * FA_BK, S, tid);
-  load_tile<DV>(Vs, vb, vs, kt0 * FA_BK, S, tid);
+  load_tile<D>(Qs, qb, qs, q0, Sq, tid);
+  load_tile<D>(Ks, kb, ks, kt0 * FA_BK, Skv, tid);
+  load_tile<DVB>(Vs, vb, vs, kt0 * FA_BK, Skv, tid);
   cp_async_commit();
 
   // rows of this thread: r0 (fragment rows 0-7) and r0 + 8
@@ -435,8 +482,8 @@ flash_gqa_fwd_mma(const __nv_bfloat16* __restrict__ q,
     __syncthreads();            // tile it landed; stage (it+1)&1 is free
     if (it + 1 < n_kt) {
       const int st = (it + 1) & 1, row0 = (kt0 + it + 1) * FA_BK;
-      load_tile<D>(Ks + st * FA_BK * LD, kb, ks, row0, S, tid);
-      load_tile<DV>(Vs + st * FA_BK * LDV, vb, vs, row0, S, tid);
+      load_tile<D>(Ks + st * FA_BK * LD, kb, ks, row0, Skv, tid);
+      load_tile<DVB>(Vs + st * FA_BK * LDV, vb, vs, row0, Skv, tid);
     }
     cp_async_commit();
     if constexpr (QREG) {
@@ -482,7 +529,7 @@ flash_gqa_fwd_mma(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) {
         const int qpos = r0 + (e >> 1) * 8;
         const int kpos = k0 + n * 8 + 2 * t + (e & 1);
-        const bool ok = kpos < S && (!causal || kpos <= qpos)
+        const bool ok = kpos < Skv && (!causal || kpos <= qpos)
                         && (window <= 0 || kpos > qpos - window);
         s[n][e] = ok ? s[n][e] * scale_log2 : -INFINITY;
         mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
@@ -537,9 +584,9 @@ flash_gqa_fwd_mma(const __nv_bfloat16* __restrict__ q,
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     const int r = r0 + i * 8;
-    if (r >= S) continue;
+    if (r >= Sq) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    __nv_bfloat16* orow = o + (((int64_t)b * S + r) * H + h) * DV;
+    __nv_bfloat16* orow = o + (((int64_t)b * Sq + r) * H + h) * DV + tl.vc0;
 #pragma unroll
     for (int n = 0; n < NO; ++n)
       *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t) =
@@ -559,27 +606,29 @@ static int set_smem(const void* fn, size_t shm) {
 
 template <int D, int DV>
 static int launch(int dtype, const void* q, const void* k, const void* v,
-                  const void* kv_head, void* o, int B, int S, int H,
-                  int Hkv, int causal, int window, float scale,
+                  const void* kv_head, void* o, int B, int Sq, int Skv,
+                  int H, int Hkv, int causal, int window, float scale,
                   cudaStream_t stream) {
-  const int64_t blocks = (int64_t)B * H * ((S + FA_BQ - 1) / FA_BQ);
+  constexpr int DVB = dv_block<DV>();
+  const int64_t blocks =
+      (int64_t)B * H * ((Sq + FA_BQ - 1) / FA_BQ) * (DV / DVB);
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
   if (dtype == 0) {
-    const size_t shm = smem_bytes(D, DV);
+    const size_t shm = smem_bytes(D, DVB);
     const int err = set_smem((const void*)flash_gqa_fwd<D, DV>, shm);
     if (err) return err;
     flash_gqa_fwd<D, DV><<<(unsigned)blocks, FA_THREADS, shm, stream>>>(
         (const float*)q, (const float*)k, (const float*)v,
-        (const int*)kv_head, (float*)o, S, H, Hkv, B * H, causal, window,
-        scale);
+        (const int*)kv_head, (float*)o, Sq, Skv, H, Hkv, B * H, causal,
+        window, scale);
   } else {
-    const size_t shm = smem_bytes_mma(D, DV);
+    const size_t shm = smem_bytes_mma(D, DVB);
     const int err = set_smem((const void*)flash_gqa_fwd_mma<D, DV>, shm);
     if (err) return err;
     flash_gqa_fwd_mma<D, DV><<<(unsigned)blocks, FA_THREADS, shm, stream>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-        (const __nv_bfloat16*)v, (const int*)kv_head, (__nv_bfloat16*)o, S,
-        H, Hkv, B * H, causal, window, scale * 1.4426950408889634f);
+        (const __nv_bfloat16*)v, (const int*)kv_head, (__nv_bfloat16*)o, Sq,
+        Skv, H, Hkv, B * H, causal, window, scale * 1.4426950408889634f);
   }
   return (int)cudaGetLastError();
 }
@@ -592,26 +641,28 @@ const char* fa_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// dtype 0: q, k, v, o are f32; 1: bf16. q [B,S,H,D], k [B,S,Hkv,D], v
-// [B,S,Hkv,Dv], o [B,S,H,Dv], kv_head [H] int32, all contiguous on one
-// device; scale multiplies q.k. Returns a cudaError_t (0 = launched).
+// dtype 0: q, k, v, o are f32; 1: bf16. q [B,Sq,H,D], k [B,Skv,Hkv,D],
+// v [B,Skv,Hkv,Dv], o [B,Sq,H,Dv], kv_head [H] int32, all contiguous on
+// one device; scale multiplies q.k; Sq == Skv unless causal == 0 and
+// window == 0. Returns a cudaError_t (0 = launched).
 int flash_gqa(int dtype, const void* q, const void* k, const void* v,
-              const void* kv_head, void* o, int B, int S, int H, int Hkv,
-              int D, int Dv, int causal, int window, float scale,
+              const void* kv_head, void* o, int B, int Sq, int Skv, int H,
+              int Hkv, int D, int Dv, int causal, int window, float scale,
               void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || window < 0 ||
-      (dtype != 0 && dtype != 1))
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || H <= 0 || Hkv <= 0 || window < 0 ||
+      (Sq != Skv && (causal || window)) || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
 #define FA_CASE(d, dv)                                                      \
   if (D == d && Dv == dv)                                                   \
-    return launch<d, dv>(dtype, q, k, v, kv_head, o, B, S, H, Hkv, causal,  \
-                         window, scale, s);
+    return launch<d, dv>(dtype, q, k, v, kv_head, o, B, Sq, Skv, H, Hkv,    \
+                         causal, window, scale, s);
   FA_CASE(16, 16)
   FA_CASE(32, 32)
   FA_CASE(64, 64)
   FA_CASE(128, 128)
   FA_CASE(192, 128)
+  FA_CASE(256, 256)
 #undef FA_CASE
   return (int)cudaErrorInvalidValue;
 }

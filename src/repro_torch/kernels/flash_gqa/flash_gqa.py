@@ -2,11 +2,13 @@
 replaces the Pallas ``flash_attention_pallas`` of src/repro/kernels/
 flash_gqa/flash_gqa.py; the source's note gives the design and its bound).
 
-``flash_gqa`` takes the model layout as it is: q [B,S,H,D] and k/v at kv
-head layout (k [B,S,Hkv,D], v [B,S,Hkv,Dv]), with a query-head -> kv-head
-map instead of a repeat of k and v. Dv is D but for MLA's prefill (q/k
-192, v 128: ``HEAD_DIM_PAIRS``). bf16 runs on the tensor cores, f32 on the
-f32 pipes.
+``flash_gqa`` takes the model layout as it is: q [B,Sq,H,D] and k/v at kv
+head layout (k [B,Skv,Hkv,D], v [B,Skv,Hkv,Dv]), with a query-head ->
+kv-head map instead of a repeat of k and v. Dv is D but for MLA's prefill
+(q/k 192, v 128: ``HEAD_DIM_PAIRS``). Sq differs from Skv only in a call
+with no mask (whisper's cross attention); a causal or windowed call has
+Sq == Skv, as the Pallas kernel has no query offset. bf16 runs on the
+tensor cores, f32 on the f32 pipes.
 It checks device, dtype, shape, contiguity, alignment and the map,
 allocates the output, launches on the current stream, checks the error
 code, and counts one launch per call in ``launches``. Where grad is needed
@@ -31,9 +33,11 @@ from repro_torch.kernels.flash_gqa.ref import attention_ref
 
 launches = 0                      # flash_gqa() calls that launched the kernel
 routed = 0                        # calls the model sent to the plain path
-# the (q/k, v) head dims the kernel is built for: equal dims, and MLA's
-# prefill (deepseek-v2: 128 nope + 64 rope, v 128)
-HEAD_DIM_PAIRS = ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128))
+# the (q/k, v) head dims the kernel is built for: equal dims up to 128 and
+# recurrentgemma-9b's 256, and MLA's prefill (deepseek-v2: 128 nope + 64
+# rope, v 128)
+HEAD_DIM_PAIRS = ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128),
+                  (256, 256))
 _count_lock = threading.Lock()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,7 +48,7 @@ _maps: dict[tuple, torch.Tensor] = {}     # kv maps already on a device
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_gqa")
     lib.flash_gqa.argtypes = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _I, _I, _I, ctypes.c_float, _P]
+                              _I, _I, _I, _I, ctypes.c_float, _P]
     lib.flash_gqa.restype = _I
     lib.fa_error_string.argtypes = [_I]
     lib.fa_error_string.restype = ctypes.c_char_p
@@ -52,29 +56,31 @@ def _lib() -> ctypes.CDLL:
 
 
 def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               window: int, kv_head=None) -> tuple[int, ...]:
-    """What the kernel takes, on any device: q [B,S,H,D], k [B,S,Hkv,D],
-    v [B,S,Hkv,Dv], one floating dtype (f32 or bf16), Sq == Skv, (D, Dv)
-    in HEAD_DIM_PAIRS, window >= 0, and a map of H kv heads in [0, Hkv)
-    (``None``: h // (H / Hkv), which needs Hkv to divide H). Raises
-    ValueError otherwise. -> the map as a tuple of ints."""
+               window: int, kv_head=None, causal: bool = True
+               ) -> tuple[int, ...]:
+    """What the kernel takes, on any device: q [B,Sq,H,D], k [B,Skv,Hkv,D],
+    v [B,Skv,Hkv,Dv], one floating dtype (f32 or bf16), Sq == Skv unless
+    the call is neither causal nor windowed, (D, Dv) in HEAD_DIM_PAIRS,
+    window >= 0, and a map of H kv heads in [0, Hkv) (``None``: h // (H /
+    Hkv), which needs Hkv to divide H). Raises ValueError otherwise. -> the
+    map as a tuple of ints."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
             or k.shape[:3] != v.shape[:3]:
-        raise ValueError(f"want q [B,S,H,D], k [B,S,Hkv,D] and v "
-                         f"[B,S,Hkv,Dv]; got {tuple(q.shape)}, "
+        raise ValueError(f"want q [B,Sq,H,D], k [B,Skv,Hkv,D] and v "
+                         f"[B,Skv,Hkv,Dv]; got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, S, H, D = q.shape
     Bk, Skv, Hkv, Dk = k.shape
-    if Skv != S:
-        raise ValueError(f"flash_gqa takes Sq == Skv (no query offset); got "
-                         f"Sq={S}, Skv={Skv}")
+    if Skv != S and (causal or window):
+        raise ValueError(f"flash_gqa takes Sq == Skv in a causal or windowed "
+                         f"call (no query offset); got Sq={S}, Skv={Skv}")
     if Bk != B or Dk != D:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} "
                          "disagree on batch or head dim")
     if (D, v.shape[3]) not in HEAD_DIM_PAIRS:
         raise ValueError(f"flash_gqa takes (q/k, v) head dims "
                          f"{HEAD_DIM_PAIRS}; got ({D}, {v.shape[3]})")
-    if S < 1 or B < 1 or Hkv < 1:
+    if S < 1 or Skv < 1 or B < 1 or Hkv < 1:
         raise ValueError(f"empty input {tuple(q.shape)}, {tuple(k.shape)}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v must be float32 or bfloat16 alike; got "
@@ -93,13 +99,16 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return m
 
 
-def takes(q_shape, k_shape, v_shape) -> bool:
-    """Whether the kernel takes q/k/v of these shapes: k and v alike but
-    for their head dims, Sq == Skv, and (q/k, v) head dims in
+def takes(q_shape, k_shape, v_shape, *, causal: bool = True,
+          window: int = 0) -> bool:
+    """Whether the kernel takes q/k/v of these shapes with these masks: k
+    and v alike but for their head dims, Sq == Skv unless the call is
+    neither causal nor windowed, and (q/k, v) head dims in
     HEAD_DIM_PAIRS."""
     return (len(q_shape) == 4 and len(k_shape) == 4 and len(v_shape) == 4
             and tuple(k_shape[:3]) == tuple(v_shape[:3])
-            and q_shape[1] == k_shape[1] and q_shape[3] == k_shape[3]
+            and q_shape[0] == k_shape[0] and q_shape[3] == k_shape[3]
+            and (q_shape[1] == k_shape[1] or not (causal or window))
             and (q_shape[3], v_shape[3]) in HEAD_DIM_PAIRS)
 
 
@@ -115,7 +124,8 @@ def plain(q, k, v, *, causal: bool = True, window: int = 0, kv_head=None):
     """The plain version on any device: ``attention_ref`` over k and v
     gathered to the query heads by the map (refusing what ``check_args``
     refuses)."""
-    m = torch.tensor(check_args(q, k, v, window, kv_head), device=q.device)
+    m = torch.tensor(check_args(q, k, v, window, kv_head, causal),
+                     device=q.device)
     return attention_ref(q, k.index_select(2, m), v.index_select(2, m),
                          causal=causal, window=window)
 
@@ -132,12 +142,13 @@ def _map_on(m: tuple[int, ...], dev: torch.device) -> torch.Tensor:
 def flash_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int = 0,
               kv_head=None) -> torch.Tensor:
-    """q [B,S,H,D], k [B,S,Hkv,D], v [B,S,Hkv,Dv], contiguous on one CUDA
-    device, f32 or bf16 alike; ``kv_head``: query head -> kv head (host
-    ints, default h // (H / Hkv)). -> o [B,S,H,Dv] in q's dtype:
-    softmax(q.k / sqrt(D)) v over the keys at or before each query
-    (``causal``) and within the last ``window`` positions (``window`` >
-    0). Differentiable in q, k and v through the plain version."""
+    """q [B,Sq,H,D], k [B,Skv,Hkv,D], v [B,Skv,Hkv,Dv], contiguous on one
+    CUDA device, f32 or bf16 alike (Sq == Skv unless neither ``causal``
+    nor ``window``); ``kv_head``: query head -> kv head (host ints, default
+    h // (H / Hkv)). -> o [B,Sq,H,Dv] in q's dtype: softmax(q.k / sqrt(D))
+    v over the keys at or before each query (``causal``) and within the
+    last ``window`` positions (``window`` > 0). Differentiable in q, k and
+    v through the plain version."""
     kw = {"causal": causal, "window": window, "kv_head": kv_head}
     return kernel_call(lambda *t: (_launch(*t, **kw),),
                        lambda *t: (plain(*t, **kw),), q, k, v)[0]
@@ -157,9 +168,9 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on 16 bytes (the kernel "
                              "loads rows 16 bytes at a time)")
-    m = check_args(q, k, v, window, kv_head)
+    m = check_args(q, k, v, window, kv_head, causal)
     B, S, H, D = q.shape
-    Hkv, Dv = k.shape[2], v.shape[3]
+    Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     lib = _lib()
     kvh = _map_on(m, dev)
     o = q.new_empty((B, S, H, Dv))
@@ -167,7 +178,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.flash_gqa(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
                             v.data_ptr(), kvh.data_ptr(), o.data_ptr(), B, S,
-                            H, Hkv, D, Dv, int(causal), window,
+                            Skv, H, Hkv, D, Dv, int(causal), window,
                             1.0 / math.sqrt(D), stream)
     if err:
         raise RuntimeError(f"flash_gqa: CUDA error {err}: "

@@ -8,9 +8,10 @@ from repro_torch.kernels.flash_gqa import flash_gqa as K
 
 def flash_gqa(q, k, v, *, causal: bool = True, window: int = 0,
               kv_head=None):
-    """q [B,S,H,D]; k [B,S,Hkv,D]; v [B,S,Hkv,Dv]; ``kv_head`` maps query
-    head h to its kv head (host ints; default h // (H / Hkv)). -> o
-    [B,S,H,Dv] in q's dtype."""
+    """q [B,Sq,H,D]; k [B,Skv,Hkv,D]; v [B,Skv,Hkv,Dv] (Sq == Skv unless
+    neither ``causal`` nor ``window``); ``kv_head`` maps query head h to
+    its kv head (host ints; default h // (H / Hkv)). -> o [B,Sq,H,Dv] in
+    q's dtype."""
     if q.device.type == "cuda":
         return K.flash_gqa(q.contiguous(), k.contiguous(), v.contiguous(),
                            causal=causal, window=window, kv_head=kv_head)

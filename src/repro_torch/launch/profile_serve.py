@@ -1,10 +1,11 @@
 """Where a serve cell's wall time goes on the card: torch.profiler traces
 of one prefill and of a few decode steps of a cell ``launch/serve``
-defines (``CELLS``: 4 prompts of 512 tokens at full width and depth,
-weights and prompts from ``random_request``), after a warm-up.
+defines (``CELLS``: 4 prompts of 512 tokens at full width, weights and
+prompts, and whisper's frames, from ``random_request``), after a warm-up.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
-      [--arch mamba2-2.7b|glm4-9b|deepseek-v2-lite-16b] \\
+      [--arch mamba2-2.7b|glm4-9b|deepseek-v2-lite-16b|recurrentgemma-9b|
+              whisper-tiny|llama4-maverick-400b-a17b] \\
       [--trace serve_trace.json]
 
 Prints one JSON line per part (prefill, decode): wall seconds (host clock,
@@ -13,8 +14,8 @@ kernel intervals on the card), the idle share 1 - busy / wall, the
 kernels launched, the device time and CUDA launches of the port's kernels
 on the serve path (ssd_scan: its four CUDA kernels ssd_cb,
 ssd_chunk_state, ssd_state_pass and ssd_chunk_scan a call; flash_gqa: one
-a call; partition_pack, the MoE dispatch: three a call at B·E = 256
-partitions, its multi-pass route) and the ten kernels with the most
+a call; partition_pack, the MoE dispatch: three a call at B·E = 256 or
+512 partitions, its multi-pass route) and the ten kernels with the most
 device time. The weights are cast to bf16 in place (``cast_params_``),
 so the card holds one copy. Runs on CUDA only.
 """
@@ -27,7 +28,6 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.configs.base import get_config
 from repro_torch.launch import serve
 from repro_torch.launch.profile_query import (busy_s, device_kernels,
                                               is_kernel)
@@ -76,13 +76,13 @@ def main(argv=None):
         raise SystemExit("profile_serve needs a CUDA device")
     dev = torch.device("cuda")
     cell = serve.CELLS[args.arch]
-    cfg = get_config(cell.arch)
+    cfg = cell.config()
     bundle = build_model(cfg)
-    params, tokens = serve.random_request(cfg, cell.batch, cell.prompt,
-                                          cell.seed, dev)
+    params, tokens, frames = serve.random_request(cfg, cell.batch,
+                                                  cell.prompt, cell.seed, dev)
     params, tokens = cast_params_(cfg, params), tokens.to(dev)
     prefill, decode = make_prefill_step(bundle), make_decode_step(bundle)
-    batch = serve.prefill_batch(bundle, tokens)
+    batch = serve.prefill_batch(bundle, tokens, frames)
 
     def run_decode(steps):
         """``steps`` steps of the reference's loop from a fresh cache of
@@ -90,7 +90,7 @@ def main(argv=None):
         decode attends over the whole cache, masked)."""
         serve.decode_loop(decode, params, init_params(
             bundle.cache_defs(cell.batch, cell.prompt + cell.new), None,
-            dev), tokens[:, :1], steps)
+            dev), tokens[:, :1], steps, batch.get("frames"))
 
     prefill(params, batch)                              # warm-up
     run_decode(2)

@@ -8,13 +8,19 @@ A bundle is everything launch/ needs:
   decode_fn(p, cache, batch) -> (logits, cache)
   cache_defs(batch, cache_len, long) -> ParamSpec tree (+ "len" scalar)
   batch_defs(shape)     -> ParamSpec tree of inputs
+  encode(p, frames)     -> encoder output           [whisper only]
 
-Layers are stacked on a leading "layers" dim as in the reference; its
-``jax.lax.scan`` over that dim is a Python loop here. The port has the
-``ssm`` family (Mamba-2), the homogeneous decoder LMs (``dense`` and
-``vlm``: glm4, granite, smollm, starcoder2, qwen2-vl) and deepseek-v2 (the
-``moe`` family with MLA attention); the others raise
-``NotImplementedError`` naming their ROADMAP item.
+Layers are stacked on a leading "layers" dim as in the reference (llama4
+over super-blocks of 4 sub-layers, griffin over (rec, rec, attn) triples
+with the remainder unrolled, whisper's 4 + 4 layers unrolled); its
+``jax.lax.scan`` over that dim is a Python loop here. Every family of the
+reference serves: the ``ssm`` family (Mamba-2), the homogeneous decoder
+LMs (``dense`` and ``vlm``: glm4, granite, smollm, starcoder2, qwen2-vl),
+the ``moe`` family (deepseek-v2 with MLA attention, llama4 with GQA), the
+``hybrid`` griffin (recurrentgemma) and the ``audio`` encoder-decoder
+(whisper). Training raises ``NotImplementedError`` naming ROADMAP A5.
+Decode writes every cache in place and returns the same tree with
+``len`` + 1.
 """
 from __future__ import annotations
 
@@ -25,10 +31,12 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.models import griffin as G
 from repro_torch.models import mamba2 as M
 from repro_torch.models import transformer as T
 from repro_torch.models.modules import (ParamSpec, Sharder, apply_norm,
                                         norm_defs, stack_specs, tree_map)
+from repro_torch.models.moe import moe_apply
 
 
 @dataclasses.dataclass
@@ -40,6 +48,7 @@ class ModelBundle:
     decode_fn: Callable
     cache_defs: Callable
     batch_defs: Callable
+    encode: Callable | None = None
 
 
 # ---------------------------------------------------------------------------
@@ -96,6 +105,14 @@ def _positions(B, S, device):
     return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
 
 
+def _len(S: int, device) -> torch.Tensor:
+    return torch.tensor(S, dtype=torch.int32, device=device)
+
+
+def _no_training(p, batch):
+    raise NotImplementedError("training is not ported yet (ROADMAP A5)")
+
+
 def _layer(stacked, i: int):
     """Layer ``i`` of a tree stacked on a leading "layers" dim (views)."""
     return tree_map(lambda t: t[i], stacked)
@@ -134,9 +151,6 @@ def _decoder_lm(cfg: ModelConfig, rules=None, mesh=None) -> ModelBundle:
         x = apply_norm(cfg.norm_kind, p["final_ln"], x, cfg.norm_eps)
         return x, kvs
 
-    def loss_fn(p, batch):
-        raise NotImplementedError("training is not ported yet (ROADMAP A5)")
-
     def prefill_fn(p, batch):
         B, S = batch["tokens"].shape
         x = _embed(cfg, p, batch["tokens"], sh)
@@ -147,9 +161,7 @@ def _decoder_lm(cfg: ModelConfig, rules=None, mesh=None) -> ModelBundle:
         x, kvs = fwd(p, x, _positions(B, S, x.device),
                      mpos=batch.get("mrope_positions"))
         logits = _logits(cfg, p, x[:, -1:], sh)
-        return logits, {"kv": _stack(kvs),
-                        "len": torch.tensor(S, dtype=torch.int32,
-                                            device=x.device)}
+        return logits, {"kv": _stack(kvs), "len": _len(S, x.device)}
 
     def decode_fn(p, cache, batch):
         """One token at ``cache["len"]``; writes the token's k/v into
@@ -182,7 +194,7 @@ def _decoder_lm(cfg: ModelConfig, rules=None, mesh=None) -> ModelBundle:
                 (None, "batch", "seq"), "zeros", torch.int32)
         return b
 
-    return ModelBundle(cfg, defs, loss_fn, prefill_fn, decode_fn,
+    return ModelBundle(cfg, defs, _no_training, prefill_fn, decode_fn,
                        cache_defs, batch_defs)
 
 
@@ -205,17 +217,12 @@ def _mamba(cfg: ModelConfig, rules=None, mesh=None) -> ModelBundle:
         x = apply_norm(cfg.norm_kind, p["final_ln"], x, cfg.norm_eps)
         return x, (_stack(ncs) if cache is not None else None)
 
-    def loss_fn(p, batch):
-        raise NotImplementedError("training is not ported yet "
-                                  "(ROADMAP A5/A6)")
-
     def prefill_fn(p, batch):
         B, S = batch["tokens"].shape
         x = _embed(cfg, p, batch["tokens"], sh)
         x, _ = fwd(p, x, "prefill")
         logits = _logits(cfg, p, x[:, -1:], sh)
-        return logits, {"len": torch.tensor(S, dtype=torch.int32,
-                                            device=x.device)}
+        return logits, {"len": _len(S, x.device)}
 
     def decode_fn(p, cache, batch):
         pos = cache["len"]
@@ -229,8 +236,8 @@ def _mamba(cfg: ModelConfig, rules=None, mesh=None) -> ModelBundle:
                                       cfg.num_layers),
                 "len": _len_def()}
 
-    return ModelBundle(cfg, defs, loss_fn, prefill_fn, decode_fn, cache_defs,
-                       functools.partial(_base_batch_defs, cfg))
+    return ModelBundle(cfg, defs, _no_training, prefill_fn, decode_fn,
+                       cache_defs, functools.partial(_base_batch_defs, cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -265,17 +272,13 @@ def _deepseek(cfg: ModelConfig, rules=None, mesh=None) -> ModelBundle:
         x = apply_norm(cfg.norm_kind, p["final_ln"], x, cfg.norm_eps)
         return x, aux, c0n, cs
 
-    def loss_fn(p, batch):
-        raise NotImplementedError("training is not ported yet (ROADMAP A5)")
-
     def prefill_fn(p, batch):
         B, S = batch["tokens"].shape
         x = _embed(cfg, p, batch["tokens"], sh)
         x, _, c0, cs = fwd(p, x, _positions(B, S, x.device))
         logits = _logits(cfg, p, x[:, -1:], sh)
         return logits, {"l0": c0, "ls": _stack(cs),
-                        "len": torch.tensor(S, dtype=torch.int32,
-                                            device=x.device)}
+                        "len": _len(S, x.device)}
 
     def decode_fn(p, cache, batch):
         """One token at ``cache["len"]``; writes the token's compressed kv
@@ -293,8 +296,254 @@ def _deepseek(cfg: ModelConfig, rules=None, mesh=None) -> ModelBundle:
         one = T.mla_cache_defs(cfg, batch, cache_len, long)
         return {"l0": one, "ls": stack_specs(one, n_moe), "len": _len_def()}
 
-    return ModelBundle(cfg, defs, loss_fn, prefill_fn, decode_fn, cache_defs,
-                       functools.partial(_base_batch_defs, cfg))
+    return ModelBundle(cfg, defs, _no_training, prefill_fn, decode_fn,
+                       cache_defs, functools.partial(_base_batch_defs, cfg))
+
+
+# ---------------------------------------------------------------------------
+# family: llama4 (super-blocks of 4: chunked/global attn x dense/moe mlp)
+# ---------------------------------------------------------------------------
+
+LLAMA4_PERIOD = 4
+
+
+def _llama4_subkinds(cfg):
+    """(attn_kind, mlp_kind) for each sub-layer of the 4-layer super-block."""
+    out = []
+    for i in range(LLAMA4_PERIOD):
+        attn = "full" if (i + 1) % cfg.global_every == 0 else "chunked"
+        mlp = "moe" if i % cfg.moe.every_k_layers == 1 else "mlp"
+        out.append((attn, mlp))
+    return out
+
+
+def _llama4(cfg: ModelConfig, rules=None, mesh=None) -> ModelBundle:
+    sh = Sharder(mesh, rules)
+    assert cfg.num_layers % LLAMA4_PERIOD == 0
+    n_sb = cfg.num_layers // LLAMA4_PERIOD
+    kinds = _llama4_subkinds(cfg)
+    sb_defs = {f"sub{i}": T.layer_defs(cfg, mlp=k[1],
+                                       d_ff=cfg.moe.dense_d_ff)
+               for i, k in enumerate(kinds)}
+    defs = {**_embed_defs(cfg), "blocks": stack_specs(sb_defs, n_sb)}
+    nope = cfg.replace(rope_theta=0.0)          # iRoPE: global layers NoPE
+
+    def _l4_layer(pl, x, positions, attn_kind, mlp_kind, c, cache_len):
+        lcfg = cfg if attn_kind != "full" else nope
+        x, _ = T.attn_apply(lcfg, pl["attn"], x, sh, positions=positions,
+                            layer_kind=attn_kind, cache=c,
+                            cache_len=cache_len)
+        if mlp_kind == "moe":
+            return moe_apply(cfg, pl["mlp"], x, sh)
+        return T.mlp_apply(cfg, pl["mlp"], x, sh), 0.0
+
+    def fwd(p, x, positions, cache=None, cache_len=None):
+        """-> (final-normed x, the MoE layers' summed aux loss); in decode
+        each sub-layer's cache is written in place."""
+        aux = 0.0
+        for j in range(n_sb):
+            pb = _layer(p["blocks"], j)
+            cb = _layer(cache, j) if cache is not None else None
+            for i, (attn_kind, mlp_kind) in enumerate(kinds):
+                x, a = _l4_layer(pb[f"sub{i}"], x, positions, attn_kind,
+                                 mlp_kind, cb[f"sub{i}"] if cb else None,
+                                 cache_len)
+                aux = aux + a
+        x = apply_norm(cfg.norm_kind, p["final_ln"], x, cfg.norm_eps)
+        return x, aux
+
+    def prefill_fn(p, batch):
+        B, S = batch["tokens"].shape
+        x = _embed(cfg, p, batch["tokens"], sh)
+        x, _ = fwd(p, x, _positions(B, S, x.device))
+        # the serve path fills the caches by replaying the prompt through
+        # decode, as the reference's does
+        logits = _logits(cfg, p, x[:, -1:], sh)
+        return logits, {"len": _len(S, x.device)}
+
+    def decode_fn(p, cache, batch):
+        B = batch["token"].shape[0]
+        pos = cache["len"]
+        x = _embed(cfg, p, batch["token"], sh)
+        positions = pos.reshape(1, 1).expand(B, 1)
+        x, _ = fwd(p, x, positions, cache=cache["blocks"], cache_len=pos)
+        logits = _logits(cfg, p, x, sh)
+        return logits, {"blocks": cache["blocks"], "len": pos + 1}
+
+    def cache_defs(batch, cache_len, long=False):
+        sb = {}
+        for i, (attn_kind, _) in enumerate(kinds):
+            W = cache_len if attn_kind == "full" else min(
+                cfg.chunked_local, cache_len)
+            sb[f"sub{i}"] = T.attn_cache_defs(
+                cfg, batch, W, long and attn_kind == "full")
+        return {"blocks": stack_specs(sb, n_sb), "len": _len_def()}
+
+    return ModelBundle(cfg, defs, _no_training, prefill_fn, decode_fn,
+                       cache_defs, functools.partial(_base_batch_defs, cfg))
+
+
+# ---------------------------------------------------------------------------
+# family: griffin / recurrentgemma (rec,rec,attn triples + remainder)
+# ---------------------------------------------------------------------------
+
+def _griffin(cfg: ModelConfig, rules=None, mesh=None) -> ModelBundle:
+    sh = Sharder(mesh, rules)
+    pat = cfg.block_pattern                                # ("rec","rec","attn")
+    n_tri = cfg.num_layers // len(pat)
+    n_tail = cfg.num_layers - n_tri * len(pat)
+
+    def sub_defs(kind):
+        mix = G.rec_defs(cfg) if kind == "rec" else T.attn_defs(cfg)
+        return {"mix": mix, "mlp": T.mlp_defs(cfg)}
+
+    tri_defs = {f"sub{i}": sub_defs(kind) for i, kind in enumerate(pat)}
+    defs = {**_embed_defs(cfg), "tri": stack_specs(tri_defs, n_tri)}
+    for t in range(n_tail):
+        defs[f"tail{t}"] = sub_defs("rec")
+
+    def _sub_apply(kind, pl, x, positions, c, cache_len):
+        if kind == "rec":
+            x, _ = G.rec_apply(cfg, pl["mix"], x, sh, cache=c)
+        else:
+            x, _ = T.attn_apply(cfg, pl["mix"], x, sh, positions=positions,
+                                layer_kind="window", cache=c,
+                                cache_len=cache_len)
+        return T.mlp_apply(cfg, pl["mlp"], x, sh)
+
+    def fwd(p, x, positions, cache=None, cache_len=None):
+        """-> final-normed x; in decode every layer's cache is written in
+        place."""
+        for j in range(n_tri):
+            pb = _layer(p["tri"], j)
+            cb = _layer(cache["tri"], j) if cache is not None else None
+            for i, kind in enumerate(pat):
+                x = _sub_apply(kind, pb[f"sub{i}"], x, positions,
+                               cb[f"sub{i}"] if cb else None, cache_len)
+        for t in range(n_tail):
+            x = _sub_apply("rec", p[f"tail{t}"], x, positions,
+                           cache[f"tail{t}"] if cache is not None else None,
+                           cache_len)
+        return apply_norm(cfg.norm_kind, p["final_ln"], x, cfg.norm_eps)
+
+    def prefill_fn(p, batch):
+        B, S = batch["tokens"].shape
+        x = _embed(cfg, p, batch["tokens"], sh)
+        x = fwd(p, x, _positions(B, S, x.device))
+        logits = _logits(cfg, p, x[:, -1:], sh)
+        return logits, {"len": _len(S, x.device)}
+
+    def decode_fn(p, cache, batch):
+        B = batch["token"].shape[0]
+        pos = cache["len"]
+        x = _embed(cfg, p, batch["token"], sh)
+        positions = pos.reshape(1, 1).expand(B, 1)
+        x = fwd(p, x, positions, cache=cache, cache_len=pos)
+        logits = _logits(cfg, p, x, sh)
+        return logits, {**cache, "len": pos + 1}
+
+    def cache_defs(batch, cache_len, long=False):
+        tri = {}
+        for i, kind in enumerate(pat):
+            if kind == "rec":
+                tri[f"sub{i}"] = G.rec_cache_defs(cfg, batch)
+            else:
+                W = min(cfg.window, cache_len)
+                tri[f"sub{i}"] = T.attn_cache_defs(cfg, batch, W)
+        out = {"tri": stack_specs(tri, n_tri), "len": _len_def()}
+        for t in range(n_tail):
+            out[f"tail{t}"] = G.rec_cache_defs(cfg, batch)
+        return out
+
+    return ModelBundle(cfg, defs, _no_training, prefill_fn, decode_fn,
+                       cache_defs, functools.partial(_base_batch_defs, cfg))
+
+
+# ---------------------------------------------------------------------------
+# family: whisper (enc-dec; frame embeddings provided by the stub frontend)
+# ---------------------------------------------------------------------------
+
+WHISPER_MAX_DEC = 32768
+
+
+def _whisper(cfg: ModelConfig, rules=None, mesh=None) -> ModelBundle:
+    sh = Sharder(mesh, rules)
+    enc_layer = {"attn": T.attn_defs(cfg), "mlp": T.mlp_defs(cfg)}
+    dec_layer = {"self": T.attn_defs(cfg), "cross": T.attn_defs(cfg),
+                 "mlp": T.mlp_defs(cfg)}
+    defs = {**_embed_defs(cfg),
+            "enc_pos": ParamSpec((cfg.encoder_seq, cfg.d_model),
+                                 (None, "embed"), init="small"),
+            "dec_pos": ParamSpec((WHISPER_MAX_DEC, cfg.d_model),
+                                 (None, "embed"), init="small"),
+            "enc_ln": norm_defs(cfg.norm_kind, cfg.d_model),
+            "enc": [enc_layer for _ in range(cfg.encoder_layers)],
+            "dec": [dec_layer for _ in range(cfg.num_layers)]}
+
+    def encode(p, frames):
+        """frames [B,Senc,d] -> the encoder output [B,Senc,d]: learned
+        positions, bidirectional self attention and the MLP a layer."""
+        x = frames.to(cfg.compute_dtype)
+        x = x + p["enc_pos"].to(x.dtype)[None, :x.shape[1]]
+        pos = _positions(x.shape[0], x.shape[1], x.device)
+        for lp in p["enc"]:
+            x, _ = T.attn_apply(cfg, lp["attn"], x, sh, positions=pos,
+                                layer_kind="bidir")
+            x = T.mlp_apply(cfg, lp["mlp"], x, sh)
+        return apply_norm(cfg.norm_kind, p["enc_ln"], x, cfg.norm_eps)
+
+    def decode_stack(p, x, enc_out, positions, cache=None, cache_len=None):
+        """Causal self attention (decode: against ``cache``, written in
+        place), cross attention to ``enc_out``, then the MLP, a layer."""
+        for li, lp in enumerate(p["dec"]):
+            c = cache[li] if cache is not None else None
+            x, _ = T.attn_apply(cfg, lp["self"], x, sh, positions=positions,
+                                layer_kind="full", cache=c,
+                                cache_len=cache_len)
+            x, _ = T.attn_apply(cfg, lp["cross"], x, sh, positions=positions,
+                                layer_kind="cross", kv_override=enc_out)
+            x = T.mlp_apply(cfg, lp["mlp"], x, sh)
+        return apply_norm(cfg.norm_kind, p["final_ln"], x, cfg.norm_eps)
+
+    def prefill_fn(p, batch):
+        enc_out = encode(p, batch["frames"])
+        B, S = batch["tokens"].shape
+        x = _embed(cfg, p, batch["tokens"], sh)
+        x = x + p["dec_pos"].to(x.dtype)[None, :S]
+        x = decode_stack(p, x, enc_out, _positions(B, S, x.device))
+        logits = _logits(cfg, p, x[:, -1:], sh)
+        return logits, {"len": _len(S, x.device)}
+
+    def decode_fn(p, cache, batch):
+        """One token at ``cache["len"]``. The frames are encoded again at
+        every step, as the reference does (the encoder output is not
+        cached)."""
+        B = batch["token"].shape[0]
+        pos = cache["len"]
+        enc_out = encode(p, batch["frames"])
+        x = _embed(cfg, p, batch["token"], sh)
+        x = x + p["dec_pos"].index_select(
+            0, pos.reshape(1).long()).to(x.dtype)[None]
+        positions = pos.reshape(1, 1).expand(B, 1)
+        x = decode_stack(p, x, enc_out, positions, cache=cache["dec"],
+                         cache_len=pos)
+        logits = _logits(cfg, p, x, sh)
+        return logits, {"dec": cache["dec"], "len": pos + 1}
+
+    def cache_defs(batch, cache_len, long=False):
+        one = T.attn_cache_defs(cfg, batch, cache_len)
+        return {"dec": [one for _ in range(cfg.num_layers)],
+                "len": _len_def()}
+
+    def batch_defs(shape: ShapeConfig):
+        b = _base_batch_defs(cfg, shape)
+        b["frames"] = ParamSpec(
+            (shape.global_batch, cfg.encoder_seq, cfg.d_model),
+            ("batch", "seq", "act_embed"), "zeros", cfg.compute_dtype)
+        return b
+
+    return ModelBundle(cfg, defs, _no_training, prefill_fn, decode_fn,
+                       cache_defs, batch_defs, encode)
 
 
 # ---------------------------------------------------------------------------
@@ -315,21 +564,16 @@ def _apply_param_dtype(defs, dtype):
             _apply_param_dtype(v, dtype)
 
 
-_FAMILIES = {"ssm": _mamba, "dense": _decoder_lm, "vlm": _decoder_lm}
-# ROADMAP items of the families the port does not have yet; of the moe
-# family only deepseek-v2 (MLA attention) is ported, llama4 waits
-_NOT_PORTED = {"moe": "A7b", "hybrid": "A8", "audio": "A8"}
+# the builder of each family; the rest are homogeneous decoder LMs, as in
+# the reference
+_FAMILIES = {"ssm": _mamba, "hybrid": _griffin, "audio": _whisper}
 
 
 def build_model(cfg: ModelConfig, mesh=None, rules=None) -> ModelBundle:
-    if cfg.family == "moe" and cfg.attn_kind == "mla":
-        family = _deepseek
-    elif cfg.family in _FAMILIES:
-        family = _FAMILIES[cfg.family]
+    if cfg.family == "moe":
+        family = _deepseek if cfg.attn_kind == "mla" else _llama4
     else:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet (ROADMAP "
-            f"{_NOT_PORTED.get(cfg.family, 'Queue A')})")
+        family = _FAMILIES.get(cfg.family, _decoder_lm)
     b = family(cfg, rules, mesh)
     if cfg.param_dtype != torch.float32:
         _apply_param_dtype(b.param_defs, cfg.param_dtype)
@@ -358,16 +602,17 @@ def cast_params(cfg: ModelConfig, params):
 
 
 def cast_params_(cfg: ModelConfig, params):
-    """``cast_params`` in place, leaf by leaf: each leaf of the dict tree
-    ``params`` is replaced by its cast before the next one is cast, so the
-    old leaf is freed at once where the caller holds no other reference to
-    it. A tree drawn in f32 on the card then never needs more than its f32
-    size plus its largest leaf in the compute dtype, where ``cast_params``
-    holds both trees whole. -> ``params``."""
+    """``cast_params`` in place, leaf by leaf: each leaf of the tree
+    ``params`` (dicts and lists) is replaced by its cast before the next
+    one is cast, so the old leaf is freed at once where the caller holds no
+    other reference to it. A tree drawn in f32 on the card then never
+    needs more than its f32 size plus its largest leaf in the compute
+    dtype, where ``cast_params`` holds both trees whole. -> ``params``."""
     keep = _F32_AT_USE + (_LN_F32_AT_USE if cfg.norm_kind == "ln" else ())
-    for k in list(params):
+    keys = range(len(params)) if isinstance(params, list) else list(params)
+    for k in keys:
         v = params[k]
-        if isinstance(v, dict):
+        if isinstance(v, (dict, list)):
             cast_params_(cfg, v)
         elif k not in keep and v.is_floating_point():
             params[k] = v.to(cfg.compute_dtype)

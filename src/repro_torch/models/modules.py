@@ -62,6 +62,10 @@ def tree_map(fn: Callable, tree: PyTree, is_leaf: Callable = is_spec):
     return None if tree is None else fn(tree)
 
 
+# f32 values drawn at once for a leaf stored in another dtype (1 GiB)
+_DRAW_VALUES = 1 << 28
+
+
 def _init_one(spec: ParamSpec, generator: torch.Generator | None,
               device) -> torch.Tensor:
     if spec.init == "zeros":
@@ -76,9 +80,23 @@ def _init_one(spec: ParamSpec, generator: torch.Generator | None,
         # scaled in place: a large f32 leaf (deepseek-v2-lite's stacked
         # expert weights, 26 x 64 x 2048 x 1408 values each) is never
         # held twice
-        return torch.randn(spec.shape, generator=generator,
-                           dtype=torch.float32, device=device
-                           ).mul_(scale).to(spec.dtype)
+        if spec.dtype == torch.float32:
+            return torch.randn(spec.shape, generator=generator,
+                               dtype=torch.float32, device=device
+                               ).mul_(scale)
+        # a leaf stored in another dtype is drawn in f32 slices along its
+        # leading axes, at most _DRAW_VALUES values at a time, and cast
+        # into place: llama4's stacked experts (128 x 5120 x 8192 bf16
+        # values a leaf) would need a 21 GB f32 temporary drawn whole
+        out = torch.empty(spec.shape, dtype=spec.dtype, device=device)
+        rows = out.view(-1, spec.shape[-1])
+        step = max(1, _DRAW_VALUES // rows.shape[1])
+        for i in range(0, rows.shape[0], step):
+            part = rows[i:i + step]
+            part.copy_(torch.randn(part.shape, generator=generator,
+                                   dtype=torch.float32, device=device
+                                   ).mul_(scale))
+        return out
 
     if spec.init == "embed":
         return normal(spec.init_scale if spec.init_scale is not None else 1.0)

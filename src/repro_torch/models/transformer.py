@@ -13,16 +13,19 @@ Attention layer kinds:
   chunked       llama4-style chunked-local (aligned chunks of
                 cfg.chunked_local)
   bidir         encoder self attention
-  cross         whisper's cross attention: not ported yet (ROADMAP A8)
+  cross         whisper's encoder-decoder cross attention (no mask, no
+                rope; k/v from the encoder output)
 
 The full-sequence attention of every kind runs the hand-written Hopper
 kernel (``kernels/flash_gqa/ops.flash_gqa``) on a CUDA device where the
 kernel takes the shapes, and the reference's plain algorithm
-(``attention.attention``) elsewhere: on the CPU, and on CUDA for head dim
-pairs the kernel does not take (``flash_gqa.takes``), which
-``flash_gqa.routed`` counts. MLA's prefill attends through the same path
-(q/k 192, v 128 at deepseek-v2-lite's width); its decode attends over the
-compressed cache with the absorbed projections, in plain PyTorch.
+(``attention.attention``) elsewhere: on the CPU, and on CUDA for shapes
+the kernel does not take (``flash_gqa.takes``), which ``flash_gqa.routed``
+counts. Cross attention goes the same way with Sq != Skv and no mask, at
+the prefill and at every decode step. MLA's prefill attends through the
+same path (q/k 192, v 128 at deepseek-v2-lite's width); its decode attends
+over the compressed cache with the absorbed projections, in plain
+PyTorch.
 """
 from __future__ import annotations
 
@@ -144,13 +147,14 @@ def _qkv(cfg, p, x, sh, positions, mrope_positions=None):
 
 
 def _attend(cfg, q, k, v, *, causal: bool, window: int):
-    """Full-sequence attention of q [B,S,Hq,hd] against k/v at kv-head
-    layout [B,S,Hkv,hd]: the flash_gqa kernel on CUDA where it takes the
-    shapes (k and v read through ``_kv_map``, never repeated), else the
-    reference's algorithm; a CUDA call sent there is counted in
-    ``FK.routed``."""
+    """Full-sequence attention of q [B,Sq,Hq,hd] against k/v at kv-head
+    layout [B,Skv,Hkv,hd] (Skv differs from Sq only with no mask): the
+    flash_gqa kernel on CUDA where it takes the shapes (k and v read
+    through ``_kv_map``, never repeated), else the reference's algorithm;
+    a CUDA call sent there is counted in ``FK.routed``."""
     if q.device.type == "cuda":
-        if FK.takes(q.shape, k.shape, v.shape):
+        if FK.takes(q.shape, k.shape, v.shape, causal=causal,
+                    window=window):
             return flash_ops.flash_gqa(q, k, v, causal=causal,
                                        window=window, kv_head=_kv_map(cfg))
         FK.count_routed()
@@ -161,7 +165,7 @@ def _attend(cfg, q, k, v, *, causal: bool, window: int):
 
 def attn_apply(cfg, p, x, sh, *, positions, layer_kind: str = "full",
                cache: dict | None = None, cache_len=None,
-               mrope_positions=None):
+               mrope_positions=None, kv_override=None):
     """Returns (out, kv). Full-sequence mode when ``cache`` is None: kv is
     this layer's {"k", "v"} [B,S,Hkv,hd] before any head repeat, in the
     compute dtype. Decode mode (one token at ``cache_len``, an int32
@@ -169,13 +173,23 @@ def attn_apply(cfg, p, x, sh, *, positions, layer_kind: str = "full",
     and returns that same cache: unlike the reference, which returns a new
     one, the caller's cache is updated. A slot outside the cache raises
     (``index_copy_`` bounds-checks; on CUDA as a device-side assert) where
-    the reference would clamp it."""
+    the reference would clamp it. ``layer_kind="cross"`` attends the
+    queries of x, at any length, to k/v projected from ``kv_override``
+    (the encoder output [B,Senc,d]) with no mask and no rope, and returns
+    ``cache`` as it was given."""
     B, S, d = x.shape
     h = apply_norm(cfg.norm_kind, p["ln"], x, cfg.norm_eps)
 
     if layer_kind == "cross":
-        raise NotImplementedError("cross attention (whisper) is not ported "
-                                  "yet (ROADMAP A8)")
+        hd = cfg.resolved_head_dim
+        Hq, Hkv = _heads(cfg)
+        enc = kv_override
+        q = (h @ p["wq"].to(h.dtype)).reshape(B, S, Hq, hd)
+        k = (enc @ p["wk"].to(h.dtype)).reshape(B, enc.shape[1], Hkv, hd)
+        v = (enc @ p["wv"].to(h.dtype)).reshape(B, enc.shape[1], Hkv, hd)
+        o = _attend(cfg, q, k, v, causal=False, window=0)
+        out = o.reshape(B, S, -1) @ p["wo"].to(h.dtype)
+        return x + sh(out, "batch", "seq", "act_embed"), cache
 
     if cache is None:
         q, k, v = _qkv(cfg, p, h, sh, positions, mrope_positions)

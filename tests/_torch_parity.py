@@ -87,5 +87,5 @@ def spec_rows_port(defs, path=()):
     if isinstance(defs, ParamSpec):
         return [(path, defs.shape, str(defs.dtype).removeprefix("torch."),
                  defs.init, defs.init_scale, defs.logical_axes)]
-    return [r for k in sorted(defs) for r in
-            spec_rows_port(defs[k], path + (k,))]
+    keys = range(len(defs)) if isinstance(defs, list) else sorted(defs)
+    return [r for k in keys for r in spec_rows_port(defs[k], path + (k,))]

@@ -383,7 +383,7 @@ def test_flash_gqa_kernel_refuses_what_it_does_not_take(card):
     before = FK.launches
     with pytest.raises(ValueError, match="Sq == Skv"):
         FK.flash_gqa(q[:, :32].contiguous(), k, v)
-    big = _flash_inputs(1, 64, 2, 2, 256, 1, card, torch.float32)
+    big = _flash_inputs(1, 64, 2, 2, 320, 1, card, torch.float32)
     with pytest.raises(ValueError, match="head dims"):
         FK.flash_gqa(*big)
     with pytest.raises(ValueError, match="CUDA"):
@@ -490,13 +490,13 @@ def test_kernels_run_on_the_tensor_cores(card, kernel, functions):
 
 
 # ------------------------------------------------ routing by shape (C1)
-def _dense_prefill(cfg, dev, params, tokens):
+def _dense_prefill(cfg, dev, params, tokens, frames=None):
     from repro_torch.launch import serve
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models.model import build_model
     bundle = build_model(cfg)
     logits, _ = make_prefill_step(bundle)(
-        params, serve.prefill_batch(bundle, tokens.to(dev)))
+        params, serve.prefill_batch(bundle, tokens.to(dev), frames))
     return logits.float().cpu()
 
 
@@ -510,7 +510,7 @@ def test_dense_layers_the_kernel_does_not_take_match_the_cpu(card):
     from repro_torch.models.modules import tree_map
     cfg = smoke_config("glm4-9b").replace(head_dim=24,
                                           compute_dtype=torch.float32)
-    params, tokens = serve.random_request(cfg, 2, 64, 0, card)
+    params, tokens, _ = serve.random_request(cfg, 2, 64, 0, card)
     launches, routed = FK.launches, FK.routed
     got = _dense_prefill(cfg, card, params, tokens)
     assert FK.launches == launches
@@ -810,7 +810,7 @@ def test_deepseek_prefill_on_the_card_matches_the_cpu(card, mla_dims):
     from repro_torch.launch import serve
     from repro_torch.models.modules import tree_map
     cfg = _deepseek_cfg(mla_dims)
-    params, tokens = serve.random_request(cfg, 2, 64, 0, card)
+    params, tokens, _ = serve.random_request(cfg, 2, 64, 0, card)
     launches = FK.launches, FK.routed, K.launches
     got = _dense_prefill(cfg, card, params, tokens)
     n_moe = cfg.num_layers - cfg.moe.first_dense
@@ -819,4 +819,102 @@ def test_deepseek_prefill_on_the_card_matches_the_cpu(card, mla_dims):
     assert K.launches == launches[2] + n_moe
     want = _dense_prefill(cfg, "cpu", tree_map(lambda t: t.cpu(), params),
                           tokens.cpu())
+    assert torch.allclose(got, want, rtol=1e-3, atol=1e-3)
+
+
+# ------------------------- head dim 256, cross attention (griffin, whisper)
+# recurrentgemma-9b's (256, 256): 16 q heads over 1 kv head, causal, with
+# its window of 2048 at S = 4096 and a window narrower than a tile, ragged
+# S around a tile and one row; whisper's cross attention (Sq != Skv, no
+# mask, 6 heads of 64) at the prefill (64 queries) and decode (1 query)
+# against 1500 frames, and its encoder (S = 1500, no mask)
+FLASH_256_CASES = [
+    # B, Sq, Skv, H, Hkv, D, causal, window
+    (4, 512, 512, 16, 1, 256, True, 0),
+    (1, 4096, 4096, 16, 1, 256, True, 2048),
+    (1, 1, 1, 2, 1, 256, True, 0),
+    (1, 65, 65, 4, 1, 256, True, 0),
+    (2, 130, 130, 4, 2, 256, False, 24),
+    (1, 200, 200, 16, 1, 256, False, 0),
+]
+FLASH_CROSS_CASES = [
+    (4, 64, 1500, 6, 6, 64, False, 0),
+    (4, 1, 1500, 6, 6, 64, False, 0),
+    (4, 1500, 1500, 6, 6, 64, False, 0),
+    (2, 100, 33, 4, 2, 128, False, 0),
+    (2, 130, 64, 4, 1, 256, False, 0),
+    (1, 7, 200, 16, 4, 16, False, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,D,causal,window",
+                         FLASH_256_CASES + FLASH_CROSS_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_gqa_head_dim_256_and_cross_attention(card, B, Sq, Skv, H, Hkv,
+                                                    D, causal, window,
+                                                    dtype):
+    """Both bodies at head dim 256 (two 128-column halves of the output a
+    (b, h, tile), S recomputed for each) and with Sq != Skv and no mask:
+    2e-5 in f32, 2e-2 in bf16 against attention_ref over k/v gathered by
+    the map; rows past Sq are never written and keys past Skv count for
+    nothing."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(Sq + Skv + D)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(card).to(dt) for shape in
+        ((B, Sq, H, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D)))
+    before = FK.launches
+    o = FK.flash_gqa(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert FK.launches == before + 1
+    assert o.dtype == dt and o.shape == (B, Sq, H, D)
+    m = torch.tensor([h // (H // Hkv) for h in range(H)], device=card)
+    want = attention_ref(q, k.index_select(2, m), v.index_select(2, m),
+                         causal=causal, window=window)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(o.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_gqa_refuses_a_query_offset(card):
+    """Sq != Skv in a causal or windowed call would need a query offset,
+    which the kernel does not have: refused before any launch."""
+    q, k, v = _flash_inputs(1, 64, 4, 2, 64, 1, card, torch.float32)
+    before = FK.launches
+    for kw in ({"causal": True}, {"causal": False, "window": 16}):
+        with pytest.raises(ValueError, match="Sq == Skv"):
+            FK.flash_gqa(q[:, :32].contiguous(), k, v, **kw)
+    assert FK.launches == before
+
+
+# the three families this slice serves, at their smoke configs in f32:
+# the prompt is longer than griffin's window (8) and than llama4's chunk
+# (8); the kernels each prefill must launch
+FAMILY_LAUNCHES = {
+    # arch: (flash_gqa, partition_pack) a prefill
+    "recurrentgemma-9b": (1, 0),           # one (rec, rec, attn) triple
+    "whisper-tiny": (6, 0),                # 2 encoder, 2 self, 2 cross
+    "llama4-maverick-400b-a17b": (4, 2),   # 4 sub-layers, 2 of them MoE
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", sorted(FAMILY_LAUNCHES))
+def test_new_family_prefill_on_the_card_matches_the_cpu(card, arch):
+    """Each new family's smoke model prefills on the card with every
+    attention call on flash_gqa (none routed) and llama4's MoE dispatch on
+    partition_pack, and equals the CPU's prefill in f32."""
+    from repro_torch.configs.smoke import smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models.modules import tree_map
+    cfg = smoke_config(arch).replace(compute_dtype=torch.float32)
+    params, tokens, frames = serve.random_request(cfg, 2, 64, 0, card)
+    before = FK.launches, FK.routed, K.launches
+    got = _dense_prefill(cfg, card, params, tokens, frames)
+    flash, pack = FAMILY_LAUNCHES[arch]
+    assert (FK.launches - before[0], FK.routed - before[1],
+            K.launches - before[2]) == (flash, 0, pack)
+    want = _dense_prefill(cfg, "cpu", tree_map(lambda t: t.cpu(), params),
+                          tokens.cpu(), frames)
     assert torch.allclose(got, want, rtol=1e-3, atol=1e-3)

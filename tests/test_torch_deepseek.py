@@ -294,6 +294,16 @@ def test_serve_cli_serves_deepseek_on_cpu(capsys):
     assert serve.CELLS[ARCH] == serve.ServeCell(ARCH)
 
 
-def test_llama4_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A7b"):
-        build_model(smoke_config("llama4-maverick-400b-a17b"))
+def test_llama4_builds_and_serves_on_cpu():
+    """The moe family without MLA (llama4) takes its own builder, with
+    super-blocks of 4 sub-layers in place of deepseek's layer 0 and MoE
+    stack, and serves on the CPU (tests/test_torch_llama4.py holds it
+    against the reference)."""
+    cfg = smoke_config("llama4-maverick-400b-a17b")
+    bundle = build_model(cfg)
+    assert set(bundle.param_defs) >= {"blocks"} and \
+        "layer0" not in bundle.param_defs
+    params, tokens, _ = serve.random_request(cfg, 2, 8, 0, "cpu")
+    out = serve.generate(cfg, params, tokens, 2, "cpu")
+    assert tuple(out.tokens.shape) == (2, 2)
+    assert bool(torch.isfinite(out.prefill_logits).all())

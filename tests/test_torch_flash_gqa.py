@@ -145,8 +145,8 @@ def test_oracle_aligns_queries_to_the_end(Sq, Skv, causal, window):
     """Sq < Skv: ``attention_ref`` puts query i at kv position i + Skv - Sq
     (ref.py:20-22). The reference's Pallas kernel has no query offset
     (flash_gqa.py:46-47), and neither has the port's CUDA kernel, which
-    refuses Sq != Skv; so these cases hold the port's oracle against the
-    reference's oracle only."""
+    refuses Sq != Skv in a causal or windowed call; so these cases hold
+    the port's oracle against the reference's oracle only."""
     q, k, v = _inputs(2, Sq, Skv, 4, 4, 32, Sq)
     (qj, kj, vj), (qt, kt, vt) = _pair((q, k, v), jnp.float32,
                                        torch.float32)
@@ -161,7 +161,7 @@ def test_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="Sq == Skv"):
         ops.flash_gqa(q[:, :32], k, v)
     with pytest.raises(ValueError, match="head dims"):
-        ops.flash_gqa(*(torch.zeros(1, 8, 2, 256) for _ in range(3)))
+        ops.flash_gqa(*(torch.zeros(1, 8, 2, 320) for _ in range(3)))
     with pytest.raises(ValueError, match="head dims"):
         ops.flash_gqa(*(torch.zeros(1, 8, 2, 48) for _ in range(3)))
     with pytest.raises(ValueError, match="float32 or bfloat16"):
@@ -176,14 +176,14 @@ def test_refuses_what_the_kernel_does_not_take():
 
 @pytest.mark.parametrize("D,Dv,takes", [
     (16, 16, True), (64, 64, True), (128, 128, True), (192, 128, True),
-    (24, 24, False), (256, 256, False), (24, 16, False), (64, 32, False),
-    (192, 192, False), (128, 192, False)])
+    (256, 256, True), (24, 24, False), (320, 320, False), (24, 16, False),
+    (64, 32, False), (192, 192, False), (128, 192, False)])
 def test_kernel_takes_by_shape(D, Dv, takes):
     """``takes``, which the model's attention asks before it sends a CUDA
     call to the kernel, says yes exactly where ``check_args`` does: head
-    dims 16-128 with v's head dim equal to k's, and MLA's q/k 192 with v
-    128. Head dim 24 and the other v/k pairs go to the plain path and are
-    counted there."""
+    dims 16-128 and recurrentgemma's 256 with v's head dim equal to k's,
+    and MLA's q/k 192 with v 128. Head dim 24 and the other v/k pairs go
+    to the plain path and are counted there."""
     q, k, v = (torch.zeros(1, 8, 4, D), torch.zeros(1, 8, 2, D),
                torch.zeros(1, 8, 2, Dv))
     assert K.takes(q.shape, k.shape, v.shape) is takes
@@ -343,3 +343,125 @@ def test_bf16_mma_plan_meets_card_tolerance_for_mla(B, S, H, D, Dv):
     assert got.shape == (B, S, H, Dv)
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
                                atol=2e-2)
+
+
+# whisper's cross attention (the decoder's queries against the encoder's
+# frames, no mask) and recurrentgemma-9b's head dim 256 (16 heads over 1,
+# causal, window 2048)
+@pytest.mark.parametrize("Sq,Skv,causal,window,takes", [
+    (64, 1500, False, 0, True), (1, 1500, False, 0, True),
+    (1500, 64, False, 0, True), (64, 128, True, 0, False),
+    (64, 128, False, 16, False), (64, 128, True, 16, False),
+    (128, 128, True, 0, True), (128, 128, False, 16, True)])
+def test_kernel_takes_sq_unlike_skv_only_with_no_mask(Sq, Skv, causal,
+                                                      window, takes):
+    """A call with Sq != Skv has no query offset in the kernel, so it takes
+    one only with no mask (cross attention); ``takes`` and ``check_args``
+    agree, and ``check_args`` names Sq == Skv when it refuses."""
+    q, k, v = (torch.zeros(2, Sq, 6, 64), torch.zeros(2, Skv, 6, 64),
+               torch.zeros(2, Skv, 6, 64))
+    assert K.takes(q.shape, k.shape, v.shape, causal=causal,
+                   window=window) is takes
+    if takes:
+        K.check_args(q, k, v, window, causal=causal)
+    else:
+        with pytest.raises(ValueError, match="Sq == Skv"):
+            K.check_args(q, k, v, window, causal=causal)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv", [
+    (2, 64, 256, 6, 6), (2, 1, 128, 6, 6), (1, 100, 384, 4, 2)])
+def test_cross_attention_matches_pallas_kernel(B, Sq, Skv, H, Hkv, dtype):
+    """No mask, Sq != Skv, at shapes the reference's Pallas wrapper takes
+    (Skv a multiple of its 128-row block, ops.py:42): the port's CPU path
+    against the Pallas kernel in interpret mode and the materialized
+    oracle."""
+    jdt, tdt, tol = DTYPES[dtype]
+    (qj, kj, vj), (qt, kt, vt) = _pair(
+        _inputs(B, Sq, Skv, H, Hkv, 64, Sq + Skv), jdt, tdt)
+    got = ops.flash_gqa(qt, kt, vt, causal=False)
+    assert got.dtype == tdt and tuple(got.shape) == (B, Sq, H, 64)
+    rep = H // Hkv
+    pallas = jax_flash(qj, kj, vj, causal=False, use_pallas=True,
+                       interpret=True)
+    oracle = jax_ref(qj, jnp.repeat(kj, rep, 2), jnp.repeat(vj, rep, 2),
+                     causal=False)
+    _close(got, pallas, tol)
+    _close(got, oracle, tol)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("B,Sq,Skv", [(2, 64, 1500), (2, 1, 1500),
+                                      (1, 1500, 1500)],
+                         ids=["cross-prefill", "cross-decode", "encoder"])
+def test_whisper_shapes_match_reference_oracle(B, Sq, Skv, dtype):
+    """whisper-tiny's shapes (6 heads of 64; 1500 frames, no multiple of
+    the Pallas wrapper's block, whose padding it refuses without a mask):
+    the port's CPU path against the reference's materialized oracle."""
+    jdt, tdt, tol = DTYPES[dtype]
+    (qj, kj, vj), (qt, kt, vt) = _pair(_inputs(B, Sq, Skv, 6, 6, 64, Sq),
+                                       jdt, tdt)
+    _close(ops.flash_gqa(qt, kt, vt, causal=False),
+           jax_ref(qj, kj, vj, causal=False), tol)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("B,S,window", [(1, 256, 0), (1, 384, 128),
+                                        (1, 200, 0)],
+                         ids=["causal", "window", "ragged"])
+def test_head_dim_256_matches_pallas_kernel(B, S, window, dtype):
+    """recurrentgemma-9b's head dim 256 (16 query heads over 1 kv head),
+    causal and windowed: the port's CPU path against the Pallas kernel in
+    interpret mode (its wrapper takes D = 256, two lane tiles, unpadded)
+    and the materialized oracle."""
+    jdt, tdt, tol = DTYPES[dtype]
+    (qj, kj, vj), (qt, kt, vt) = _pair(_inputs(B, S, S, 16, 1, 256, S),
+                                       jdt, tdt)
+    got = ops.flash_gqa(qt, kt, vt, causal=True, window=window)
+    assert tuple(got.shape) == (B, S, 16, 256)
+    pallas = jax_flash(qj, kj, vj, causal=True, window=window,
+                       use_pallas=True, interpret=True)
+    oracle = jax_ref(qj, jnp.repeat(kj, 16, 2), jnp.repeat(vj, 16, 2),
+                     causal=True, window=window)
+    _close(got, pallas, tol)
+    _close(got, oracle, tol)
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,D,causal,window,Sq", [
+    (4, 512, 16, 1, 256, True, 0, None),        # recurrentgemma's prefill
+    (1, 300, 16, 1, 256, True, 128, None),
+    (4, 1500, 6, 6, 64, False, 0, 64),          # whisper's cross attention
+    (4, 1500, 6, 6, 64, False, 0, 1),
+])
+def test_bf16_mma_plan_meets_card_tolerance_at_new_shapes(B, S, H, Hkv, D,
+                                                           causal, window,
+                                                           Sq):
+    """The bf16 body's precision plan at head dim 256 (whose output the
+    kernel computes in two 128-column halves from one S) and at whisper's
+    cross attention (Sq queries against S = Skv keys, no mask), within the
+    card's bf16 tolerance (2e-2) of attention_ref."""
+    q, k, v = (torch.from_numpy(a).bfloat16()
+               for a in _inputs(B, Sq or S, S, H, Hkv, D, S + H))
+    kv_head = tuple(h // (H // Hkv) for h in range(H))
+    got = _mma_plan_sq(q, k, v, causal=causal, window=window,
+                       kv_head=kv_head)
+    m = torch.tensor(kv_head)
+    want = attention_ref(q, k.index_select(2, m), v.index_select(2, m),
+                         causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+def _mma_plan_sq(q, k, v, *, causal, window, kv_head):
+    """``_mma_plan`` with Sq != Skv for a call with no mask: the queries'
+    rows pad to Skv's length with zeros, which attend to every key and are
+    dropped, as the kernel's rows past Sq are never stored."""
+    Sq, Skv = q.shape[1], k.shape[1]
+    if Sq == Skv:
+        return _mma_plan(q, k, v, causal=causal, window=window,
+                         kv_head=kv_head)
+    assert not causal and not window
+    qp = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, Skv - Sq))
+    return _mma_plan(qp, k, v, causal=False, window=0,
+                     kv_head=kv_head)[:, :Sq]
