@@ -78,11 +78,13 @@ Phases, each printing its own lines and seconds:
      16 heads), recurrentgemma-9b's head dim 256 (16 q heads over 1, B=4,
      S=512, causal; and B=1, S=4096, window 2048) and whisper-tiny's
      shapes (6 heads of 64, no mask: cross attention of 64 and of 1 query
-     against 1500 frames, the encoder's 1500 x 1500), within 2e-5 in f32
-     and 2e-2 in bf16, with kernel, plain, library
-     (scaled_dot_product_attention with enable_gqa, a window as an
-     explicit mask, timed as a yardstick only, and the kernels it ran,
-     which name its backend) and bound times at every main shape;
+     against 1500 frames, the encoder's 1500 x 1500) and smollm-135m's
+     train shape (B=4, S=512, 16 padded q heads over 4 kv heads of 64,
+     causal), within 2e-5 in f32 and 2e-2 in bf16, with kernel, plain,
+     library (scaled_dot_product_attention with enable_gqa, a window as
+     an explicit mask, k and v expanded beforehand under a padded head
+     map, timed as a yardstick only, and the kernels it ran, which name
+     its backend) and bound times at every main shape;
  10a. grad: a dense smoke layer's wq/wk/wv gradients through flash_gqa
      (one launch forward, none backward) against the CPU's, f32;
  11. dense serve phase, after the Mamba weights are released: the serve
@@ -132,6 +134,27 @@ Phases, each printing its own lines and seconds:
      range, the bf16 replay within 0.25 relative L2 of the bf16 prefill
      with no drops; its peak memory; then its smoke config card vs CPU,
      with the tokens routed to other experts counted.
+ 19. train parity: one train step's loss and gradients of smollm-135m at
+     full width and depth in f32 (2 x 256 tokens) on the card against the
+     CPU's, loss 1e-5 relative, every gradient leaf finite, nonzero and
+     within GRAD_TOL of its largest entry, flash_gqa launched as
+     ``train_launches`` (launch/steps.py) works out, 0 routed.
+ 20. train phases, after the serve weights are released: mamba2-2.7b at
+     full width and depth (64 layers, 2.70 B parameters), smollm-135m (30
+     layers, 9 q heads over 3 kv heads of 64, tied embeddings) and
+     deepseek-v2-lite-16b at full width and 3 layers (MLA at (192, 128),
+     2 MoE layers), each in f32 parameters with bf16 compute and AdamW at
+     lr 1e-3 (launch/steps.make_train_step, remat "full"), 4 steps on one
+     batch of 4 x 512 tokens drawn from the seed: the loss finite at every
+     step and lower at the 4th than at the 1st, the first step's gradient
+     (AdamW's first moment) finite and nonzero in every leaf, every
+     parameter leaf moved, each kernel launched exactly as
+     ``train_launches`` works out
+     (twice a layer body that remat recomputes, once outside one; the
+     backward recomputes the plain versions and launches nothing), 0
+     routed calls; ms a step (host clock, synchronized; steps 2 and 3),
+     tokens/s, peak memory, and the 4th step's device time by
+     torch.profiler (busy, idle share, each kernel's ms).
 Each path runs with every launch count set to 0 just before it and read
 just after; each phase prints its seconds and its peak device memory. It
 then prints the kernels line and, last, the device line. Any failure exits
@@ -170,17 +193,21 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.bench_pack import (  # noqa: E402
     host_syncs, is_kernel, is_pp, pack_bytes, profile_record, time_cold_ms,
     time_ms)
-from repro_torch.launch.steps import make_prefill_step  # noqa: E402
+from repro_torch.launch import profile_query as PQ  # noqa: E402
+from repro_torch.launch.profile_serve import KERNELS  # noqa: E402
+from repro_torch.launch.steps import (  # noqa: E402
+    grads_of, init_train_state, make_prefill_step, make_train_step,
+    prefill_launches, train_launches)
 from repro_torch.models import griffin as GR  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
-from repro_torch.models.model import (  # noqa: E402
-    _llama4_subkinds, build_model, cast_params_)
+from repro_torch.models.model import build_model, cast_params_  # noqa
 from repro_torch.models.modules import (  # noqa: E402
     Sharder, init_params, tree_leaves, tree_map)
 from repro_torch import planner as PL  # noqa: E402
 from repro_torch import workload as WL  # noqa: E402
 from repro_torch.obs.trace import from_chrome  # noqa: E402
+from repro_torch.runtime.optimizer import make_optimizer  # noqa: E402
 from repro_torch.relational import ops as OPS  # noqa: E402
 from repro_torch.relational.table import DictColumn, decode_object  # noqa
 
@@ -246,13 +273,15 @@ MLA_DV = 128
 # head of 256, causal; its window of 2048 does not bind at 512 tokens),
 # the same heads at 4096 tokens where the window binds, and whisper-tiny's
 # cross attention (6 heads of 64, no mask: 64 prompt tokens at the
-# prefill, one at a decode step, against 1500 frames) and encoder
+# prefill, one at a decode step, against 1500 frames) and encoder; and the
+# train path's smollm-135m shape (its train phase's batch, padded heads)
 FLASH_NEW = {
     "head_dim_256": ((4, 512, 16, 1, 256, True, 0, None), None),
     "head_dim_256_window": ((1, 4096, 16, 1, 256, True, 2048, None), None),
     "cross_prefill": ((4, 1500, 6, 6, 64, False, 0, None), 64),
     "cross_decode": ((4, 1500, 6, 6, 64, False, 0, None), 1),
     "encoder": ((4, 1500, 6, 6, 64, False, 0, None), None),
+    "smollm_train": ((4, 512, 16, 4, 64, True, 0, SMOLLM_MAP), None),
 }
 # f32: sums in another order; bf16: each side rounds its f32 output once
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -292,6 +321,16 @@ SMALL_SF = 0.05
 FAILOVER_QUERIES = ("q12", "q3")      # the stages that aggregate floats
 PLANNER_GRID = [{"join": nt} for nt in (2, 8, 32)]
 GRAD_TOL = 1e-3                       # card vs CPU gradients, f32, of max
+TRAIN_LOSS_TOL = 1e-5                 # card vs CPU train loss, f32, relative
+# the train phases: (arch, layers; None = the published depth), each at
+# full width, f32 parameters, bf16 compute, AdamW at ElasticTrainer's lr,
+# TRAIN_STEPS steps on one batch of TRAIN_BATCH x TRAIN_SEQ tokens
+TRAIN_CELLS = (("mamba2-2.7b", None), (SMOLLM_ARCH, None),
+               (MOE_ARCH, MOE_PARITY_LAYERS))
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 4, 512, 4, 1e-3
+# a train step's gradients card vs CPU: smollm-135m at full width and depth
+# in f32, on a batch the CPU takes in seconds
+TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 2, 256
 
 
 class SmokeFailure(Exception):
@@ -327,43 +366,6 @@ def no_drops(cfg):
         return cfg
     return cfg.replace(moe=dataclasses.replace(
         cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
-
-
-def attention_layers(cfg) -> int:
-    """flash_gqa calls of one prefill of ``cfg``: one an attention layer
-    (llama4's chunked-local layers make one call over B·S/C chunks),
-    griffin's attention layers only (one of each (rec, rec, attn) triple),
-    and whisper's encoder, decoder self and cross attention layers."""
-    if cfg.family == "ssm":
-        return 0
-    if cfg.family == "hybrid":
-        pat = cfg.block_pattern
-        return cfg.num_layers // len(pat) * pat.count("attn")
-    if cfg.family == "audio":
-        return cfg.encoder_layers + 2 * cfg.num_layers
-    return cfg.num_layers
-
-
-def moe_layers(cfg) -> int:
-    """partition_pack calls of one prefill or decode step of ``cfg``: one
-    a MoE layer (deepseek-v2: every layer after ``first_dense``; llama4:
-    the MoE sub-layers of each super-block, every second one)."""
-    if cfg.family != "moe":
-        return 0
-    if cfg.attn_kind == "mla":
-        return cfg.num_layers - cfg.moe.first_dense
-    kinds = _llama4_subkinds(cfg)
-    return cfg.num_layers // len(kinds) * sum(m == "moe" for _, m in kinds)
-
-
-def prefill_launches(cfg) -> dict:
-    """The launches of each kernel that one prefill of ``cfg`` makes:
-    ssd_scan once a Mamba layer, flash_gqa once an attention layer
-    (``attention_layers``), partition_pack once a MoE layer (the
-    dispatch, ``moe_layers``)."""
-    return {"partition_pack": moe_layers(cfg),
-            "ssd_scan": cfg.num_layers if cfg.family == "ssm" else 0,
-            "flash_gqa": attention_layers(cfg)}
 
 
 def expected_launches(cfg, decode_steps: int) -> dict:
@@ -1461,6 +1463,11 @@ def flash_case(shape, dev, dtype, timed=False, dv=None, sq=None) -> dict:
     rec = {"case": label, "max_abs_err": err}
     if timed:
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if kv_head is not None:
+            # a head map other than h // (H / Hkv) is no GQA layout that
+            # the library takes: it reads k and v expanded to the H query
+            # heads beforehand, outside the timing
+            kt, vt = kt.index_select(1, m), vt.index_select(1, m)
         mask = None
         if window:
             i = torch.arange(S, device=dev)
@@ -1514,8 +1521,8 @@ def flash_phase(dev) -> tuple[dict, dict, dict, float]:
     """-> (the main shape's record in the serve path's bf16, MLA's prefill
     shape's in bf16, the records of this slice's shapes in bf16 by name
     (head dim 256 causal and windowed, whisper's cross attention at the
-    prefill and a decode step, its encoder), the largest error of any
-    case in either dtype)."""
+    prefill and a decode step, its encoder, smollm-135m's train shape),
+    the largest error of any case in either dtype)."""
     torch.backends.cuda.matmul.allow_tf32 = False     # the plain version in
     torch.backends.cudnn.allow_tf32 = False           # full f32
     err = 0.0
@@ -1542,6 +1549,167 @@ def flash_phase(dev) -> tuple[dict, dict, dict, float]:
         err = max(err, f32["max_abs_err"], new[name]["max_abs_err"])
     return main_rec, mla_rec, new, max(err, main_rec["max_abs_err"],
                                        mla_rec["max_abs_err"])
+
+
+# ------------------------------------------------------------------- train
+def train_batch(cfg, B: int, S: int, dev) -> dict:
+    """A language-model batch of B x S tokens drawn from the seed: the
+    targets are the tokens shifted by one."""
+    seq = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (B, S + 1)).astype(np.int32)).to(dev)
+    return {"tokens": seq[:, :-1].contiguous(),
+            "targets": seq[:, 1:].contiguous(),
+            "mask": torch.ones(B, S, dtype=torch.int32, device=dev)}
+
+
+def train_grad_parity(dev):
+    """One train step's loss and gradients of smollm-135m at full width
+    and depth (30 layers, f32 parameters and compute, remat as configured,
+    TRAIN_PARITY_BATCH x TRAIN_PARITY_SEQ tokens) on the card, through
+    flash_gqa, against the CPU's (the reference's attention algorithm):
+    the loss within TRAIN_LOSS_TOL relative, every gradient leaf finite,
+    nonzero on the CPU and within GRAD_TOL of its largest entry there, and
+    flash_gqa launched as ``train_launches`` works out, none routed."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(SMOLLM_ARCH).replace(param_dtype=torch.float32,
+                                          compute_dtype=torch.float32)
+    bundle = build_model(cfg)
+    params = init_params(bundle.param_defs,
+                         torch.Generator().manual_seed(SEED), "cpu")
+    batch = train_batch(cfg, TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ, "cpu")
+    t0 = time.perf_counter()
+    g_cpu, m_cpu = grads_of(bundle.loss_fn, params, batch)
+    cpu_s = time.perf_counter() - t0
+    move = lambda t: tree_map(lambda x: x.to(dev), t,  # noqa: E731
+                              is_leaf=torch.is_tensor)
+    before, routed = FK.launches, FK.routed
+    g_card, m_card = grads_of(bundle.loss_fn, move(params), move(batch))
+    torch.cuda.synchronize()
+    launched, routed = FK.launches - before, FK.routed - routed
+    want = train_launches(cfg)["flash_gqa"]
+    loss = float(m_card["loss"]), float(m_cpu["loss"])
+    errs, scale, finite = [], [], True
+    for a, b in zip(tree_leaves(g_card, torch.is_tensor),
+                    tree_leaves(g_cpu, torch.is_tensor), strict=True):
+        a = a.cpu()
+        finite &= bool(torch.isfinite(a).all())
+        errs.append(float((a - b).abs().max()))
+        scale.append(float(b.abs().max()))
+    rel = [e / m for e, m in zip(errs, scale) if m > 0]
+    print("[train parity] " + json.dumps({
+        "arch": SMOLLM_ARCH, "layers": cfg.num_layers,
+        "batch": TRAIN_PARITY_BATCH, "seq": TRAIN_PARITY_SEQ,
+        "remat": cfg.remat, "loss_card_cpu": loss, "leaves": len(errs),
+        "max_rel_grad_err": max(rel, default=None), "cpu_s": cpu_s,
+        "flash_gqa_launches": launched, "expected": want,
+        "routed": routed}), flush=True)
+    check(abs(loss[0] - loss[1]) <= TRAIN_LOSS_TOL * abs(loss[1]),
+          f"train loss on the card {loss[0]}, on the CPU {loss[1]}")
+    check(finite, "card train gradients not finite")
+    check(len(rel) == len(errs), f"{len(errs) - len(rel)} gradient leaves "
+          "are zero on the CPU")
+    check(all(e <= GRAD_TOL * m for e, m in zip(errs, scale)),
+          f"card train gradients differ from the CPU's: {max(rel)} of the "
+          "largest entry")
+    check(launched == want and routed == 0, f"train parity: {launched} "
+          f"flash_gqa launches, want {want}; {routed} routed")
+
+
+def train_phase(dev, arch: str, layers: int | None) -> dict:
+    """``TRAIN_STEPS`` train steps of ``arch`` at full width (``layers``
+    deep where given) on one batch drawn from the seed, through
+    launch/steps.make_train_step: f32 parameters and AdamW state, bf16
+    compute. Checks the loss finite at every step and lower at the last
+    step than at the first, the first step's gradient finite and nonzero
+    in every leaf, every parameter leaf moved, the launches
+    exactly ``train_launches`` a step and 0 routed calls. Prints ms a step
+    (host clock around a synchronized step; the mean of steps 2 and 3:
+    step 1 allocates, step 4 runs under the profiler), tokens/s, peak
+    memory and the profiled step's device time. -> the launches."""
+    cfg = get_config(arch).replace(param_dtype=torch.float32,
+                                   compute_dtype=torch.bfloat16)
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
+    bundle = build_model(cfg)
+    opt = make_optimizer("adamw", lr=TRAIN_LR)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(bundle, opt, torch.Generator(dev).manual_seed(
+        SEED), dev)
+    batch = train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, dev)
+    leaves = tree_leaves(state["params"], is_leaf=torch.is_tensor)
+    first = [t.view(-1)[:4096].clone() for t in leaves]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step_fn, _ = make_train_step(bundle, opt)
+    zero_counts()
+    losses, step_ms = [], []
+    for i in range(TRAIN_STEPS):
+        profiled = i == TRAIN_STEPS - 1
+        with (torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+              if profiled else contextlib.nullcontext()) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+        if i == 0:
+            # AdamW's first moment after one step is (1 - b1)·g: the
+            # leaves whose gradient has a non-finite entry or none but 0
+            # (aminmax reduces a 2.7 B tree without a copy of a leaf)
+            span = [tuple(map(float, torch.aminmax(t.view(-1))))
+                    for t in tree_leaves(state["opt"]["m"], torch.is_tensor)]
+            bad_grads = [j for j, (lo, hi) in enumerate(span)
+                         if not (np.isfinite(lo) and np.isfinite(hi))
+                         or lo == hi == 0]
+    launched, routed = counts(), FK.routed
+    want = {k: v * TRAIN_STEPS for k, v in train_launches(cfg).items()}
+    moved = sum(not torch.equal(a, t.view(-1)[:4096])
+                for a, t in zip(first, leaves))
+    ms = (step_ms[1] + step_ms[2]) / 2
+    kernels = PQ.device_kernels(prof)
+    busy = PQ.busy_s(prof.events())
+    rec = {"arch": arch, "layers": cfg.num_layers,
+           "params": sum(t.numel() for t in leaves),
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "optimizer": "adamw",
+           "lr": TRAIN_LR, "remat": cfg.remat, "losses": losses,
+           "step_ms": step_ms, "ms_a_step": ms,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (ms * 1e-3),
+           "init_s": init_s, "peak_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launched, "expected_launches": want, "routed": routed,
+           "leaves_moved": moved, "leaves": len(leaves),
+           "first_step_bad_grad_leaves": bad_grads,
+           "profiled_step": {
+               "wall_ms": step_ms[-1], "device_busy_ms": busy * 1e3,
+               "idle_share": 1 - busy * 1e3 / step_ms[-1],
+               "kernels": sum(n for key, _, n in kernels if not
+                              key.startswith(("Memcpy", "Memset")))}}
+    for label, prefix in KERNELS.items():
+        mine = [(k_ms, n) for key, k_ms, n in kernels
+                if PQ.is_kernel(key, prefix)]
+        rec["profiled_step"][f"{label}_device_ms"] = sum(m for m, _ in mine)
+        rec["profiled_step"][f"{label}_cuda_launches"] = sum(
+            n for _, n in mine)
+    rec["profiled_step"]["top_kernels_ms"] = [
+        {"name": key[:80], "ms": k_ms, "count": n}
+        for key, k_ms, n in kernels[:8]]
+    print("[train] " + json.dumps(rec), flush=True)
+    check(all(np.isfinite(x) for x in losses),
+          f"{arch}: a train loss is not finite: {losses}")
+    check(losses[-1] < losses[0], f"{arch}: the loss did not fall on one "
+          f"batch over {TRAIN_STEPS} steps: {losses}")
+    check(not bad_grads, f"{arch}: the first step's gradient is not "
+          f"finite or is all 0 in leaves {bad_grads} of {len(leaves)}")
+    check(moved == len(leaves), f"{arch}: {len(leaves) - moved} of "
+          f"{len(leaves)} parameter leaves did not move")
+    check(launched == want, f"{arch}: train launches {launched}, want "
+          f"{want}")
+    check(routed == 0, f"{arch}: {routed} attention calls routed to the "
+          "plain path")
+    return launched
 
 
 def main() -> int:
@@ -1701,17 +1869,41 @@ def main() -> int:
           f"{time.perf_counter() - t_new:.3f} s", flush=True)
     new_paths = {f"{arch} serve": n for arch, n in family.items()}
 
+    t0 = time.perf_counter()
+    print(f"[train parity] allocated before: {release()} bytes", flush=True)
+    train_grad_parity(dev)
+    phase(f"{SMOLLM_ARCH} train parity", t0)
+
+    t_new = time.perf_counter()
+    train = {}
+    for arch, layers in TRAIN_CELLS:
+        t0 = time.perf_counter()
+        print(f"[{arch}] allocated before its train phase: {release()} "
+              "bytes", flush=True)
+        train[f"train {arch}"] = train_phase(dev, arch, layers)
+        phase(f"{arch} train", t0)
+    print(f"[phase] train phases: {time.perf_counter() - t_new:.3f} s",
+          flush=True)
+    pp_paths = {"query": launches, "workload": wl_launches,
+                "moe serve": moe_launches["partition_pack"],
+                f"{LLAMA4_ARCH} serve": new_paths[
+                    f"{LLAMA4_ARCH} serve"]["partition_pack"],
+                f"train {MOE_ARCH}": train[f"train {MOE_ARCH}"][
+                    "partition_pack"]}
+    ssd_paths = {"serve": ssd_launches,
+                 "train mamba2-2.7b": train["train mamba2-2.7b"]["ssd_scan"]}
+    flash_paths = {"dense serve": flash_launches,
+                   "moe serve": moe_launches["flash_gqa"],
+                   **{path: n["flash_gqa"] for path, n in new_paths.items()},
+                   **{path: n["flash_gqa"] for path, n in train.items()
+                      if n["flash_gqa"]}}
+
     print(json.dumps({"kernels": [{
         "name": "partition_pack", "route": "cuda",
         "source": "src/repro_torch/kernels/partition_pack/csrc/"
                   "partition_pack.cu",
         "replaces": "src/repro/kernels/partition_pack/partition_pack.py:83",
-        "launches": launches + wl_launches + moe_launches["partition_pack"]
-        + new_paths[f"{LLAMA4_ARCH} serve"]["partition_pack"],
-        "launches_by_path": {"query": launches, "workload": wl_launches,
-                             "moe serve": moe_launches["partition_pack"],
-                             f"{LLAMA4_ARCH} serve": new_paths[
-                                 f"{LLAMA4_ARCH} serve"]["partition_pack"]},
+        "launches": sum(pp_paths.values()), "launches_by_path": pp_paths,
         "max_abs_err": max(r["max_abs_err"] for r in recs),
         "ms": main_rec["kernel_ms"], "plain_ms": main_rec["plain_ms"],
         "bound_ms": main_rec["bound_ms"], "bound_by": "bytes",
@@ -1725,19 +1917,16 @@ def main() -> int:
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:65",
-        "launches": ssd_launches, "max_abs_err": ssd_err,
+        "launches": sum(ssd_paths.values()), "launches_by_path": ssd_paths,
+        "max_abs_err": ssd_err,
         "ms": ssd_rec["kernel_ms"], "plain_ms": ssd_rec["plain_ms"],
         "bound_ms": ssd_rec["bound_ms"], "bound_by": ssd_rec["bound_by"],
         "library_ms": None}, {
         "name": "flash_gqa", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_gqa/csrc/flash_gqa.cu",
         "replaces": "src/repro/kernels/flash_gqa/flash_gqa.py:72",
-        "launches": flash_launches + moe_launches["flash_gqa"]
-        + sum(n["flash_gqa"] for n in new_paths.values()),
-        "launches_by_path": {"dense serve": flash_launches,
-                             "moe serve": moe_launches["flash_gqa"],
-                             **{path: n["flash_gqa"]
-                                for path, n in new_paths.items()}},
+        "launches": sum(flash_paths.values()),
+        "launches_by_path": flash_paths,
         "max_abs_err": flash_err,
         "ms": flash_rec["kernel_ms"], "plain_ms": flash_rec["plain_ms"],
         "bound_ms": flash_rec["bound_ms"],

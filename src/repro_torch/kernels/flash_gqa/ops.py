@@ -3,6 +3,7 @@ tensors, the plain materialized attention for CPU tensors, nothing else.
 Both take the same arguments and refuse the same ones (``ValueError``)."""
 from __future__ import annotations
 
+from repro_torch import kernels
 from repro_torch.kernels.flash_gqa import flash_gqa as K
 
 
@@ -12,7 +13,7 @@ def flash_gqa(q, k, v, *, causal: bool = True, window: int = 0,
     neither ``causal`` nor ``window``); ``kv_head`` maps query head h to
     its kv head (host ints; default h // (H / Hkv)). -> o [B,Sq,H,Dv] in
     q's dtype."""
-    if q.device.type == "cuda":
+    if kernels.on_card(q):
         return K.flash_gqa(q.contiguous(), k.contiguous(), v.contiguous(),
                            causal=causal, window=window, kv_head=kv_head)
     if q.device.type != "cpu":

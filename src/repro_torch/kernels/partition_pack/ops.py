@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import kernels
 from repro_torch.kernels.partition_pack import partition_pack as K
 from repro_torch.kernels.partition_pack import ref
 
@@ -15,7 +16,7 @@ def partition_pack_groups(groups: list[torch.Tensor], part_ids: torch.Tensor,
 
     Entries past a partition's capacity are dropped (bounded buffers); the
     counts vector is the §3.2 offsets header (offsets = cumsum(counts))."""
-    if part_ids.device.type == "cuda":
+    if kernels.on_card(part_ids):
         return K.pack(groups, part_ids, n_parts, capacity)
     if part_ids.device.type != "cpu":
         raise ValueError(f"partition_pack has no path for {part_ids.device}")

@@ -2,6 +2,7 @@
 tensors, the plain chunked SSD for CPU tensors, nothing else."""
 from __future__ import annotations
 
+from repro_torch import kernels
 from repro_torch.kernels.ssd_scan import ssd_scan as K
 from repro_torch.models.mamba2 import ssd_chunked
 
@@ -14,7 +15,7 @@ def ssd(x, dt, A, Bm, Cm, *, chunk: int = 128):
     if x.shape[1] % Q:
         raise ValueError(f"sequence {x.shape[1]} does not divide into "
                          f"chunks of {Q}")
-    if x.device.type == "cuda":
+    if kernels.on_card(x):
         return K.ssd_scan(x.contiguous(), dt.contiguous(), A.contiguous(),
                           Bm.contiguous(), Cm.contiguous(), chunk=Q)
     if x.device.type != "cpu":

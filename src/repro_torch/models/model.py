@@ -1,9 +1,9 @@
-"""Model assembly: config -> ModelBundle (prefill / decode + defs), PyTorch
-port of ``repro.models.model``.
+"""Model assembly: config -> ModelBundle (loss / prefill / decode + defs),
+PyTorch port of ``repro.models.model``.
 
 A bundle is everything launch/ needs:
   param_defs            ParamSpec tree (init, counts)
-  loss_fn(p, batch)     -> (loss, metrics)          [train; not ported yet]
+  loss_fn(p, batch)     -> (loss, metrics)          [train]
   prefill_fn(p, batch)  -> (last_logits, cache)
   decode_fn(p, cache, batch) -> (logits, cache)
   cache_defs(batch, cache_len, long) -> ParamSpec tree (+ "len" scalar)
@@ -18,9 +18,12 @@ reference serves: the ``ssm`` family (Mamba-2), the homogeneous decoder
 LMs (``dense`` and ``vlm``: glm4, granite, smollm, starcoder2, qwen2-vl),
 the ``moe`` family (deepseek-v2 with MLA attention, llama4 with GQA), the
 ``hybrid`` griffin (recurrentgemma) and the ``audio`` encoder-decoder
-(whisper). Training raises ``NotImplementedError`` naming ROADMAP A5.
-Decode writes every cache in place and returns the same tree with
-``len`` + 1.
+(whisper). Every family trains: ``loss_fn`` is the reference's (f32 cross
+entropy over the unpadded vocabulary, chunked along the sequence when
+``cfg.logit_chunk`` says so, plus ``AUX_WEIGHT`` x the MoE aux loss over
+the layers), and the layer bodies the reference rematerializes run under
+``torch.utils.checkpoint`` (``_maybe_remat``). Decode writes every cache
+in place and returns the same tree with ``len`` + 1.
 """
 from __future__ import annotations
 
@@ -29,14 +32,19 @@ import functools
 from typing import Any, Callable
 
 import torch
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import griffin as G
 from repro_torch.models import mamba2 as M
 from repro_torch.models import transformer as T
 from repro_torch.models.modules import (ParamSpec, Sharder, apply_norm,
-                                        norm_defs, stack_specs, tree_map)
+                                        norm_defs, softmax_cross_entropy,
+                                        stack_specs, tree_map)
 from repro_torch.models.moe import moe_apply
+
+AUX_WEIGHT = 0.01
 
 
 @dataclasses.dataclass
@@ -86,6 +94,60 @@ def _logits(cfg, p, h, sh):
     return out[..., :cfg.vocab_size]          # drop vocab padding (serving)
 
 
+def _lm_loss(cfg, p, h, targets, mask, sh):
+    """CE over the final-normed h [B,S,d], in f32. Padded vocab entries are
+    masked to -1e30, so padding is exact. When ``cfg.logit_chunk`` divides
+    S and S exceeds it, the logits are made chunk by chunk along S, each
+    chunk recomputed in the backward (``torch.utils.checkpoint``), so at
+    most one chunk's [B, ck, V] logits are held."""
+    head = _head(cfg, p).to(h.dtype)
+    B, S, d = h.shape
+    vmask = None
+    if _vpad(cfg) != cfg.vocab_size:
+        vmask = torch.arange(_vpad(cfg), device=h.device) < cfg.vocab_size
+
+    def _mask(lg):
+        return lg if vmask is None else torch.where(vmask, lg, -1e30)
+
+    ck = cfg.logit_chunk
+    if not ck or S % ck or S <= ck:
+        logits = sh(h @ head, "batch", None, "act_heads")
+        return softmax_cross_entropy(_mask(logits.float()), targets, mask)
+
+    def chunk(hc, head, tc, mc):                         # [B,ck,...]
+        lg = _mask(sh(hc @ head, "batch", None, "act_heads").float())
+        lse = torch.logsumexp(lg, dim=-1)
+        ll = torch.gather(lg, -1, tc[..., None].long())[..., 0]
+        mf = mc.float()
+        return ((lse - ll) * mf).sum(), mf.sum()
+
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, S, ck):
+        t, c = checkpoint(chunk, h[:, i:i + ck], head, targets[:, i:i + ck],
+                          mask[:, i:i + ck], use_reentrant=False)
+        tot, cnt = tot + t, cnt + c
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+# "dots": keep the outputs of the products with no batch dims (``aten.mm``,
+# which a [B,S,d] @ [d,f] projection lowers to), as the reference's
+# checkpoint_dots_with_no_batch_dims keeps its dot_generals; recompute the
+# rest (bmm, einsums with a batch dim, elementwise work, the kernels)
+_SAVE_DOTS = functools.partial(create_selective_checkpoint_contexts,
+                               [torch.ops.aten.mm.default])
+
+
+def _maybe_remat(f, cfg, mode):
+    """``f`` run under ``torch.utils.checkpoint`` in training: its
+    activations are recomputed in the backward (``remat="full"``), all but
+    the products with no batch dims (``"dots"``), or kept (``"none"``).
+    Non-reentrant, so inputs that need no gradient keep theirs flowing."""
+    if mode != "train" or cfg.remat == "none":
+        return f
+    kw = {"context_fn": _SAVE_DOTS} if cfg.remat == "dots" else {}
+    return functools.partial(checkpoint, f, use_reentrant=False, **kw)
+
+
 def _base_batch_defs(cfg, shape: ShapeConfig) -> dict:
     B, S = shape.global_batch, shape.seq_len
     if shape.kind == "train":
@@ -109,13 +171,27 @@ def _len(S: int, device) -> torch.Tensor:
     return torch.tensor(S, dtype=torch.int32, device=device)
 
 
-def _no_training(p, batch):
-    raise NotImplementedError("training is not ported yet (ROADMAP A5)")
-
-
 def _layer(stacked, i: int):
     """Layer ``i`` of a tree stacked on a leading "layers" dim (views)."""
     return tree_map(lambda t: t[i], stacked)
+
+
+def _unstack(stacked, n: int) -> list:
+    """The ``n`` layers of a parameter tree stacked on a leading dim, as
+    trees of views. ``torch.unbind`` makes them, so a backward stacks the
+    layers' gradients once, where indexing each layer would add a zero
+    tensor of the whole stack per layer."""
+    if isinstance(stacked, dict):
+        per = {k: _unstack(v, n) for k, v in stacked.items()}
+        return [{k: per[k][i] for k in per} for i in range(n)]
+    return list(torch.unbind(stacked))
+
+
+def _aux(total, like: torch.Tensor) -> torch.Tensor:
+    """The layers' aux-loss sum as an f32 tensor on ``like``'s device: the
+    sum starts from a Python 0.0, which layers without a MoE block leave
+    as it is (so serving adds no kernel for it)."""
+    return torch.as_tensor(total, dtype=torch.float32, device=like.device)
 
 
 def _stack(layers: list):
@@ -137,29 +213,48 @@ def _decoder_lm(cfg: ModelConfig, rules=None, mesh=None) -> ModelBundle:
             "layers": stack_specs(T.layer_defs(cfg), cfg.num_layers)}
     kind = "window" if cfg.window else "full"
 
-    def fwd(p, x, positions, cache=None, cache_len=None, mpos=None):
-        """-> (final-normed x, per-layer kv of the prefill or, in decode,
-        the caches written in place)."""
-        kvs = []
-        for i in range(cfg.num_layers):
-            cl = _layer(cache, i) if cache is not None else None
-            x, c, _ = T.layer_apply(
-                cfg, _layer(p["layers"], i), x, sh, positions=positions,
-                layer_kind=kind, cache=cl, cache_len=cache_len,
-                mrope_positions=mpos)
-            kvs.append(c)
-        x = apply_norm(cfg.norm_kind, p["final_ln"], x, cfg.norm_eps)
-        return x, kvs
+    def layer(pl, x, positions, cl, cache_len, mpos):
+        return T.layer_apply(cfg, pl, x, sh, positions=positions,
+                             layer_kind=kind, cache=cl, cache_len=cache_len,
+                             mrope_positions=mpos)
 
-    def prefill_fn(p, batch):
-        B, S = batch["tokens"].shape
+    def fwd(p, x, positions, mode, cache=None, cache_len=None, mpos=None):
+        """-> (final-normed x, the layers' summed aux loss, per-layer kv of
+        the prefill or, in decode, the caches written in place). In
+        training each layer runs under ``_maybe_remat``."""
+        body = _maybe_remat(layer, cfg, mode)
+        kvs, aux = [], 0.0
+        for i, pl in enumerate(_unstack(p["layers"], cfg.num_layers)):
+            cl = _layer(cache, i) if cache is not None else None
+            x, c, a = body(pl, x, positions, cl, cache_len, mpos)
+            kvs.append(c)
+            aux = aux + a
+        x = apply_norm(cfg.norm_kind, p["final_ln"], x, cfg.norm_eps)
+        return x, aux, kvs
+
+    def embed(p, batch):
         x = _embed(cfg, p, batch["tokens"], sh)
         if is_vlm:
             vis = batch["vision_embeds"].to(x.dtype)
             x = torch.cat([vis, x[:, vis.shape[1]:]], dim=1)
+        return x
+
+    def loss_fn(p, batch):
+        B, S = batch["tokens"].shape
+        x = embed(p, batch)
+        x, aux, _ = fwd(p, x, _positions(B, S, x.device), "train",
+                        mpos=batch.get("mrope_positions"))
+        ce = _lm_loss(cfg, p, x, batch["targets"], batch["mask"], sh)
+        aux = _aux(aux, ce)
+        loss = ce + AUX_WEIGHT * aux / max(cfg.num_layers, 1)
+        return loss, {"loss": loss, "ce": ce, "aux": aux}
+
+    def prefill_fn(p, batch):
+        B, S = batch["tokens"].shape
+        x = embed(p, batch)
         # full-attention archs: the cache is the full-seq kv, stacked
-        x, kvs = fwd(p, x, _positions(B, S, x.device),
-                     mpos=batch.get("mrope_positions"))
+        x, _, kvs = fwd(p, x, _positions(B, S, x.device), "prefill",
+                        mpos=batch.get("mrope_positions"))
         logits = _logits(cfg, p, x[:, -1:], sh)
         return logits, {"kv": _stack(kvs), "len": _len(S, x.device)}
 
@@ -171,8 +266,8 @@ def _decoder_lm(cfg: ModelConfig, rules=None, mesh=None) -> ModelBundle:
         x = _embed(cfg, p, batch["token"], sh)
         positions = pos.reshape(1, 1).expand(B, 1)
         mpos = pos.reshape(1, 1, 1).expand(3, B, 1) if cfg.mrope else None
-        x, _ = fwd(p, x, positions, cache=cache["kv"], cache_len=pos,
-                   mpos=mpos)
+        x, _, _ = fwd(p, x, positions, "decode", cache=cache["kv"],
+                      cache_len=pos, mpos=mpos)
         logits = _logits(cfg, p, x, sh)
         return logits, {"kv": cache["kv"], "len": pos + 1}
 
@@ -194,7 +289,7 @@ def _decoder_lm(cfg: ModelConfig, rules=None, mesh=None) -> ModelBundle:
                 (None, "batch", "seq"), "zeros", torch.int32)
         return b
 
-    return ModelBundle(cfg, defs, _no_training, prefill_fn, decode_fn,
+    return ModelBundle(cfg, defs, loss_fn, prefill_fn, decode_fn,
                        cache_defs, batch_defs)
 
 
@@ -207,15 +302,24 @@ def _mamba(cfg: ModelConfig, rules=None, mesh=None) -> ModelBundle:
     defs = {**_embed_defs(cfg),
             "layers": stack_specs(M.mamba_defs(cfg), cfg.num_layers)}
 
+    def layer(pl, x, cl):
+        return M.mamba_apply(cfg, pl, x, sh, cache=cl)
+
     def fwd(p, x, mode, cache=None):
+        body = _maybe_remat(layer, cfg, mode)
         ncs = []
-        for i in range(cfg.num_layers):
+        for i, pl in enumerate(_unstack(p["layers"], cfg.num_layers)):
             cl = _layer(cache, i) if cache is not None else None
-            x, nc = M.mamba_apply(cfg, _layer(p["layers"], i), x, sh,
-                                  cache=cl)
+            x, nc = body(pl, x, cl)
             ncs.append(nc)
         x = apply_norm(cfg.norm_kind, p["final_ln"], x, cfg.norm_eps)
         return x, (_stack(ncs) if cache is not None else None)
+
+    def loss_fn(p, batch):
+        x = _embed(cfg, p, batch["tokens"], sh)
+        x, _ = fwd(p, x, "train")
+        ce = _lm_loss(cfg, p, x, batch["targets"], batch["mask"], sh)
+        return ce, {"loss": ce, "ce": ce}
 
     def prefill_fn(p, batch):
         B, S = batch["tokens"].shape
@@ -236,7 +340,7 @@ def _mamba(cfg: ModelConfig, rules=None, mesh=None) -> ModelBundle:
                                       cfg.num_layers),
                 "len": _len_def()}
 
-    return ModelBundle(cfg, defs, _no_training, prefill_fn, decode_fn,
+    return ModelBundle(cfg, defs, loss_fn, prefill_fn, decode_fn,
                        cache_defs, functools.partial(_base_batch_defs, cfg))
 
 
@@ -252,30 +356,45 @@ def _deepseek(cfg: ModelConfig, rules=None, mesh=None) -> ModelBundle:
             "layers": stack_specs(
                 T.layer_defs(cfg, attn="mla", mlp="moe"), n_moe)}
 
-    def fwd(p, x, positions, cache=None, cache_len=None):
+    def moe_layer(pl, x, positions, cl, cache_len):
+        return T.layer_apply(cfg, pl, x, sh, positions=positions,
+                             attn="mla", mlp="moe", cache=cl,
+                             cache_len=cache_len)
+
+    def fwd(p, x, positions, mode, cache=None, cache_len=None):
         """-> (final-normed x, the layers' summed aux loss, the dense
         layer's cache and the MoE layers' list of caches: each layer's
         compressed {"ckv", "krope"} of the prefill or, in decode, the
-        caches written in place)."""
+        caches written in place). In training each MoE layer runs under
+        ``_maybe_remat``; the dense layer 0 does not, as in the
+        reference."""
         c0 = cache["l0"] if cache is not None else None
         x, c0n, aux = T.layer_apply(cfg, p["layer0"], x, sh,
                                     positions=positions, attn="mla",
                                     cache=c0, cache_len=cache_len)
+        body = _maybe_remat(moe_layer, cfg, mode)
         cs = []
-        for i in range(n_moe):
+        for i, pl in enumerate(_unstack(p["layers"], n_moe)):
             cl = _layer(cache["ls"], i) if cache is not None else None
-            x, c, a = T.layer_apply(cfg, _layer(p["layers"], i), x, sh,
-                                    positions=positions, attn="mla",
-                                    mlp="moe", cache=cl, cache_len=cache_len)
+            x, c, a = body(pl, x, positions, cl, cache_len)
             aux = aux + a
             cs.append(c)
         x = apply_norm(cfg.norm_kind, p["final_ln"], x, cfg.norm_eps)
         return x, aux, c0n, cs
 
+    def loss_fn(p, batch):
+        B, S = batch["tokens"].shape
+        x = _embed(cfg, p, batch["tokens"], sh)
+        x, aux, _, _ = fwd(p, x, _positions(B, S, x.device), "train")
+        ce = _lm_loss(cfg, p, x, batch["targets"], batch["mask"], sh)
+        aux = _aux(aux, ce)
+        loss = ce + AUX_WEIGHT * aux / cfg.num_layers
+        return loss, {"loss": loss, "ce": ce, "aux": aux}
+
     def prefill_fn(p, batch):
         B, S = batch["tokens"].shape
         x = _embed(cfg, p, batch["tokens"], sh)
-        x, _, c0, cs = fwd(p, x, _positions(B, S, x.device))
+        x, _, c0, cs = fwd(p, x, _positions(B, S, x.device), "prefill")
         logits = _logits(cfg, p, x[:, -1:], sh)
         return logits, {"l0": c0, "ls": _stack(cs),
                         "len": _len(S, x.device)}
@@ -288,7 +407,8 @@ def _deepseek(cfg: ModelConfig, rules=None, mesh=None) -> ModelBundle:
         pos = cache["len"]
         x = _embed(cfg, p, batch["token"], sh)
         positions = pos.reshape(1, 1).expand(B, 1)
-        x, _, _, _ = fwd(p, x, positions, cache=cache, cache_len=pos)
+        x, _, _, _ = fwd(p, x, positions, "decode", cache=cache,
+                         cache_len=pos)
         logits = _logits(cfg, p, x, sh)
         return logits, {"l0": cache["l0"], "ls": cache["ls"], "len": pos + 1}
 
@@ -296,7 +416,7 @@ def _deepseek(cfg: ModelConfig, rules=None, mesh=None) -> ModelBundle:
         one = T.mla_cache_defs(cfg, batch, cache_len, long)
         return {"l0": one, "ls": stack_specs(one, n_moe), "len": _len_def()}
 
-    return ModelBundle(cfg, defs, _no_training, prefill_fn, decode_fn,
+    return ModelBundle(cfg, defs, loss_fn, prefill_fn, decode_fn,
                        cache_defs, functools.partial(_base_batch_defs, cfg))
 
 
@@ -337,25 +457,42 @@ def _llama4(cfg: ModelConfig, rules=None, mesh=None) -> ModelBundle:
             return moe_apply(cfg, pl["mlp"], x, sh)
         return T.mlp_apply(cfg, pl["mlp"], x, sh), 0.0
 
-    def fwd(p, x, positions, cache=None, cache_len=None):
-        """-> (final-normed x, the MoE layers' summed aux loss); in decode
-        each sub-layer's cache is written in place."""
+    def super_block(pb, x, positions, cb, cache_len):
         aux = 0.0
-        for j in range(n_sb):
-            pb = _layer(p["blocks"], j)
+        for i, (attn_kind, mlp_kind) in enumerate(kinds):
+            x, a = _l4_layer(pb[f"sub{i}"], x, positions, attn_kind,
+                             mlp_kind, cb[f"sub{i}"] if cb else None,
+                             cache_len)
+            aux = aux + a
+        return x, aux
+
+    def fwd(p, x, positions, mode, cache=None, cache_len=None):
+        """-> (final-normed x, the MoE layers' summed aux loss); in decode
+        each sub-layer's cache is written in place. In training each
+        super-block runs under ``_maybe_remat``, as the reference's scan
+        body does."""
+        body = _maybe_remat(super_block, cfg, mode)
+        aux = 0.0
+        for j, pb in enumerate(_unstack(p["blocks"], n_sb)):
             cb = _layer(cache, j) if cache is not None else None
-            for i, (attn_kind, mlp_kind) in enumerate(kinds):
-                x, a = _l4_layer(pb[f"sub{i}"], x, positions, attn_kind,
-                                 mlp_kind, cb[f"sub{i}"] if cb else None,
-                                 cache_len)
-                aux = aux + a
+            x, a = body(pb, x, positions, cb, cache_len)
+            aux = aux + a
         x = apply_norm(cfg.norm_kind, p["final_ln"], x, cfg.norm_eps)
         return x, aux
+
+    def loss_fn(p, batch):
+        B, S = batch["tokens"].shape
+        x = _embed(cfg, p, batch["tokens"], sh)
+        x, aux = fwd(p, x, _positions(B, S, x.device), "train")
+        ce = _lm_loss(cfg, p, x, batch["targets"], batch["mask"], sh)
+        aux = _aux(aux, ce)
+        loss = ce + AUX_WEIGHT * aux / cfg.num_layers
+        return loss, {"loss": loss, "ce": ce, "aux": aux}
 
     def prefill_fn(p, batch):
         B, S = batch["tokens"].shape
         x = _embed(cfg, p, batch["tokens"], sh)
-        x, _ = fwd(p, x, _positions(B, S, x.device))
+        x, _ = fwd(p, x, _positions(B, S, x.device), "prefill")
         # the serve path fills the caches by replaying the prompt through
         # decode, as the reference's does
         logits = _logits(cfg, p, x[:, -1:], sh)
@@ -366,7 +503,8 @@ def _llama4(cfg: ModelConfig, rules=None, mesh=None) -> ModelBundle:
         pos = cache["len"]
         x = _embed(cfg, p, batch["token"], sh)
         positions = pos.reshape(1, 1).expand(B, 1)
-        x, _ = fwd(p, x, positions, cache=cache["blocks"], cache_len=pos)
+        x, _ = fwd(p, x, positions, "decode", cache=cache["blocks"],
+                   cache_len=pos)
         logits = _logits(cfg, p, x, sh)
         return logits, {"blocks": cache["blocks"], "len": pos + 1}
 
@@ -379,7 +517,7 @@ def _llama4(cfg: ModelConfig, rules=None, mesh=None) -> ModelBundle:
                 cfg, batch, W, long and attn_kind == "full")
         return {"blocks": stack_specs(sb, n_sb), "len": _len_def()}
 
-    return ModelBundle(cfg, defs, _no_training, prefill_fn, decode_fn,
+    return ModelBundle(cfg, defs, loss_fn, prefill_fn, decode_fn,
                        cache_defs, functools.partial(_base_batch_defs, cfg))
 
 
@@ -411,25 +549,38 @@ def _griffin(cfg: ModelConfig, rules=None, mesh=None) -> ModelBundle:
                                 cache_len=cache_len)
         return T.mlp_apply(cfg, pl["mlp"], x, sh)
 
-    def fwd(p, x, positions, cache=None, cache_len=None):
+    def triple(pb, x, positions, cb, cache_len):
+        for i, kind in enumerate(pat):
+            x = _sub_apply(kind, pb[f"sub{i}"], x, positions,
+                           cb[f"sub{i}"] if cb else None, cache_len)
+        return x
+
+    def fwd(p, x, positions, mode, cache=None, cache_len=None):
         """-> final-normed x; in decode every layer's cache is written in
-        place."""
-        for j in range(n_tri):
-            pb = _layer(p["tri"], j)
+        place. In training each (rec, rec, attn) triple runs under
+        ``_maybe_remat`` and the remainder layers do not, as in the
+        reference."""
+        body = _maybe_remat(triple, cfg, mode)
+        for j, pb in enumerate(_unstack(p["tri"], n_tri)):
             cb = _layer(cache["tri"], j) if cache is not None else None
-            for i, kind in enumerate(pat):
-                x = _sub_apply(kind, pb[f"sub{i}"], x, positions,
-                               cb[f"sub{i}"] if cb else None, cache_len)
+            x = body(pb, x, positions, cb, cache_len)
         for t in range(n_tail):
             x = _sub_apply("rec", p[f"tail{t}"], x, positions,
                            cache[f"tail{t}"] if cache is not None else None,
                            cache_len)
         return apply_norm(cfg.norm_kind, p["final_ln"], x, cfg.norm_eps)
 
+    def loss_fn(p, batch):
+        B, S = batch["tokens"].shape
+        x = _embed(cfg, p, batch["tokens"], sh)
+        x = fwd(p, x, _positions(B, S, x.device), "train")
+        ce = _lm_loss(cfg, p, x, batch["targets"], batch["mask"], sh)
+        return ce, {"loss": ce, "ce": ce}
+
     def prefill_fn(p, batch):
         B, S = batch["tokens"].shape
         x = _embed(cfg, p, batch["tokens"], sh)
-        x = fwd(p, x, _positions(B, S, x.device))
+        x = fwd(p, x, _positions(B, S, x.device), "prefill")
         logits = _logits(cfg, p, x[:, -1:], sh)
         return logits, {"len": _len(S, x.device)}
 
@@ -438,7 +589,7 @@ def _griffin(cfg: ModelConfig, rules=None, mesh=None) -> ModelBundle:
         pos = cache["len"]
         x = _embed(cfg, p, batch["token"], sh)
         positions = pos.reshape(1, 1).expand(B, 1)
-        x = fwd(p, x, positions, cache=cache, cache_len=pos)
+        x = fwd(p, x, positions, "decode", cache=cache, cache_len=pos)
         logits = _logits(cfg, p, x, sh)
         return logits, {**cache, "len": pos + 1}
 
@@ -455,7 +606,7 @@ def _griffin(cfg: ModelConfig, rules=None, mesh=None) -> ModelBundle:
             out[f"tail{t}"] = G.rec_cache_defs(cfg, batch)
         return out
 
-    return ModelBundle(cfg, defs, _no_training, prefill_fn, decode_fn,
+    return ModelBundle(cfg, defs, loss_fn, prefill_fn, decode_fn,
                        cache_defs, functools.partial(_base_batch_defs, cfg))
 
 
@@ -480,30 +631,52 @@ def _whisper(cfg: ModelConfig, rules=None, mesh=None) -> ModelBundle:
             "enc": [enc_layer for _ in range(cfg.encoder_layers)],
             "dec": [dec_layer for _ in range(cfg.num_layers)]}
 
-    def encode(p, frames):
+    # the reference checkpoints each whisper layer whole in training,
+    # whatever ``remat`` other than "none" says
+    remat_cfg = cfg.replace(remat="full") if cfg.remat != "none" else cfg
+
+    def enc_layer(lp, x, pos):
+        x, _ = T.attn_apply(cfg, lp["attn"], x, sh, positions=pos,
+                            layer_kind="bidir")
+        return T.mlp_apply(cfg, lp["mlp"], x, sh)
+
+    def encode(p, frames, mode="decode"):
         """frames [B,Senc,d] -> the encoder output [B,Senc,d]: learned
         positions, bidirectional self attention and the MLP a layer."""
         x = frames.to(cfg.compute_dtype)
         x = x + p["enc_pos"].to(x.dtype)[None, :x.shape[1]]
         pos = _positions(x.shape[0], x.shape[1], x.device)
+        body = _maybe_remat(enc_layer, remat_cfg, mode)
         for lp in p["enc"]:
-            x, _ = T.attn_apply(cfg, lp["attn"], x, sh, positions=pos,
-                                layer_kind="bidir")
-            x = T.mlp_apply(cfg, lp["mlp"], x, sh)
+            x = body(lp, x, pos)
         return apply_norm(cfg.norm_kind, p["enc_ln"], x, cfg.norm_eps)
 
-    def decode_stack(p, x, enc_out, positions, cache=None, cache_len=None):
+    def dec_layer(lp, x, enc_out, positions, c, cache_len):
+        x, _ = T.attn_apply(cfg, lp["self"], x, sh, positions=positions,
+                            layer_kind="full", cache=c, cache_len=cache_len)
+        x, _ = T.attn_apply(cfg, lp["cross"], x, sh, positions=positions,
+                            layer_kind="cross", kv_override=enc_out)
+        return T.mlp_apply(cfg, lp["mlp"], x, sh)
+
+    def decode_stack(p, x, enc_out, positions, cache=None, cache_len=None,
+                     mode="decode"):
         """Causal self attention (decode: against ``cache``, written in
         place), cross attention to ``enc_out``, then the MLP, a layer."""
+        body = _maybe_remat(dec_layer, remat_cfg, mode)
         for li, lp in enumerate(p["dec"]):
             c = cache[li] if cache is not None else None
-            x, _ = T.attn_apply(cfg, lp["self"], x, sh, positions=positions,
-                                layer_kind="full", cache=c,
-                                cache_len=cache_len)
-            x, _ = T.attn_apply(cfg, lp["cross"], x, sh, positions=positions,
-                                layer_kind="cross", kv_override=enc_out)
-            x = T.mlp_apply(cfg, lp["mlp"], x, sh)
+            x = body(lp, x, enc_out, positions, c, cache_len)
         return apply_norm(cfg.norm_kind, p["final_ln"], x, cfg.norm_eps)
+
+    def loss_fn(p, batch):
+        enc_out = encode(p, batch["frames"], mode="train")
+        B, S = batch["tokens"].shape
+        x = _embed(cfg, p, batch["tokens"], sh)
+        x = x + p["dec_pos"].to(x.dtype)[None, :S]
+        x = decode_stack(p, x, enc_out, _positions(B, S, x.device),
+                         mode="train")
+        ce = _lm_loss(cfg, p, x, batch["targets"], batch["mask"], sh)
+        return ce, {"loss": ce, "ce": ce}
 
     def prefill_fn(p, batch):
         enc_out = encode(p, batch["frames"])
@@ -542,7 +715,7 @@ def _whisper(cfg: ModelConfig, rules=None, mesh=None) -> ModelBundle:
             ("batch", "seq", "act_embed"), "zeros", cfg.compute_dtype)
         return b
 
-    return ModelBundle(cfg, defs, _no_training, prefill_fn, decode_fn,
+    return ModelBundle(cfg, defs, loss_fn, prefill_fn, decode_fn,
                        cache_defs, batch_defs, encode)
 
 

@@ -36,6 +36,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import kernels
 from repro_torch.kernels.flash_gqa import flash_gqa as FK
 from repro_torch.kernels.flash_gqa import ops as flash_ops
 from repro_torch.models import attention as A
@@ -74,15 +75,20 @@ def _head_mask(cfg) -> np.ndarray | None:
 
 
 # _kv_map and _head_mask as tensors, made once per config and device, so
-# that a decode step copies nothing from the host
+# that a decode step copies nothing from the host. They are made outside
+# inference mode wherever the first call comes from: a tensor made under
+# serving's inference_mode could not be saved for a later train step's
+# backward
 @functools.lru_cache(maxsize=None)
 def _kv_index(cfg, device: torch.device) -> torch.Tensor:
-    return torch.as_tensor(_kv_map(cfg), dtype=torch.long, device=device)
+    with torch.inference_mode(False):
+        return torch.as_tensor(_kv_map(cfg), dtype=torch.long, device=device)
 
 
 @functools.lru_cache(maxsize=None)
 def _head_mask_on(cfg, device: torch.device, dtype) -> torch.Tensor:
-    return torch.as_tensor(_head_mask(cfg), dtype=dtype, device=device)
+    with torch.inference_mode(False):
+        return torch.as_tensor(_head_mask(cfg), dtype=dtype, device=device)
 
 
 def _expand_kv(cfg, k):
@@ -152,7 +158,7 @@ def _attend(cfg, q, k, v, *, causal: bool, window: int):
     flash_gqa kernel on CUDA where it takes the shapes (k and v read
     through ``_kv_map``, never repeated), else the reference's algorithm;
     a CUDA call sent there is counted in ``FK.routed``."""
-    if q.device.type == "cuda":
+    if kernels.on_card(q):
         if FK.takes(q.shape, k.shape, v.shape, causal=causal,
                     window=window):
             return flash_ops.flash_gqa(q, k, v, causal=causal,

@@ -918,3 +918,73 @@ def test_new_family_prefill_on_the_card_matches_the_cpu(card, arch):
     want = _dense_prefill(cfg, "cpu", tree_map(lambda t: t.cpu(), params),
                           tokens.cpu(), frames)
     assert torch.allclose(got, want, rtol=1e-3, atol=1e-3)
+
+
+# -------------------------------------------------------------- training
+# one train step of each family at its smoke config in f32 (deepseek at
+# the published MLA head dims, which the kernel takes), B = 2, S = 64: the
+# launches of the step as launch/steps.py:train_launches works them out,
+# and card against CPU
+TRAIN_ARCHS = ("deepseek-v2-lite-16b", "glm4-9b",
+               "llama4-maverick-400b-a17b", "mamba2-2.7b", "qwen2-vl-7b",
+               "recurrentgemma-9b", "whisper-tiny")
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-5, 1e-3
+
+
+def _train_case(arch, dev):
+    """(bundle, params, batch) of ``arch``'s smoke config on ``dev``, the
+    same numbers on every device."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.smoke import smoke_config
+    from repro_torch.models.model import build_model
+    from repro_torch.models.modules import init_params, tree_map
+    cfg = (_deepseek_cfg(True) if arch == "deepseek-v2-lite-16b"
+           else smoke_config(arch))
+    bundle = build_model(cfg)
+    params = init_params(bundle.param_defs, torch.Generator().manual_seed(0),
+                         "cpu")
+    batch = init_params(bundle.batch_defs(ShapeConfig("t", 64, 2, "train")),
+                        None, "cpu")
+    rng = np.random.default_rng(1)
+    for k in ("tokens", "targets"):
+        batch[k] = torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, (2, 64)).astype(np.int32))
+    if "frames" in batch:
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            batch["frames"].shape).astype(np.float32))
+    move = lambda t: tree_map(lambda x: x.to(dev), t, is_leaf=torch.is_tensor)
+    return bundle, move(params), move(batch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_step_on_the_card_matches_the_cpu(card, arch):
+    from repro_torch.launch.steps import (grads_of, make_train_step,
+                                          train_launches)
+    from repro_torch.models.modules import tree_leaves
+    from repro_torch.runtime.optimizer import make_optimizer
+    (bundle, pc, bc), (_, pg, bg) = (_train_case(arch, "cpu"),
+                                     _train_case(arch, card))
+    (gc, mc), (gg, mg) = (grads_of(bundle.loss_fn, pc, bc),
+                          grads_of(bundle.loss_fn, pg, bg))
+    assert abs(float(mg["loss"]) - float(mc["loss"])) <= \
+        TRAIN_LOSS_TOL * abs(float(mc["loss"]))
+    for a, b in zip(tree_leaves(gg, torch.is_tensor),
+                    tree_leaves(gc, torch.is_tensor), strict=True):
+        a = a.cpu()
+        assert torch.isfinite(a).all()
+        assert float((a - b).abs().max()) <= TRAIN_GRAD_TOL * float(
+            b.abs().max())
+    # one step on the card: the kernels as worked out, none routed
+    opt = make_optimizer(bundle.cfg.optimizer)
+    state = {"params": pg, "opt": opt.init(pg),
+             "step": torch.zeros((), dtype=torch.int32, device=card)}
+    before = FK.launches, SK.launches, K.launches, FK.routed
+    state, m = make_train_step(bundle, opt)[0](state, bg)
+    torch.cuda.synchronize()
+    assert {"flash_gqa": FK.launches - before[0],
+            "ssd_scan": SK.launches - before[1],
+            "partition_pack": K.launches - before[2]} == train_launches(
+                bundle.cfg)
+    assert FK.routed == before[3]
+    assert int(state["step"]) == 1 and np.isfinite(float(m["loss"]))

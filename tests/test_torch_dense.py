@@ -268,15 +268,6 @@ def test_mlp_apply_matches_reference(arch, S):
           JT.mlp_apply(jcfg, pj, jnp.asarray(x), JaxSharder()))
 
 
-def test_unported_pieces_name_their_roadmap_item():
-    """Every family serves (llama4, griffin and whisper's cross attention
-    in tests/test_torch_{llama4,griffin,whisper}.py); training is not
-    ported."""
-    tcfg = smoke_config("glm4-9b")
-    with pytest.raises(NotImplementedError, match="A5"):
-        build_model(tcfg).loss_fn({}, {})
-
-
 def test_glm4_layer_at_full_width_matches_reference():
     """One glm4-9b layer at its published width (d_model 4096, 32 q heads
     over 2 kv heads of 128, partial rope, d_ff 13696) in f32: a prefill of

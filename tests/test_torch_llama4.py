@@ -288,7 +288,3 @@ def test_serve_cli_serves_llama4_on_cpu(capsys):
     assert f"{ARCH}: generated 3 tokens/seq on cpu" in out
     assert out.count("  seq") == 2
 
-
-def test_training_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A5"):
-        build_model(smoke_config(ARCH)).loss_fn({}, {})

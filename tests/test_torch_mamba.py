@@ -92,20 +92,6 @@ def test_param_cache_and_batch_defs_match_reference(smoke):
         assert param_bytes(tb.param_defs) == 4 * 2_702_599_680
 
 
-# the last families the port took up: moe without MLA (llama4), hybrid
-# (recurrentgemma) and audio (whisper) build and serve
-# (tests/test_torch_{llama4,griffin,whisper}.py); what they still lack is
-# training, which names its ROADMAP item
-@pytest.mark.parametrize("arch", sorted(
-    a for a in jax_registry()
-    if jax_get_config(a).family in ("moe", "hybrid", "audio")
-    and jax_get_config(a).attn_kind != "mla"))
-def test_unported_families_name_their_roadmap_item(arch):
-    bundle = build_model(smoke_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        bundle.loss_fn({}, {})
-
-
 def test_sharder_takes_no_mesh_yet():
     assert Sharder()(torch.ones(2), "batch") is not None
     with pytest.raises(NotImplementedError, match="A10"):
