@@ -155,6 +155,21 @@ Phases, each printing its own lines and seconds:
      routed calls; ms a step (host clock, synchronized; steps 2 and 3),
      tokens/s, peak memory, and the 4th step's device time by
      torch.profiler (busy, idle share, each kernel's ms).
+ 21. elastic phases: runtime/train_loop.ElasticTrainer on the card,
+     smollm-135m at full width and depth and mamba2-2.7b at full width and
+     4 layers, f32 parameters, bf16 compute, AdamW at lr 1e-3, 8 steps in
+     tasks of 2 on SyntheticCorpus batches of 4 x 512 tokens, checkpoints
+     of 4 shards in the host's object store: a clean run, a run whose
+     workers die at (task 1, step 3) and (task 2, step 4), each over its
+     own store (the first freed before the second), then a third trainer
+     over the finished store. The committed steps [2, 4, 6, 8] in both
+     runs, the losses finite and equal at rtol 0, atol 0, each kernel
+     launched ``train_launches`` times a step the run ran (8 and 9 steps),
+     0 routed, the last checkpoint restored on the CPU equal bit for bit
+     to the state the card saved, the third trainer committing nothing;
+     ms a step inside the trainer, each save's and restore's seconds and
+     virtual end, the checkpoint's bytes, the store's PUTs and GETs, the
+     host's peak RSS and the phase's seconds.
 Each path runs with every launch count set to 0 just before it and read
 just after; each phase prints its seconds and its peak device memory. It
 then prints the kernels line and, last, the device line. Any failure exits
@@ -166,6 +181,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import resource
 import subprocess
 import sys
 import time
@@ -204,10 +220,14 @@ from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.models.model import build_model, cast_params_  # noqa
 from repro_torch.models.modules import (  # noqa: E402
     Sharder, init_params, tree_leaves, tree_map)
+from repro_torch.objectstore.store import ObjectStore, StoreConfig  # noqa
 from repro_torch import planner as PL  # noqa: E402
 from repro_torch import workload as WL  # noqa: E402
 from repro_torch.obs.trace import from_chrome  # noqa: E402
+from repro_torch.runtime.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.runtime.optimizer import make_optimizer  # noqa: E402
+from repro_torch.runtime.train_loop import (  # noqa: E402
+    ElasticTrainer, JobConfig)
 from repro_torch.relational import ops as OPS  # noqa: E402
 from repro_torch.relational.table import DictColumn, decode_object  # noqa
 
@@ -331,6 +351,18 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 4, 512, 4, 1e-3
 # a train step's gradients card vs CPU: smollm-135m at full width and depth
 # in f32, on a batch the CPU takes in seconds
 TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 2, 256
+# the elastic phase (runtime/train_loop.ElasticTrainer on the card): the
+# configs' f32 parameters, bf16 compute, the trainer's AdamW at lr 1e-3,
+# SyntheticCorpus from the seed. (arch, layers; None = the published
+# depth): mamba2-2.7b at 4 of 64 layers, since a checkpoint holds 12 bytes
+# a parameter (f32 parameters and both moments) and the host's store holds
+# a run's four: 130 GB at 64 layers, 13.9 GB at 4
+ELASTIC_CELLS = ((SMOLLM_ARCH, None), ("mamba2-2.7b", 4))
+ELASTIC_JOB = JobConfig(steps_per_task=2, total_steps=8, batch=4, seq=512,
+                        ckpt_shards=4)
+# (task, step) where a worker dies, each once (examples/train_elastic.py):
+# task 1 loses the step it ran (2), task 2 dies before its first step
+ELASTIC_FAILS = ((1, 3), (2, 4))
 
 
 class SmokeFailure(Exception):
@@ -1712,6 +1744,171 @@ def train_phase(dev, arch: str, layers: int | None) -> dict:
     return launched
 
 
+# ----------------------------------------------------------------- elastic
+def peak_rss() -> int:
+    """The process's peak resident set in bytes since it started
+    (getrusage)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def instrumented(trainer: ElasticTrainer) -> dict:
+    """Wrap the trainer's step, save and restore with synchronized host
+    clocks; -> the lists they fill: each step's ms, each save's (s, won,
+    virtual end), each restore's (s, virtual end); and a copy on the card
+    of the state the last save wrote ("last_state", its leaves)."""
+    rec = {"step_ms": [], "saves": [], "restores": []}
+    step_fn, ckpt = trainer.step_fn, trainer.ckpt
+    save, restore = ckpt.save, ckpt.restore_state
+
+    def step(state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step_fn(state, batch)
+        torch.cuda.synchronize()
+        rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def saving(state, step_no, now=0.0):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        won, end = save(state, step_no, now)
+        rec["saves"].append((time.perf_counter() - t0, won, end))
+        if step_no == trainer.job.total_steps:
+            rec["last_state"] = [t.clone() for t in tree_leaves(
+                state, torch.is_tensor)]
+        return won, end
+
+    def restoring(template, step_no, now=0.0):
+        t0 = time.perf_counter()
+        state, end = restore(template, step_no, now)
+        rec["restores"].append((time.perf_counter() - t0, end))
+        return state, end
+
+    trainer.step_fn, ckpt.save, ckpt.restore_state = step, saving, restoring
+    return rec
+
+
+def elastic_run(cfg, dev, fails) -> tuple[ElasticTrainer, dict]:
+    """One ElasticTrainer run of ELASTIC_JOB on the card over a fresh
+    store, a worker dying once at each (task, step) of ``fails``. -> (the
+    trainer, its record: losses, timings, launches, store counts)."""
+    store = ObjectStore(StoreConfig(seed=0, simulate_visibility_lag=False))
+    left = set(fails)
+
+    def hook(task, step):
+        if (task, step) in left:
+            left.discard((task, step))
+            return True
+        return False
+    trainer = ElasticTrainer(build_model(cfg), store, ELASTIC_JOB, seed=SEED,
+                             failure_hook=hook, device=dev)
+    rec = instrumented(trainer)
+    zero_counts()
+    t0 = time.perf_counter()
+    log = trainer.run()
+    torch.cuda.synchronize()
+    rec.update(wall_s=time.perf_counter() - t0, log=log, launches=counts(),
+               routed=FK.routed, puts=store.stats.puts,
+               gets=store.stats.gets, deaths=len(fails) - len(left))
+    return trainer, rec
+
+
+def elastic_phase(dev, arch: str, layers: int | None) -> dict:
+    """The elastic trainer on the card (``ELASTIC_JOB``): a clean run, then
+    a run whose workers die at ``ELASTIC_FAILS``, each over its own store
+    (the clean one freed first), then a third trainer over the finished
+    store. Checks the committed steps [2, 4, 6, 8] in both runs, the
+    losses finite and equal at rtol 0, atol 0, each kernel launched
+    ``train_launches`` times a step the run actually ran (replayed steps
+    included), 0 routed, the last checkpoint restored on the CPU equal bit
+    for bit to the state the card saved, and the third trainer committing
+    nothing (no PUT). -> the launches of both runs."""
+    cfg = get_config(arch).replace(param_dtype=torch.float32,
+                                   compute_dtype=torch.bfloat16)
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
+    job, t_phase = ELASTIC_JOB, time.perf_counter()
+    rss_before = peak_rss()
+    trainer, clean = elastic_run(cfg, dev, ())
+    trainer.store.delete_all()
+    del trainer, clean["last_state"]
+    release()
+    trainer, recov = elastic_run(cfg, dev, ELASTIC_FAILS)
+    store, last = trainer.store, job.total_steps
+    prefix = f"ckpt/{cfg.name}/{last}/"
+    ckpt_bytes = sum(store.size(k) for k in store.keys()
+                     if k.startswith(prefix) and not k.endswith(".dw"))
+    # the card's last checkpoint restored on the CPU, against the state the
+    # card saved, bit for bit
+    t0 = time.perf_counter()
+    state, _ = CheckpointManager(store, cfg.name, n_shards=job.ckpt_shards
+                                 ).restore_state(trainer.state_defs, last)
+    cpu_same = all(
+        a.device.type == "cpu" and a.dtype == b.dtype and torch.equal(
+            a.reshape(-1).view(torch.uint8), b.cpu().reshape(-1).view(
+                torch.uint8))
+        for a, b in zip(tree_leaves(state, torch.is_tensor),
+                        recov.pop("last_state"), strict=True))
+    cpu_check_s = time.perf_counter() - t0
+    del state
+    # a third trainer over the finished store
+    puts = store.stats.puts
+    third = ElasticTrainer(trainer.bundle, store, job, seed=SEED, device=dev)
+    third_log = third.run()
+    third_puts = store.stats.puts - puts
+    store.delete_all()
+    del trainer, third, store
+    release()
+    per_step = train_launches(cfg)
+    runs = {"clean": clean, "recovered": recov}
+    out = {"arch": arch, "layers": cfg.num_layers, "job": dataclasses.asdict(
+        job), "fails": ELASTIC_FAILS, "checkpoint_bytes": ckpt_bytes,
+        "cpu_restore_same_bytes": cpu_same, "cpu_check_s": cpu_check_s,
+        "third_run_log": third_log, "third_run_puts": third_puts,
+        "peak_rss_before_bytes": rss_before,
+        "peak_rss_after_bytes": peak_rss()}
+    for name, r in runs.items():
+        steps = len(r["step_ms"])
+        r["expected_launches"] = {k: v * steps for k, v in per_step.items()}
+        out[name] = {
+            "steps": [m["step"] for m in r["log"]],
+            "losses": [m["loss"] for m in r["log"]],
+            "deaths": r["deaths"], "steps_run": steps,
+            "ms_a_step": sum(r["step_ms"]) / steps,
+            "step_ms_min_max": [min(r["step_ms"]), max(r["step_ms"])],
+            "save_s": [s for s, _, _ in r["saves"]],
+            "save_virtual_end_s": [e for _, _, e in r["saves"]],
+            "restore_s": [s for s, _ in r["restores"]],
+            "restore_virtual_end_s": [e for _, e in r["restores"]],
+            "store_puts": r["puts"], "store_gets": r["gets"],
+            "launches": r["launches"],
+            "expected_launches": r["expected_launches"],
+            "routed": r["routed"], "wall_s": r["wall_s"]}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print("[elastic] " + json.dumps(out), flush=True)
+    committed = [job.steps_per_task * (i + 1) for i in range(
+        job.total_steps // job.steps_per_task)]
+    for name, r in runs.items():
+        check([m["step"] for m in r["log"]] == committed,
+              f"{arch} {name}: committed steps "
+              f"{[m['step'] for m in r['log']]}, want {committed}")
+        check(all(np.isfinite(m["loss"]) for m in r["log"]),
+              f"{arch} {name}: a loss is not finite: {r['log']}")
+        check(r["launches"] == r["expected_launches"] and r["routed"] == 0,
+              f"{arch} {name}: launches {r['launches']}, want "
+              f"{r['expected_launches']}; {r['routed']} routed")
+    check(recov["deaths"] == len(ELASTIC_FAILS), f"{arch}: "
+          f"{recov['deaths']} of {len(ELASTIC_FAILS)} deaths injected")
+    check(out["clean"]["losses"] == out["recovered"]["losses"],
+          f"{arch}: the recovered run's losses {out['recovered']['losses']}"
+          f" differ from the clean run's {out['clean']['losses']}")
+    check(cpu_same, f"{arch}: the checkpoint of step {last} restored on "
+          "the CPU differs from the state the card saved")
+    check(third_log == [] and third_puts == 0, f"{arch}: the trainer over "
+          f"the finished store committed {third_log}, {third_puts} PUTs")
+    return {name: r["launches"] for name, r in runs.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1884,6 +2081,18 @@ def main() -> int:
         phase(f"{arch} train", t0)
     print(f"[phase] train phases: {time.perf_counter() - t_new:.3f} s",
           flush=True)
+
+    t_new = time.perf_counter()
+    elastic = {}
+    for arch, layers in ELASTIC_CELLS:
+        t0 = time.perf_counter()
+        print(f"[{arch}] allocated before its elastic phase: {release()} "
+              "bytes", flush=True)
+        for run, n in elastic_phase(dev, arch, layers).items():
+            elastic[f"elastic {arch} {run}"] = n
+        phase(f"{arch} elastic", t0)
+    print(f"[phase] elastic phases: {time.perf_counter() - t_new:.3f} s",
+          flush=True)
     pp_paths = {"query": launches, "workload": wl_launches,
                 "moe serve": moe_launches["partition_pack"],
                 f"{LLAMA4_ARCH} serve": new_paths[
@@ -1891,12 +2100,14 @@ def main() -> int:
                 f"train {MOE_ARCH}": train[f"train {MOE_ARCH}"][
                     "partition_pack"]}
     ssd_paths = {"serve": ssd_launches,
-                 "train mamba2-2.7b": train["train mamba2-2.7b"]["ssd_scan"]}
+                 "train mamba2-2.7b": train["train mamba2-2.7b"]["ssd_scan"],
+                 **{path: n["ssd_scan"] for path, n in elastic.items()
+                    if n["ssd_scan"]}}
     flash_paths = {"dense serve": flash_launches,
                    "moe serve": moe_launches["flash_gqa"],
                    **{path: n["flash_gqa"] for path, n in new_paths.items()},
-                   **{path: n["flash_gqa"] for path, n in train.items()
-                      if n["flash_gqa"]}}
+                   **{path: n["flash_gqa"] for path, n in {
+                       **train, **elastic}.items() if n["flash_gqa"]}}
 
     print(json.dumps({"kernels": [{
         "name": "partition_pack", "route": "cuda",

@@ -52,3 +52,42 @@ def kernel_call(launch, plain, *xs: torch.Tensor) -> tuple:
     if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
         return Recompute.apply(launch, plain, *xs)
     return tuple(launch(*xs))
+
+
+class _Select(torch.autograd.Function):
+    """forward: ``x.index_select(dim, index)``; backward: the gradient
+    rows of a repeated index added in a fixed order. On the CPU that is
+    ``index_select``'s own backward, ``index_add_``, which adds them in
+    index order. On CUDA ``index_add_`` adds them by float atomics, in the
+    order the threads land once there are more than 16 indices, so two
+    runs of one train step would differ in the last bits of such a
+    gradient; there ``index_put_(accumulate=True)`` sorts the indices and
+    adds each run of equal ones in order (as ``relational/ops.py:
+    _group_sum`` does, fault F3). On the CPU ``index_put_`` would add in
+    an order that depends on the thread count."""
+
+    @staticmethod
+    def forward(ctx, x, dim, index):
+        ctx.dim, ctx.size = dim, x.shape[dim]
+        ctx.save_for_backward(index)
+        return x.index_select(dim, index)
+
+    @staticmethod
+    def backward(ctx, g):
+        (index,) = ctx.saved_tensors
+        if g.device.type != "cuda":
+            shape = list(g.shape)
+            shape[ctx.dim] = ctx.size
+            return (g.new_zeros(shape).index_add_(ctx.dim, index, g), None,
+                    None)
+        g = g.movedim(ctx.dim, 0)
+        out = g.new_zeros((ctx.size,) + g.shape[1:])
+        out.index_put_((index.long(),), g, accumulate=True)
+        return out.movedim(0, ctx.dim), None, None
+
+
+def index_select(x: torch.Tensor, dim: int, index: torch.Tensor
+                 ) -> torch.Tensor:
+    """``x.index_select(dim, index)``, differentiable in ``x`` with a
+    backward that gives the same bits every run on any device."""
+    return _Select.apply(x, dim, index)

@@ -28,7 +28,7 @@ import threading
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._autograd import kernel_call
+from repro_torch.kernels._autograd import index_select, kernel_call
 from repro_torch.kernels.flash_gqa.ref import attention_ref
 
 launches = 0                      # flash_gqa() calls that launched the kernel
@@ -126,7 +126,7 @@ def plain(q, k, v, *, causal: bool = True, window: int = 0, kv_head=None):
     refuses)."""
     m = torch.tensor(check_args(q, k, v, window, kv_head, causal),
                      device=q.device)
-    return attention_ref(q, k.index_select(2, m), v.index_select(2, m),
+    return attention_ref(q, index_select(k, 2, m), index_select(v, 2, m),
                          causal=causal, window=window)
 
 

@@ -35,6 +35,7 @@ import math
 
 import torch
 
+from repro_torch.kernels._autograd import index_select
 from repro_torch.kernels.partition_pack import ops as pp_ops
 from repro_torch.models.modules import (ParamSpec, apply_norm, norm_defs,
                                         swiglu)
@@ -135,7 +136,7 @@ def dispatch(h: torch.Tensor, experts: torch.Tensor, num_experts: int,
     (packed,), _, slots = pp_ops.partition_pack_groups(
         [token], ids, n_parts=B * num_experts, capacity=capacity)
     rows = torch.cat([h.new_zeros(1, d), h.reshape(B * S, d)])
-    buf = rows.index_select(0, packed.reshape(-1))
+    buf = index_select(rows, 0, packed.reshape(-1))
     return buf.view(B, num_experts, capacity, d), ids, slots
 
 

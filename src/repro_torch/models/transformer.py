@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch import kernels
+from repro_torch.kernels._autograd import index_select
 from repro_torch.kernels.flash_gqa import flash_gqa as FK
 from repro_torch.kernels.flash_gqa import ops as flash_ops
 from repro_torch.models import attention as A
@@ -97,7 +98,7 @@ def _expand_kv(cfg, k):
     if Hq == cfg.num_heads and cfg.num_heads // max(cfg.num_kv_heads, 1) == 1 \
             and Hkv == cfg.num_kv_heads:
         return k
-    return k.index_select(2, _kv_index(cfg, k.device))
+    return index_select(k, 2, _kv_index(cfg, k.device))
 
 
 def _apply_head_mask(cfg, o):

@@ -1,3 +1,5 @@
 """Training runtime of the PyTorch port: the optimizers
-(``runtime/optimizer.py``). Data, checkpoints and the elastic trainer are
-not ported yet (ROADMAP A5b)."""
+(``runtime/optimizer.py``), the deterministic data pipeline
+(``runtime/data.py``, a copy of the reference's), checkpoints through the
+object store (``runtime/checkpoint.py``) and the elastic trainer
+(``runtime/train_loop.py``)."""

@@ -988,3 +988,109 @@ def test_train_step_on_the_card_matches_the_cpu(card, arch):
                 bundle.cfg)
     assert FK.routed == before[3]
     assert int(state["step"]) == 1 and np.isfinite(float(m["loss"]))
+
+
+# ------------------------------------------------------- elastic training
+# runtime/train_loop.ElasticTrainer on the card at the smoke configs of the
+# two elastic cells of chip_smoke.py: a clean run and a run whose workers
+# die at (task 1, step 3) and (task 2, step 4) must log the same losses bit
+# for bit, each kernel launched train_launches times a step the run ran
+ELASTIC_ARCHS = ("mamba2-2.7b", "smollm-135m")
+
+
+def _elastic_run(arch, dev, fails):
+    from repro_torch.configs.smoke import smoke_config
+    from repro_torch.models.model import build_model
+    from repro_torch.objectstore.store import ObjectStore, StoreConfig
+    from repro_torch.runtime.train_loop import ElasticTrainer, JobConfig
+    left = set(fails)
+
+    def hook(task, step):
+        if (task, step) in left:
+            left.discard((task, step))
+            return True
+        return False
+    trainer = ElasticTrainer(
+        build_model(smoke_config(arch)),
+        ObjectStore(StoreConfig(seed=0, simulate_visibility_lag=False)),
+        JobConfig(steps_per_task=2, total_steps=8, batch=4, seq=64),
+        failure_hook=hook, device=dev)
+    steps, step_fn = [], trainer.step_fn
+    trainer.step_fn = lambda s, b: (steps.append(1), step_fn(s, b))[1]
+    before = FK.launches, SK.launches, K.launches, FK.routed
+    log = trainer.run()
+    torch.cuda.synchronize()
+    launched = {"flash_gqa": FK.launches - before[0],
+                "ssd_scan": SK.launches - before[1],
+                "partition_pack": K.launches - before[2]}
+    assert not left and FK.routed == before[3]
+    return log, launched, len(steps), trainer.bundle.cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ELASTIC_ARCHS)
+def test_elastic_trainer_recovers_bit_exact_on_the_card(card, arch):
+    from repro_torch.launch.steps import train_launches
+    clean, n_clean, steps_clean, cfg = _elastic_run(arch, card, ())
+    recov, n_recov, steps_recov, _ = _elastic_run(arch, card,
+                                                  ((1, 3), (2, 4)))
+    assert [m["step"] for m in clean] == [m["step"] for m in recov] == \
+        [2, 4, 6, 8]
+    assert all(np.isfinite(m["loss"]) for m in clean)
+    np.testing.assert_allclose([m["loss"] for m in recov],
+                               [m["loss"] for m in clean], rtol=0, atol=0)
+    per_step = train_launches(cfg)
+    assert (steps_clean, steps_recov) == (8, 9)
+    assert n_clean == {k: v * 8 for k, v in per_step.items()}
+    assert n_recov == {k: v * 9 for k, v in per_step.items()}
+
+
+@pytest.mark.cuda
+def test_checkpoint_from_the_card_restores_on_the_cpu(card):
+    """A tree of f32, int32 and bf16 tensors saved from the card restores
+    on the CPU to the same bits, full and as the template's dtypes."""
+    from repro_torch.models.modules import tree_leaves
+    from repro_torch.objectstore.store import ObjectStore, StoreConfig
+    from repro_torch.runtime.checkpoint import CheckpointManager
+    g = torch.Generator(card).manual_seed(0)
+    state = {"w": torch.randn(37, 5, generator=g, device=card),
+             "b": [torch.randn(3, generator=g, device=card).bfloat16(),
+                   torch.arange(7, dtype=torch.int32, device=card)],
+             "step": torch.tensor(3, dtype=torch.int32, device=card)}
+    ck = CheckpointManager(ObjectStore(StoreConfig(
+        seed=0, simulate_visibility_lag=False)), "m", n_shards=4)
+    assert ck.save(state, 1)[0]
+    got, _ = ck.restore_state(state, 1)
+    for a, b in zip(tree_leaves(got, torch.is_tensor),
+                    tree_leaves(state, torch.is_tensor), strict=True):
+        assert a.device.type == "cpu" and a.dtype == b.dtype
+        assert torch.equal(a, b.cpu())
+
+
+# one train step's gradients twice from one state on the card: the same
+# bits. glm4-9b's smoke layers at its published heads (32 q over 2 kv, so
+# the kv gathers take more than 16 indices, above which index_add_ adds by
+# atomics in no fixed order) and deepseek's (the MoE dispatch gathers
+# B·E·C rows); kernels/_autograd.py:index_select adds in a fixed order
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "glm4-9b"])
+def test_train_step_gives_the_same_bits_every_run(card, arch):
+    from repro_torch.configs.smoke import smoke_config
+    from repro_torch.launch.steps import grads_of
+    from repro_torch.models.model import build_model
+    from repro_torch.models.modules import init_params, tree_leaves
+    cfg = (_deepseek_cfg(True) if arch == "deepseek-v2-lite-16b" else
+           smoke_config(arch).replace(num_heads=32, num_kv_heads=2))
+    bundle = build_model(cfg)
+    params = init_params(bundle.param_defs,
+                         torch.Generator(card).manual_seed(0), card)
+    seq = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (4, 65)).astype(np.int32)).to(card)
+    batch = {"tokens": seq[:, :-1].contiguous(),
+             "targets": seq[:, 1:].contiguous(),
+             "mask": torch.ones(4, 64, dtype=torch.int32, device=card)}
+    runs = [tree_leaves(grads_of(bundle.loss_fn, params, batch)[0],
+                        torch.is_tensor) for _ in range(3)]
+    for later in runs[1:]:
+        for a, b in zip(runs[0], later, strict=True):
+            assert torch.equal(a, b)

@@ -27,7 +27,7 @@ COPIES = ["core/format.py", "relational/tpch.py", "objectstore/latency.py",
           "workload/__init__.py", "planner/calibrate.py",
           "planner/model.py", "planner/sla.py", "planner/__init__.py",
           "obs/metrics.py", "obs/report.py", "obs/trace.py",
-          "obs/drift.py", "obs/__init__.py"]
+          "obs/drift.py", "obs/__init__.py", "runtime/data.py"]
 
 # the arch configs are pure data; their dtypes are torch's
 CONFIGS = ["configs/deepseek_v2_lite.py", "configs/glm4_9b.py",
@@ -230,9 +230,14 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
 def test_no_reference_imports_in_source():
     pat = re.compile(r"^\s*(import|from)\s+(jax\b|repro\b(?!_torch))",
                      re.MULTILINE)
-    files = list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    examples = sorted((ROOT / "examples" / "torch").glob("*.py"))
+    assert len(examples) == 4
+    files = list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + examples
     hits = [f"{f}: {m.group(0).strip()}" for f in files
             for m in pat.finditer(f.read_text())]
+    # nor does an example start the reference's modules by name
+    hits += [f"{f}: {m.group(0)}" for f in examples
+             for m in re.finditer(r"\brepro\.\w+", f.read_text())]
     assert not hits, hits
 
 
