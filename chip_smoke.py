@@ -200,9 +200,11 @@ from repro_torch.core.session import QuerySpec, Session  # noqa: E402
 from repro_torch.faults.journal import Journal  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_gqa import flash_gqa as FK  # noqa: E402
+from repro_torch.kernels.flash_gqa import ops as FLASH_OPS  # noqa: E402
 from repro_torch.kernels.flash_gqa.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.partition_pack import partition_pack as K  # noqa
 from repro_torch.kernels.partition_pack import ref as pp_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as SSD_OPS  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan as SK  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -363,6 +365,23 @@ ELASTIC_JOB = JobConfig(steps_per_task=2, total_steps=8, batch=4, seq=512,
 # (task, step) where a worker dies, each once (examples/train_elastic.py):
 # task 1 loses the step it ran (2), task 2 dies before its first step
 ELASTIC_FAILS = ((1, 3), (2, 4))
+
+
+# the [dryrun] phase: step 1 holds the step analysis
+# (launch/step_analysis.py) of a real step on the card against the same
+# step on meta tensors: FLOPs equal, HBM bytes within DRYRUN_BYTES_TOL,
+# the meta peak within DRYRUN_PEAK_TOL of max_memory_allocated. Steps:
+# (arch, kind, layers; None = the published depth), at TRAIN_BATCH x
+# TRAIN_SEQ; the train steps are the train phases' cells (f32 parameters
+# and AdamW state, bf16 compute), the prefill the dense serve cell's
+# (bf16 weights). Then two production cells of launch/dryrun.py on the
+# host, on meshes over a fake process group, with nothing on the card
+DRYRUN_STEPS = ((SMOLLM_ARCH, "train", None), ("mamba2-2.7b", "train", None),
+                (MOE_ARCH, "train", MOE_PARITY_LAYERS),
+                (DENSE_ARCH, "prefill", None))
+DRYRUN_BYTES_TOL, DRYRUN_PEAK_TOL = 0.01, 0.10
+DRYRUN_CELLS = (("glm4-9b", "train_4k", "single"),
+                ("mamba2-2.7b", "long_500k", "multi"))
 
 
 class SmokeFailure(Exception):
@@ -952,22 +971,6 @@ def ssd_inputs(B, S, H, P, G, N, seed, dev, dtype=torch.float32):
     return (t(x).to(dtype), t(dt), t(A), t(Bm).to(dtype), t(Cm).to(dtype))
 
 
-def ssd_bound(B, S, H, P, G, N, chunk, elem_bytes):
-    """(flops, bytes) the function needs: the causal triangle of C.B^T once
-    per (b, group, chunk), as it does not depend on the head; per (b*h,
-    chunk) the triangle of S.(x*dt), and C.state and B^T.(x*dt) in full;
-    each input read once, each output written once, at model layout."""
-    Q = min(chunk, S)
-    tri = Q * (Q + 1) // 2
-    flops = B * (S // Q) * (G * 2 * tri * N
-                            + H * (2 * tri * P + 4 * Q * N * P))
-    nbytes = (2 * B * S * H * P * elem_bytes          # x read, y written
-              + 4 * B * S * H + 4 * H                 # dt, A
-              + 2 * B * S * G * N * elem_bytes        # Bm, Cm
-              + 4 * B * H * P * N)                    # state written
-    return flops, nbytes
-
-
 def ssd_case(label, shape, dev, dtype=torch.float32, timed=False) -> dict:
     """Kernel vs plain on the card: y and state within rtol = atol = 2e-4
     in f32; in bf16 the state so too and y within one bf16 step (2^-7
@@ -989,7 +992,9 @@ def ssd_case(label, shape, dev, dtype=torch.float32, timed=False) -> dict:
            "max_abs_err_y": float((y.float() - y_r.float()).abs().max()),
            "max_abs_err_state": float((st - st_r).abs().max())}
     if timed:
-        flops, nbytes = ssd_bound(*shape, y.element_size())
+        flops, nbytes = SSD_OPS.work((B, S, H, P), (B, S, G, N),
+                                     chunk=chunk,
+                                     elem_bytes=y.element_size())
         rec.update(
             kernel_ms=time_ms(lambda: SK.ssd_scan(*args, chunk=chunk)),
             plain_ms=time_ms(lambda: ssd_chunked(*args, chunk)),
@@ -1439,25 +1444,6 @@ def flash_inputs(B, S, H, Hkv, D, seed, dev, dtype, Dv=None, Sq=None):
             for a in arrs]
 
 
-def flash_bound(B, Sq, Skv, H, Hkv, D, causal, window, elem_bytes,
-                Dv=None):
-    """(flops, bytes) the function needs: q.k (2*D FLOP) and p.v (2*Dv
-    FLOP) for every (query, key) pair the masks leave, per (b, h): the
-    causal triangle, within the window where there is one (causal and
-    window imply Sq == Skv), and all Sq x Skv pairs with no mask; q and o
-    (Sq rows) and k and v (Skv rows, at kv-head layout) read or written
-    once."""
-    Dv = Dv or D
-    pairs = 0
-    for i in range(Sq):
-        lo = max(0, i - window + 1) if window > 0 else 0
-        pairs += (i + 1 if causal else Skv) - lo
-    flops = 2 * (D + Dv) * pairs * B * H
-    nbytes = (B * Sq * H * (D + Dv) + B * Skv * Hkv * (D + Dv)) \
-        * elem_bytes + 4 * H
-    return flops, nbytes
-
-
 def flash_case(shape, dev, dtype, timed=False, dv=None, sq=None) -> dict:
     """Kernel vs plain on the card: |o - want| <= tol + tol * |want|, tol
     2e-5 in f32, 2e-2 in bf16 (the Pallas kernel test's); ``dv``: v's head
@@ -1516,8 +1502,9 @@ def flash_case(shape, dev, dtype, timed=False, dv=None, sq=None) -> dict:
         check(lib_err <= tol + tol * float(want.float().abs().max()),
               f"flash {label}: the library yardstick computes something "
               f"else ({lib_err})")
-        flops, nbytes = flash_bound(B, Sq, S, H, Hkv, D, causal, window,
-                                    q.element_size(), dv)
+        flops, nbytes = FLASH_OPS.work(q.shape, k.shape, v.shape,
+                                       causal=causal, window=window,
+                                       elem_bytes=q.element_size())
         peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
         rec.update(kernel_ms=time_ms(kernel), plain_ms=time_ms(plain),
                    library_ms=time_ms(library), library_max_abs_err=lib_err,
@@ -1909,6 +1896,117 @@ def elastic_phase(dev, arch: str, layers: int | None) -> dict:
     return {name: r["launches"] for name, r in runs.items()}
 
 
+# ------------------------------------------------------------------ dryrun
+def dryrun_phase(dev, card: str) -> dict:
+    """Step 1: for each of DRYRUN_STEPS, ``launch/dryrun.card_check`` (a
+    warm-up, two timed steps and one analyzed step on the card, then the
+    same step analyzed on meta tensors): the same FLOPs exactly, HBM
+    bytes within DRYRUN_BYTES_TOL, the meta peak within DRYRUN_PEAK_TOL
+    of ``max_memory_allocated`` during the analyzed step, and so the
+    step's own peak above its arguments (above what the card held before
+    it), the same kernel calls, each kernel launched ``train_launches``
+    (``prefill_launches``) times a step on the card and 0 attention calls
+    routed. One line a step with model FLOPs, analyzed FLOPs, the useful
+    ratio, the measured step time and model FLOPs / step time / the bf16
+    peak (printed, not gated). Step 2: DRYRUN_CELLS through
+    ``launch/dryrun.run_cell`` on the host (records under dryrun_out/),
+    one line a cell, nothing launched or allocated on the card. -> the
+    kernels' launches by step."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun as DR
+    launched = {}
+    for arch, kind, layers in DRYRUN_STEPS:
+        t0 = time.perf_counter()
+        print(f"[{arch}] allocated before its dryrun step: {release()} "
+              "bytes", flush=True)
+        cfg = get_config(arch).replace(
+            compute_dtype=torch.bfloat16,
+            param_dtype=torch.float32 if kind == "train" else torch.bfloat16)
+        if layers is not None:
+            cfg = cfg.replace(num_layers=layers)
+        zero_counts()
+        r = DR.card_check(cfg, ShapeConfig(kind, TRAIN_SEQ, TRAIN_BATCH,
+                                           kind), dev, seed=SEED)
+        n = launched[f"dryrun {arch} {kind}"] = counts()
+        routed = FK.routed
+        per_step = (train_launches if kind == "train" else
+                    prefill_launches)(cfg)
+        want = {k: v * r["card_steps"] for k, v in per_step.items()}
+        c, m = r["card"], r["meta"]
+        # what the step itself allocates above what it was handed: on the
+        # card above all that was allocated before it, on meta above its
+        # arguments
+        own_card = r["card_peak_bytes"] - r["allocated_before"]
+        own_meta = m["peak_bytes"] - m["argument_bytes"]
+        rec = {"card": card, "arch": arch, "kind": kind,
+               "layers": cfg.num_layers, "batch": TRAIN_BATCH,
+               "seq": TRAIN_SEQ, "model_flops": r["model_flops"],
+               "flops_card": c["flops"], "flops_meta": m["flops"],
+               "useful_flops_ratio": r["model_flops"] / m["flops"],
+               "bytes_card": c["memory_bytes"],
+               "bytes_meta": m["memory_bytes"],
+               "bytes_rel_gap": abs(c["memory_bytes"] - m["memory_bytes"])
+               / m["memory_bytes"],
+               "kernel_calls_card": c["kernel_calls"],
+               "kernel_calls_meta": m["kernel_calls"],
+               "argument_bytes_card": c["argument_bytes"],
+               "argument_bytes_meta": m["argument_bytes"],
+               "allocated_before": r["allocated_before"],
+               "peak_card": r["card_peak_bytes"], "peak_meta": m["peak_bytes"],
+               "peak_rel_gap": (m["peak_bytes"] - r["card_peak_bytes"])
+               / r["card_peak_bytes"],
+               "step_peak_card": own_card, "step_peak_meta": own_meta,
+               "step_peak_rel_gap": (own_meta - own_card) / own_card,
+               "step_ms": r["step_s"] * 1e3,
+               "model_flops_share_of_bf16_peak":
+                   r["model_flops"] / r["step_s"] / BF16_FLOP_PER_S,
+               "launches": n, "expected_launches": want, "routed": routed,
+               "s": time.perf_counter() - t0}
+        print("[dryrun] " + json.dumps(rec), flush=True)
+        what = f"dryrun {arch} {kind}"
+        check(c["flops"] == m["flops"], f"{what}: {c['flops']} FLOPs on "
+              f"the card, {m['flops']} on meta")
+        check(rec["bytes_rel_gap"] <= DRYRUN_BYTES_TOL,
+              f"{what}: HBM bytes {c['memory_bytes']} on the card, "
+              f"{m['memory_bytes']} on meta")
+        check(abs(rec["peak_rel_gap"]) <= DRYRUN_PEAK_TOL,
+              f"{what}: meta peak {m['peak_bytes']}, max_memory_allocated "
+              f"{r['card_peak_bytes']}")
+        check(abs(rec["step_peak_rel_gap"]) <= DRYRUN_PEAK_TOL,
+              f"{what}: the step's own peak {own_meta} on meta (its peak "
+              f"less its arguments), {own_card} on the card "
+              "(max_memory_allocated less memory_allocated before it)")
+        check(c["kernel_calls"] == m["kernel_calls"]
+              and sum(c["kernel_calls"].values()) > 0,
+              f"{what}: kernel calls {c['kernel_calls']} on the card, "
+              f"{m['kernel_calls']} on meta")
+        check(n == want and routed == 0, f"{what}: launches {n}, want "
+              f"{want} ({r['card_steps']} steps on the card); {routed} "
+              "attention calls routed to the plain path")
+    before = torch.cuda.memory_allocated()
+    for arch, shape, mesh in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        zero_counts()
+        rec = DR.run_cell(arch, shape, mesh)
+        print(f"[dryrun cell] {arch} x {shape} x {mesh}: {DR.line(rec)}",
+              flush=True)
+        print("[dryrun cell] " + json.dumps({"card": card, **rec}),
+              flush=True)
+        check(all(v == 0 for v in counts().values())
+              and torch.cuda.memory_allocated() == before,
+              f"dryrun cell {arch} x {shape}: launched {counts()} or "
+              "allocated on the card")
+        check(rec["cost"]["flops_per_device"] > 0
+              and rec["roofline"]["step_time_lower_bound_s"] > 0,
+              f"dryrun cell {arch} x {shape}: an empty analysis")
+        print(f"[phase] dryrun cell {arch} x {shape} x {mesh}: "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2093,21 +2191,27 @@ def main() -> int:
         phase(f"{arch} elastic", t0)
     print(f"[phase] elastic phases: {time.perf_counter() - t_new:.3f} s",
           flush=True)
+    t0 = time.perf_counter()
+    dryrun = dryrun_phase(dev, smi)
+    phase("dryrun", t0)
     pp_paths = {"query": launches, "workload": wl_launches,
                 "moe serve": moe_launches["partition_pack"],
                 f"{LLAMA4_ARCH} serve": new_paths[
                     f"{LLAMA4_ARCH} serve"]["partition_pack"],
                 f"train {MOE_ARCH}": train[f"train {MOE_ARCH}"][
-                    "partition_pack"]}
+                    "partition_pack"],
+                **{path: n["partition_pack"] for path, n in dryrun.items()
+                   if n["partition_pack"]}}
     ssd_paths = {"serve": ssd_launches,
                  "train mamba2-2.7b": train["train mamba2-2.7b"]["ssd_scan"],
-                 **{path: n["ssd_scan"] for path, n in elastic.items()
-                    if n["ssd_scan"]}}
+                 **{path: n["ssd_scan"] for path, n in {
+                     **elastic, **dryrun}.items() if n["ssd_scan"]}}
     flash_paths = {"dense serve": flash_launches,
                    "moe serve": moe_launches["flash_gqa"],
                    **{path: n["flash_gqa"] for path, n in new_paths.items()},
                    **{path: n["flash_gqa"] for path, n in {
-                       **train, **elastic}.items() if n["flash_gqa"]}}
+                       **train, **elastic, **dryrun}.items()
+                          if n["flash_gqa"]}}
 
     print(json.dumps({"kernels": [{
         "name": "partition_pack", "route": "cuda",

@@ -64,7 +64,8 @@ class _Select(torch.autograd.Function):
     gradient; there ``index_put_(accumulate=True)`` sorts the indices and
     adds each run of equal ones in order (as ``relational/ops.py:
     _group_sum`` does, fault F3). On the CPU ``index_put_`` would add in
-    an order that depends on the thread count."""
+    an order that depends on the thread count. The meta device (the dry
+    run) takes the CUDA path, as it stands in for the card."""
 
     @staticmethod
     def forward(ctx, x, dim, index):
@@ -75,7 +76,7 @@ class _Select(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (index,) = ctx.saved_tensors
-        if g.device.type != "cuda":
+        if g.device.type not in ("cuda", "meta"):
             shape = list(g.shape)
             shape[ctx.dim] = ctx.size
             return (g.new_zeros(shape).index_add_(ctx.dim, index, g), None,

@@ -11,7 +11,8 @@ Sq == Skv, as the Pallas kernel has no query offset. bf16 runs on the
 tensor cores, f32 on the f32 pipes.
 It checks device, dtype, shape, contiguity, alignment and the map,
 allocates the output, launches on the current stream, checks the error
-code, and counts one launch per call in ``launches``. Where grad is needed
+code, and counts one launch per call in ``launches``. On the meta device
+(the dry run) the launch is shape-only: the checks and the output. Where grad is needed
 the call runs inside an autograd Function whose backward is the plain
 version's (``kernels/_autograd.py``).
 
@@ -150,8 +151,17 @@ def flash_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     last ``window`` positions (``window`` > 0). Differentiable in q, k and
     v through the plain version."""
     kw = {"causal": causal, "window": window, "kv_head": kv_head}
-    return kernel_call(lambda *t: (_launch(*t, **kw),),
+    launch = _shape_only if q.device.type == "meta" else _launch
+    return kernel_call(lambda *t: (launch(*t, **kw),),
                        lambda *t: (plain(*t, **kw),), q, k, v)[0]
+
+
+def _shape_only(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                causal: bool, window: int, kv_head) -> torch.Tensor:
+    """The launch on the meta device: the checks and the output a launch
+    allocates, nothing computed and nothing counted."""
+    check_args(q, k, v, window, kv_head, causal)
+    return q.new_empty((*q.shape[:3], v.shape[3]))
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -1,10 +1,38 @@
 """Public flash_gqa entry point in model layout: the CUDA kernel for CUDA
-tensors, the plain materialized attention for CPU tensors, nothing else.
-Both take the same arguments and refuse the same ones (``ValueError``)."""
+tensors, a shape-only launch for meta tensors (the dry run's stand-in for
+the card), the plain materialized attention for CPU tensors, nothing else.
+All take the same arguments and refuse the same ones (``ValueError``).
+DTensors (a mesh's dry run) run the entry on their local shards, after
+redistributing q, k and v to a layout that is local to the kernel
+(``_on_mesh``). ``work`` is the function's closed-form FLOPs and bytes."""
 from __future__ import annotations
+
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch import kernels
 from repro_torch.kernels.flash_gqa import flash_gqa as K
+
+
+def work(q_shape, k_shape, v_shape, *, causal: bool = True, window: int = 0,
+         elem_bytes: int = 2) -> tuple[int, int]:
+    """(flops, bytes) the function needs: q.k (2*D FLOP) and p.v (2*Dv
+    FLOP) for every (query, key) pair the masks leave, per (b, h): the
+    causal triangle, within the window where there is one (causal and
+    window imply Sq == Skv), and all Sq x Skv pairs with no mask; q and o
+    (Sq rows) and k and v (Skv rows, at kv-head layout) read or written
+    once, and the H-entry int32 head map."""
+    B, Sq, H, D = q_shape
+    Skv, Hkv, Dv = k_shape[1], k_shape[2], v_shape[3]
+    # query i sees keys [lo_i, hi_i): hi_i = i + 1 (causal) or Skv, lo_i =
+    # max(0, i - window + 1) with a window, else 0
+    pairs = Sq * (Sq + 1) // 2 if causal else Sq * Skv
+    if window > 0:
+        n = max(0, Sq - window)
+        pairs -= n * (n + 1) // 2
+    flops = 2 * (D + Dv) * pairs * B * H
+    nbytes = (B * Sq * H * (D + Dv) + B * Skv * Hkv * (D + Dv)) \
+        * elem_bytes + 4 * H
+    return flops, nbytes
 
 
 def flash_gqa(q, k, v, *, causal: bool = True, window: int = 0,
@@ -13,9 +41,46 @@ def flash_gqa(q, k, v, *, causal: bool = True, window: int = 0,
     neither ``causal`` nor ``window``); ``kv_head`` maps query head h to
     its kv head (host ints; default h // (H / Hkv)). -> o [B,Sq,H,Dv] in
     q's dtype."""
-    if kernels.on_card(q):
-        return K.flash_gqa(q.contiguous(), k.contiguous(), v.contiguous(),
-                           causal=causal, window=window, kv_head=kv_head)
+    if isinstance(q, DTensor):
+        return _on_mesh(q, k, v, causal=causal, window=window,
+                        kv_head=kv_head)
+    if kernels.kernel_route(q):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        with kernels.entry("flash_gqa", lambda: work(
+                q.shape, k.shape, v.shape, causal=causal, window=window,
+                elem_bytes=q.element_size())):
+            return K.flash_gqa(q, k, v, causal=causal, window=window,
+                               kv_head=kv_head)
     if q.device.type != "cpu":
         raise ValueError(f"flash_gqa has no path for {q.device}")
     return K.plain(q, k, v, causal=causal, window=window, kv_head=kv_head)
+
+
+def _on_mesh(q, k, v, *, causal, window, kv_head):
+    """The call on DTensors: on each mesh dim, q, k and v keep a batch
+    split where q has one (k and v take it too), q keeps a head split (k
+    and v are gathered whole, and each device maps its own q heads); any
+    other layout is gathered first. The entry then runs on the local
+    shards, and o has q's layout."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    m = K.check_args(q, k, v, window, kv_head, causal)
+    mesh = q.device_mesh
+    qp, kp = [], []
+    for p in q.placements:
+        if p == Shard(0):
+            qp.append(Shard(0))
+            kp.append(Shard(0))
+        elif p == Shard(2):
+            qp.append(Shard(2))
+            kp.append(Replicate())
+        else:
+            qp.append(Replicate())
+            kp.append(Replicate())
+    q = q.redistribute(mesh, qp)
+    k, v = (t.redistribute(mesh, kp) for t in (k, v))
+    local, offset = compute_local_shape_and_global_offset(q.shape, mesh, qp)
+    heads = m[offset[2]:offset[2] + local[2]]
+    o = flash_gqa(q.to_local(), k.to_local(), v.to_local(), causal=causal,
+                  window=window, kv_head=heads)
+    return kernels.from_local(o, mesh, qp, (*q.shape[:3], v.shape[3]))

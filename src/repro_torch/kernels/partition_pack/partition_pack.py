@@ -21,7 +21,9 @@ status words live in a ``Workspace`` per (device, stream), which the
 module lock serializes. Where grad is needed (a float row group that
 requires it) a call runs inside an autograd Function whose backward is the
 plain version's (``kernels/_autograd.py``): the float row groups get the
-gradient, the ids, counts and slots none.
+gradient, the ids, counts and slots none. On the meta device (the dry run)
+a ``pack`` call is shape-only: it allocates the outputs and computes
+nothing.
 """
 from __future__ import annotations
 
@@ -234,8 +236,12 @@ def pack(groups: list[torch.Tensor], part_ids: torch.Tensor, n_parts: int,
     n = len(groups)
 
     def launch(*t):
-        bufs, counts, slots = _launch_pack_call(list(t[:n]), t[n], n_parts,
-                                                capacity, clocks)
+        if part_ids.device.type == "meta":
+            bufs, counts, slots = _shape_only(list(t[:n]), t[n], n_parts,
+                                              capacity)
+        else:
+            bufs, counts, slots = _launch_pack_call(list(t[:n]), t[n],
+                                                    n_parts, capacity, clocks)
         return (*bufs, counts, slots)
 
     def plain(*t):
@@ -245,6 +251,17 @@ def pack(groups: list[torch.Tensor], part_ids: torch.Tensor, n_parts: int,
 
     *bufs, counts, slots = kernel_call(launch, plain, *groups, part_ids)
     return bufs, counts, slots
+
+
+def _shape_only(groups: list[torch.Tensor], part_ids: torch.Tensor,
+                n_parts: int, capacity: int):
+    """A ``pack`` call on the meta device (the dry run): the outputs a
+    launch allocates, nothing computed and nothing counted."""
+    dev = part_ids.device
+    return ([torch.empty((n_parts, capacity, g.shape[1]), dtype=g.dtype,
+                         device=dev) for g in groups],
+            torch.empty(n_parts, dtype=torch.int32, device=dev),
+            torch.empty(part_ids.shape[0], dtype=torch.int32, device=dev))
 
 
 def _launch_pack_call(groups: list[torch.Tensor], part_ids: torch.Tensor,

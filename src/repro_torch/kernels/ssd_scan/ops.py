@@ -1,10 +1,37 @@
 """Public ssd_scan entry point in model layout: the CUDA kernel for CUDA
-tensors, the plain chunked SSD for CPU tensors, nothing else."""
+tensors, a shape-only launch for meta tensors (the dry run's stand-in for
+the card), the plain chunked SSD for CPU tensors, nothing else. DTensors
+(a mesh's dry run) run the entry on their local shards, after
+redistributing the inputs to a layout that is local to the kernel
+(``_on_mesh``). ``work`` is the function's closed-form FLOPs and bytes."""
 from __future__ import annotations
+
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch import kernels
 from repro_torch.kernels.ssd_scan import ssd_scan as K
 from repro_torch.models.mamba2 import ssd_chunked
+
+
+def work(x_shape, bc_shape, *, chunk: int, elem_bytes: int
+         ) -> tuple[int, int]:
+    """(flops, bytes) the function needs for x [B,S,H,P] and Bm/Cm
+    [B,S,G,N]: the causal triangle of C.B^T once per (b, group, chunk), as
+    it does not depend on the head; per (b*h, chunk) the triangle of
+    S.(x*dt), and C.state and B^T.(x*dt) in full; each input read once,
+    each output written once, at model layout (x, Bm, Cm and y in
+    ``elem_bytes``, dt, A and the state in f32)."""
+    B, S, H, P = x_shape
+    G, N = bc_shape[2], bc_shape[3]
+    Q = min(chunk, S)
+    tri = Q * (Q + 1) // 2
+    flops = B * (S // Q) * (G * 2 * tri * N
+                            + H * (2 * tri * P + 4 * Q * N * P))
+    nbytes = (2 * B * S * H * P * elem_bytes          # x read, y written
+              + 4 * B * S * H + 4 * H                 # dt, A
+              + 2 * B * S * G * N * elem_bytes        # Bm, Cm
+              + 4 * B * H * P * N)                    # state written
+    return flops, nbytes
 
 
 def ssd(x, dt, A, Bm, Cm, *, chunk: int = 128):
@@ -15,9 +42,43 @@ def ssd(x, dt, A, Bm, Cm, *, chunk: int = 128):
     if x.shape[1] % Q:
         raise ValueError(f"sequence {x.shape[1]} does not divide into "
                          f"chunks of {Q}")
-    if kernels.on_card(x):
-        return K.ssd_scan(x.contiguous(), dt.contiguous(), A.contiguous(),
-                          Bm.contiguous(), Cm.contiguous(), chunk=Q)
+    if isinstance(x, DTensor):
+        return _on_mesh(x, dt, A, Bm, Cm, chunk=Q)
+    if kernels.kernel_route(x):
+        args = [t.contiguous() for t in (x, dt, A, Bm, Cm)]
+        with kernels.entry("ssd_scan", lambda: work(
+                x.shape, Bm.shape, chunk=Q, elem_bytes=x.element_size())):
+            return K.ssd_scan(*args, chunk=Q)
     if x.device.type != "cpu":
         raise ValueError(f"ssd has no path for {x.device}")
     return ssd_chunked(x, dt, A, Bm, Cm, Q)
+
+
+def _on_mesh(x, dt, A, Bm, Cm, *, chunk: int):
+    """The call on DTensors: on each mesh dim, a batch split of x is kept
+    (dt, Bm and Cm take it too); a head split is kept where the heads
+    share one group of B and C (dt and A take it, Bm and Cm are gathered
+    whole); any other layout is gathered first. The entry then runs on the
+    local shards; y has x's layout, the state its batch or head split."""
+    mesh = x.device_mesh
+    one_group = Bm.shape[2] == 1
+    lay = {"x": [], "dt": [], "A": [], "bc": [], "state": []}
+    for p in x.placements:
+        if p == Shard(0):
+            got = (Shard(0), Shard(0), Replicate(), Shard(0), Shard(0))
+        elif p == Shard(2) and one_group:
+            got = (Shard(2), Shard(2), Shard(0), Replicate(), Shard(1))
+        else:
+            got = (Replicate(),) * 5
+        for key, g in zip(lay, got):
+            lay[key].append(g)
+    x = x.redistribute(mesh, lay["x"])
+    dt = dt.redistribute(mesh, lay["dt"])
+    A = A.redistribute(mesh, lay["A"])
+    Bm, Cm = (t.redistribute(mesh, lay["bc"]) for t in (Bm, Cm))
+    y, state = ssd(x.to_local(), dt.to_local(), A.to_local(), Bm.to_local(),
+                   Cm.to_local(), chunk=chunk)
+    B, _, H, P = x.shape
+    return (kernels.from_local(y, mesh, lay["x"], x.shape),
+            kernels.from_local(state, mesh, lay["state"],
+                               (B, H, P, Bm.shape[3])))

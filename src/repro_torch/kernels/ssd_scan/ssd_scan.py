@@ -10,6 +10,8 @@ chunk's decay), runs the four CUDA kernels of one call on the current
 stream, checks the error code, and counts one launch per call in
 ``launches``. Where grad is needed the call runs inside an autograd
 Function whose backward is the plain version's (``kernels/_autograd.py``).
+On the meta device (the dry run) a call is shape-only: it allocates what
+a launch does and computes nothing.
 """
 from __future__ import annotations
 
@@ -48,9 +50,31 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     bf16 alike. -> (y [B,S,H,P] in x's dtype, state [B,H,P,N] f32), with
     chunks of min(chunk, S) rows. Differentiable in every input through
     the plain version (``ssd_chunked``)."""
-    return kernel_call(lambda *t: _launch(*t, chunk=chunk),
+    launch = _shape_only if x.device.type == "meta" else _launch
+    return kernel_call(lambda *t: launch(*t, chunk=chunk),
                        lambda *t: ssd_chunked(*t, min(chunk, t[0].shape[1])),
                        x, dt, A, Bm, Cm)
+
+
+def _outputs(x: torch.Tensor, Bm: torch.Tensor, chunk: int) -> tuple:
+    """What a call allocates: y, the final state and the f32 scratch (C.B^T
+    per chunk and group, each chunk's state, each chunk's decay)."""
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    Q = min(chunk, S)
+    nc = S // Q
+    f32 = {"dtype": torch.float32, "device": x.device}
+    return (torch.empty_like(x), torch.empty((B, H, P, N), **f32),
+            torch.empty((B, nc, G, Q, Q), **f32),
+            torch.empty((B, nc, H, P, N), **f32),
+            torch.empty((B, H, nc), **f32))
+
+
+def _shape_only(x, dt, A, Bm, Cm, *, chunk: int):
+    """The call on the meta device: what a launch allocates, nothing
+    computed and nothing counted."""
+    y, state, *_ = _outputs(x, Bm, chunk)
+    return y, state
 
 
 def _launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -88,13 +112,7 @@ def _launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             f"that divide S, a state of at most {lib.ssd_max_state()} and "
             f"groups that divide the heads; got S={S} chunk={Q} N={N} "
             f"H={H} G={G}")
-    nc = S // Q
-    y = torch.empty_like(x)
-    state = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
-    f32 = {"dtype": torch.float32, "device": dev}
-    cb = torch.empty((B, nc, G, Q, Q), **f32)          # C.B^T, lower tiles
-    states = torch.empty((B, nc, H, P, N), **f32)      # per-chunk states
-    csl = torch.empty((B, H, nc), **f32)               # cumsum(dt*A) totals
+    y, state, cb, states, csl = _outputs(x, Bm, chunk)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ssd_scan(_DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(),

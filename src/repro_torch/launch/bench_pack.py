@@ -24,6 +24,7 @@ import warnings
 
 import torch
 
+from repro_torch.kernels.partition_pack import ops as pp_ops
 from repro_torch.kernels.partition_pack import partition_pack as K
 from repro_torch.relational import ops as OPS
 
@@ -132,11 +133,10 @@ def host_ms(fn, iters: int = 20) -> float:
 
 
 def pack_bytes(groups, T: int, n_parts: int, capacity: int) -> int:
-    """Bytes ``pack`` must move: ids and rows read once, slots, counts and
-    buf written once."""
+    """Bytes ``pack`` must move (``partition_pack/ops.work``): ids and rows
+    read once, slots, counts and buf written once."""
     row_bytes = sum(g.shape[1] * g.element_size() for g in groups)
-    return (4 * T + T * row_bytes + 4 * T + 4 * n_parts
-            + n_parts * capacity * row_bytes)
+    return pp_ops.work(T, row_bytes, n_parts, capacity)[1]
 
 
 def profile_record(fn, iters: int = 10) -> dict:

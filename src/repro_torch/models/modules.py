@@ -3,9 +3,11 @@
 
 Models are pure functions over parameter trees: nested dicts (and lists)
 of tensors. Model code declares parameters as ``ParamSpec`` leaves in the
-same nesting; the declaration drives real initialization
-(``init_params``), parameter counts and byte sizes, and, once the port
-shards, the logical-axis placement of each dim (``logical_axes``).
+same nesting; the declaration drives
+  * real initialization (``init_params``),
+  * abstract trees for the dry run (``abstract_params``): meta tensors, or
+    DTensors over meta local shards on a mesh, so nothing is allocated,
+  * DTensor placements via logical-axis rules (parallel/sharding.py).
 """
 from __future__ import annotations
 
@@ -16,6 +18,9 @@ from typing import Any, Callable
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
+
+from repro_torch import kernels
 
 PyTree = Any
 
@@ -123,6 +128,33 @@ def init_params(defs: PyTree, generator: torch.Generator | None,
     return tree_map(lambda s: _init_one(s, generator, device), defs)
 
 
+def abstract_params(defs: PyTree, shardings: PyTree | None = None) -> PyTree:
+    """The tree of ``defs`` with nothing allocated: meta tensors of each
+    spec's shape and dtype; with ``shardings`` (a tree of
+    ``parallel.sharding.Sharding`` alike in nesting,
+    ``parallel.sharding.param_shardings``), DTensors on its mesh whose
+    local shards are meta tensors of the local shape (rank 0's)."""
+    if shardings is None:
+        return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                              device="meta"), defs)
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    def one(s, sh):
+        local, _ = compute_local_shape_and_global_offset(
+            s.shape, sh.mesh, sh.placements)
+        return kernels.from_local(
+            torch.empty(local, dtype=s.dtype, device="meta"), sh.mesh,
+            sh.placements, s.shape)
+
+    specs = tree_leaves(defs)
+    shs = tree_leaves(shardings, is_leaf=lambda x: hasattr(x, "placements"))
+    if len(specs) != len(shs):
+        raise ValueError(f"{len(specs)} specs but {len(shs)} shardings")
+    pairs = iter(zip(specs, shs))
+    return tree_map(lambda _: one(*next(pairs)), defs)
+
+
 def param_count(defs: PyTree) -> int:
     return sum(int(np.prod(s.shape)) for s in tree_leaves(defs))
 
@@ -147,20 +179,26 @@ def stack_specs(defs: PyTree, n: int, axis_name: str = "layers") -> PyTree:
 class Sharder:
     """Applies logical-axis sharding constraints to activations.
 
-    With ``mesh=None`` (one device) every call is a no-op, so model code can
-    unconditionally annotate. Meshes are not ported yet (ROADMAP A10).
+    On a DTensor, ``sh(x, *axes)`` redistributes ``x`` to the placements
+    that the rules give its logical axes on the mesh (the counterpart of
+    ``jax.lax.with_sharding_constraint``); on a plain tensor, or with
+    ``mesh=None`` (one device), it returns ``x``, so model code can
+    unconditionally annotate.
     """
 
     def __init__(self, mesh=None, rules: dict[str, Any] | None = None):
-        if mesh is not None:
-            raise NotImplementedError("mesh sharding is not ported yet "
-                                      "(ROADMAP A10)")
         self.mesh = mesh
         self.rules = rules or {}
 
     def __call__(self, x: torch.Tensor, *logical_axes: str | None
                  ) -> torch.Tensor:
-        return x
+        if self.mesh is None or not isinstance(x, DTensor):
+            return x
+        from repro_torch.parallel.sharding import (logical_to_placements,
+                                                   logical_to_spec)
+        spec = logical_to_spec(x.shape, logical_axes, self.mesh, self.rules)
+        return x.redistribute(self.mesh,
+                              logical_to_placements(spec, self.mesh))
 
 
 # ---------------------------------------------------------------------------

@@ -156,10 +156,11 @@ def _qkv(cfg, p, x, sh, positions, mrope_positions=None):
 def _attend(cfg, q, k, v, *, causal: bool, window: int):
     """Full-sequence attention of q [B,Sq,Hq,hd] against k/v at kv-head
     layout [B,Skv,Hkv,hd] (Skv differs from Sq only with no mask): the
-    flash_gqa kernel on CUDA where it takes the shapes (k and v read
-    through ``_kv_map``, never repeated), else the reference's algorithm;
-    a CUDA call sent there is counted in ``FK.routed``."""
-    if kernels.on_card(q):
+    flash_gqa kernel on CUDA (and on meta, the dry run's stand-in for the
+    card) where it takes the shapes (k and v read through ``_kv_map``,
+    never repeated), else the reference's algorithm; such a call sent
+    there is counted in ``FK.routed``."""
+    if kernels.kernel_route(q):
         if FK.takes(q.shape, k.shape, v.shape, causal=causal,
                     window=window):
             return flash_ops.flash_gqa(q, k, v, causal=causal,

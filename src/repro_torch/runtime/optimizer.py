@@ -21,6 +21,7 @@ import dataclasses
 from typing import Any, Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.modules import ParamSpec, tree_map
 
@@ -91,7 +92,14 @@ def adamw(lr: float = 1e-4, b1: float = 0.9, b2: float = 0.95,
         t = _t(step)
         c1 = 1.0 - b1 ** t
         c2 = 1.0 - b2 ** t
+        if isinstance(t, DTensor):
+            c1, c2 = c1.to_local(), c2.to_local()
         for p, g, m, v in _leafwise(params, grads, state["m"], state["v"]):
+            if isinstance(p, DTensor):
+                # on a mesh (the dry run): the gradient is reduced to the
+                # parameter's layout, and each device updates its shards
+                g = g.redistribute(p.device_mesh, p.placements)
+                p, g, m, v = (x.to_local() for x in (p, g, m, v))
             slices = [x.view(-1).split(_SLICE) for x in (m, v, p)]
             for gs, ms, vs, ps in zip(g.reshape(-1).split(_SLICE), *slices):
                 upd(gs, ms, vs, ps, c1, c2)

@@ -1094,3 +1094,30 @@ def test_train_step_gives_the_same_bits_every_run(card, arch):
     for later in runs[1:]:
         for a, b in zip(runs[0], later, strict=True):
             assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_step_analysis_of_the_card_matches_its_meta_dry_run(card):
+    """Step 1 of chip_smoke.py's [dryrun] phase at one step: smollm-135m's
+    train step at full width and depth (B 4, S 512, f32 parameters and
+    AdamW state, bf16 compute) analyzed on the card and on meta tensors
+    (launch/dryrun.card_check): the same FLOPs and kernel calls, HBM
+    bytes within 1 %, the meta peak within 10 % of the card's
+    max_memory_allocated, and so the step's own peak above its arguments
+    (above what the card held before it)."""
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.launch.dryrun import card_check
+    cfg = get_config("smollm-135m").replace(param_dtype=torch.float32,
+                                            compute_dtype=torch.bfloat16)
+    r = card_check(cfg, ShapeConfig("train", 512, 4, "train"), card,
+                   timed=1)
+    c, m = r["card"], r["meta"]
+    assert c["flops"] == m["flops"] > r["model_flops"] > 0
+    assert c["kernel_calls"] == m["kernel_calls"] == {"flash_gqa": 60}
+    assert abs(c["memory_bytes"] - m["memory_bytes"]) \
+        <= 0.01 * m["memory_bytes"]
+    assert abs(m["peak_bytes"] - r["card_peak_bytes"]) \
+        <= 0.10 * r["card_peak_bytes"]
+    own_card = r["card_peak_bytes"] - r["allocated_before"]
+    own_meta = m["peak_bytes"] - m["argument_bytes"]
+    assert abs(own_meta - own_card) <= 0.10 * own_card

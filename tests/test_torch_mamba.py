@@ -93,9 +93,12 @@ def test_param_cache_and_batch_defs_match_reference(smoke):
 
 
 def test_sharder_takes_no_mesh_yet():
-    assert Sharder()(torch.ones(2), "batch") is not None
-    with pytest.raises(NotImplementedError, match="A10"):
-        Sharder(mesh=object())
+    """The Sharder leaves a plain tensor as it is, with no mesh and with
+    one: only a DTensor on a mesh is redistributed (the dry run's meshes;
+    ``tests/test_torch_dryrun_mesh*.py``)."""
+    x = torch.ones(2)
+    assert Sharder()(x, "batch") is x
+    assert Sharder(mesh=object())(x, "batch") is x
 
 
 def test_init_params_kinds_and_scales():
