@@ -382,6 +382,18 @@ DRYRUN_STEPS = ((SMOLLM_ARCH, "train", None), ("mamba2-2.7b", "train", None),
 DRYRUN_BYTES_TOL, DRYRUN_PEAK_TOL = 0.01, 0.10
 DRYRUN_CELLS = (("glm4-9b", "train_4k", "single"),
                 ("mamba2-2.7b", "long_500k", "multi"))
+# glm4-9b x train_4k x single as the sandbox's torch 2.13.0+cpu analyzes
+# it once the port states its layouts (`python -m repro_torch.launch.dryrun
+# --arch glm4-9b --shape train_4k --mesh single`): FLOPs and collective
+# bytes a device, which this machine's torch must read within the mesh
+# tests' tolerances (tests/_torch_mesh.py: FLOPS_TOL, COLL_TOL)
+GLM4_TRAIN_4K = {"torch": "2.13.0+cpu", "flops": 313260419055616.0,
+                 "collective_bytes": 267089421127.5}
+# step 3 of [dryrun]: every smoke mesh cell of the mesh tests
+# (tests/_torch_mesh.py: CELLS x every arch) on this machine's torch, one
+# worker process an arch, held against the reference's compiled counts
+# (tests/data/torch_mesh_reference.json) with the tests' tolerances
+MESH_WORKER_TIMEOUT_S = 600
 
 
 class SmokeFailure(Exception):
@@ -1984,6 +1996,7 @@ def dryrun_phase(dev, card: str) -> dict:
         check(n == want and routed == 0, f"{what}: launches {n}, want "
               f"{want} ({r['card_steps']} steps on the card); {routed} "
               "attention calls routed to the plain path")
+    workers = start_mesh_workers()
     before = torch.cuda.memory_allocated()
     for arch, shape, mesh in DRYRUN_CELLS:
         t0 = time.perf_counter()
@@ -2000,11 +2013,114 @@ def dryrun_phase(dev, card: str) -> dict:
         check(rec["cost"]["flops_per_device"] > 0
               and rec["roofline"]["step_time_lower_bound_s"] > 0,
               f"dryrun cell {arch} x {shape}: an empty analysis")
+        if (arch, shape, mesh) == ("glm4-9b", "train_4k", "single"):
+            hold_glm4_train_4k(rec)
         print(f"[phase] dryrun cell {arch} x {shape} x {mesh}: "
               f"{time.perf_counter() - t0:.3f} s", flush=True)
     if dist.is_initialized():
         dist.destroy_process_group()
+    hold_mesh_cells(workers)
     return launched
+
+
+def hold_glm4_train_4k(rec: dict) -> None:
+    """glm4-9b x train_4k x single at full width and depth: FLOPs and
+    collective bytes a device within the mesh tests' tolerances of
+    GLM4_TRAIN_4K, the sandbox's count (the weights gathered at use, not
+    the batch: a batch gather over "data" reads 3.5x the FLOPs and 8.8x
+    the bytes)."""
+    import _torch_mesh as TM
+    flops = rec["cost"]["flops_per_device"]
+    coll = rec["collectives"]["total_bytes"]
+    print("[dryrun glm4 train_4k] " + json.dumps({
+        "torch": torch.__version__, "flops_per_device": flops,
+        "sandbox_flops": GLM4_TRAIN_4K["flops"],
+        "flops_rel_gap": flops / GLM4_TRAIN_4K["flops"] - 1,
+        "collective_bytes_by_kind": rec["collectives"]["bytes_by_kind"],
+        "collective_bytes": coll,
+        "sandbox_collective_bytes": GLM4_TRAIN_4K["collective_bytes"],
+        "useful_flops_ratio": rec["roofline"]["useful_flops_ratio"],
+        "fallback_ops": rec["fallback_ops"]}), flush=True)
+    check(abs(flops / GLM4_TRAIN_4K["flops"] - 1) <= TM.FLOPS_TOL,
+          f"glm4-9b x train_4k x single: {flops} FLOPs a device, the "
+          f"sandbox's torch {GLM4_TRAIN_4K['torch']} {GLM4_TRAIN_4K['flops']}")
+    check(abs(coll / GLM4_TRAIN_4K["collective_bytes"] - 1) <= TM.COLL_TOL,
+          f"glm4-9b x train_4k x single: {coll} collective bytes a device, "
+          f"the sandbox's {GLM4_TRAIN_4K['collective_bytes']}")
+
+
+def start_mesh_workers() -> list:
+    """One ``--mesh-worker`` process an arch (each starts its own fake
+    process group), all at once: -> [(arch, Popen)]."""
+    from repro_torch.configs.base import registry
+    return [(arch, subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--mesh-worker",
+         arch], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for arch in sorted(registry())]
+
+
+def mesh_worker(arch: str) -> None:
+    """Every cell of the mesh tests for ``arch``: a smoke step under
+    ``launch/dryrun.lower_cell`` on the fake 2x4 or 2x2x2 mesh, one JSON
+    line a cell with its FLOPs and collective bytes a device (reduce-
+    scatters priced as the reference's CPU backend lowers them,
+    ``_torch_mesh.cpu_lowered``)."""
+    import _torch_mesh as TM
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.launch.mesh import make_mesh
+    meshes = {n: make_mesh(*spec) for n, spec in TM.MESHES.items()}
+    cfg = smoke_config(arch).replace(num_layers=TM.LAYERS.get(arch, 2))
+    if cfg.family == "audio":
+        cfg = cfg.replace(encoder_layers=1)
+    for kind, mesh in TM.CELLS:
+        t0 = time.perf_counter()
+        ana, _ = lower_cell(arch, ShapeConfig("smoke", TM.S, TM.B, kind),
+                            meshes[mesh], cfg=cfg, record_ops=True)
+        print(json.dumps({
+            "cell": f"{arch}:{kind}:{mesh}", "flops": ana["flops"],
+            "collective_bytes": TM.cpu_lowered(ana),
+            "collective_bytes_by_kind": ana["collective_bytes_by_kind"],
+            "fallback_ops": ana["fallback_ops"],
+            "s": time.perf_counter() - t0}), flush=True)
+
+
+def hold_mesh_cells(workers: list) -> None:
+    """Each smoke mesh cell within the mesh tests' tolerances of the
+    reference's counts, but those the tests list in KNOWN_FAULTS, which
+    are printed with their reason and not held."""
+    import _torch_mesh as TM
+    t0 = time.perf_counter()
+    ref = json.loads(TM.REFERENCE.read_text())["cells"]
+    held = faults = 0
+    for arch, proc in workers:
+        out, err = proc.communicate(timeout=MESH_WORKER_TIMEOUT_S)
+        check(proc.returncode == 0,
+              f"mesh worker {arch}: exit {proc.returncode}\n{err[-3000:]}")
+        for line in out.splitlines():
+            got = json.loads(line)
+            want = ref[got["cell"]]
+            rec = {**got, "reference_flops": want["flops"],
+                   "reference_collective_bytes":
+                       want["collective_total_bytes"],
+                   "flops_rel_gap": got["flops"] / want["flops"] - 1,
+                   "collective_ratio": got["collective_bytes"]
+                   / want["collective_total_bytes"]}
+            key = tuple(got["cell"].split(":"))
+            ok = (abs(rec["flops_rel_gap"]) <= TM.FLOPS_TOL
+                  and abs(rec["collective_ratio"] - 1) <= TM.COLL_TOL)
+            if key in TM.KNOWN_FAULTS:
+                rec["known_fault"] = TM.KNOWN_FAULTS[key]
+                faults += 1
+            else:
+                check(ok, f"mesh cell {got['cell']}: {json.dumps(rec)}")
+                held += 1
+            rec["within"] = ok
+            print("[dryrun mesh] " + json.dumps(rec), flush=True)
+    check(held + faults == len(ref), f"{held + faults} mesh cells run, "
+          f"{len(ref)} in the reference")
+    print(f"[phase] dryrun mesh cells: {held} held, {faults} known faults, "
+          f"{time.perf_counter() - t0:.3f} s waited", flush=True)
 
 
 def main() -> int:
@@ -2262,6 +2378,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        mesh_worker(sys.argv[2])
+        sys.exit(0)
     try:
         sys.exit(main())
     except SmokeFailure as e:

@@ -7,7 +7,7 @@ redistributing q, k and v to a layout that is local to the kernel
 (``_on_mesh``). ``work`` is the function's closed-form FLOPs and bytes."""
 from __future__ import annotations
 
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch import kernels
 from repro_torch.kernels.flash_gqa import flash_gqa as K
@@ -59,9 +59,10 @@ def flash_gqa(q, k, v, *, causal: bool = True, window: int = 0,
 def _on_mesh(q, k, v, *, causal, window, kv_head):
     """The call on DTensors: on each mesh dim, q, k and v keep a batch
     split where q has one (k and v take it too), q keeps a head split (k
-    and v are gathered whole, and each device maps its own q heads); any
-    other layout is gathered first. The entry then runs on the local
-    shards, and o has q's layout."""
+    and v are gathered whole, and each device maps its own q heads, so
+    their gradients are partial sums there); any other layout is gathered
+    first. The entry then runs on the local shards, and o has q's
+    layout."""
     from torch.distributed.tensor._utils import \
         compute_local_shape_and_global_offset
     m = K.check_args(q, k, v, window, kv_head, causal)
@@ -81,6 +82,8 @@ def _on_mesh(q, k, v, *, causal, window, kv_head):
     k, v = (t.redistribute(mesh, kp) for t in (k, v))
     local, offset = compute_local_shape_and_global_offset(q.shape, mesh, qp)
     heads = m[offset[2]:offset[2] + local[2]]
-    o = flash_gqa(q.to_local(), k.to_local(), v.to_local(), causal=causal,
+    kg = [Partial() if p == Shard(2) else r for p, r in zip(qp, kp)]
+    o = flash_gqa(q.to_local(), k.to_local(grad_placements=kg),
+                  v.to_local(grad_placements=kg), causal=causal,
                   window=window, kv_head=heads)
     return kernels.from_local(o, mesh, qp, (*q.shape[:3], v.shape[3]))

@@ -6,7 +6,7 @@ redistributing the inputs to a layout that is local to the kernel
 (``_on_mesh``). ``work`` is the function's closed-form FLOPs and bytes."""
 from __future__ import annotations
 
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch import kernels
 from repro_torch.kernels.ssd_scan import ssd_scan as K
@@ -76,8 +76,16 @@ def _on_mesh(x, dt, A, Bm, Cm, *, chunk: int):
     dt = dt.redistribute(mesh, lay["dt"])
     A = A.redistribute(mesh, lay["A"])
     Bm, Cm = (t.redistribute(mesh, lay["bc"]) for t in (Bm, Cm))
-    y, state = ssd(x.to_local(), dt.to_local(), A.to_local(), Bm.to_local(),
-                   Cm.to_local(), chunk=chunk)
+    # an operand replicated where x is split takes a gradient summed over
+    # that split: A over the batch, B and C over the heads
+    part = [Partial() if p.is_shard() else Replicate() for p in lay["x"]]
+    ag = [q if p.is_shard(2) else r for p, q, r in zip(lay["x"], lay["A"],
+                                                      part)]
+    bcg = [q if p.is_shard(0) else r for p, q, r in zip(lay["x"], lay["bc"],
+                                                       part)]
+    y, state = ssd(x.to_local(), dt.to_local(), A.to_local(grad_placements=ag),
+                   Bm.to_local(grad_placements=bcg),
+                   Cm.to_local(grad_placements=bcg), chunk=chunk)
     B, _, H, P = x.shape
     return (kernels.from_local(y, mesh, lay["x"], x.shape),
             kernels.from_local(state, mesh, lay["state"],

@@ -70,6 +70,12 @@ LINK_BW = 450e9              # NVLink bytes/s each way per card (within a
                              # host of 8; not the network between hosts)
 HBM_PER_CHIP = 80e9          # bytes of HBM per card
 
+def abstract_tree(defs, mesh, rules=None):
+    """The DTensor tree of ``defs`` laid out by the rules on ``mesh``, over
+    meta local shards (nothing allocated)."""
+    return abstract_params(defs, param_shardings(defs, mesh, rules))
+
+
 # ---------------------------------------------------------------------------
 # model flops (6*N*D with N = active non-embedding params)
 # ---------------------------------------------------------------------------
@@ -130,10 +136,11 @@ _NEW = {_aten.new_zeros.default, _aten.new_empty.default,
         _aten.new_ones.default, _aten.new_full.default}
 # operations that DTensor has no strategy for at some layouts the dry run
 # gives them, in some release; Reshards runs them on operands gathered
-# whole and counts them (the record's ``fallback_ops``). index_put: the
-# embedding's gradient, whose strategy in torch 2.11 asserts at the
-# layouts it is given here
-KNOWN_GAPS = frozenset({"index_put"})
+# whole and counts them (the record's ``fallback_ops``). None since the
+# model states its layouts on a mesh: the embedding's gradient, whose
+# index_put had no torch 2.11 strategy, is taken on local shards
+# (models/modules.py:Sharder.lookup), as is the MoE dispatch's
+KNOWN_GAPS: frozenset[str] = frozenset()
 
 
 class Reshards(TorchDispatchMode):
@@ -159,10 +166,6 @@ class Reshards(TorchDispatchMode):
         (``index_copy_`` of a decode step into a sequence-sharded cache)
         writes this device's shard in place, where DTensor would gather
         the cache and lose the write;
-      * a gather along a sharded dim (the loss's target logits over a
-        vocabulary split on "model") leaves a masked partial sum, which
-        DTensor cannot reduce after a later select; it is reduced at
-        once;
       * an operation that DTensor has no strategy for at its operands'
         layouts runs on them gathered whole, if it is one of
         ``KNOWN_GAPS``; it is counted in ``fallbacks`` by op name, and any
@@ -228,7 +231,7 @@ class Reshards(TorchDispatchMode):
             if name not in KNOWN_GAPS:
                 raise NotImplementedError(
                     f"{name}: DTensor has no strategy at these layouts and "
-                    "it is not one of dryrun.KNOWN_GAPS (ROADMAP A10b)"
+                    "it is not one of dryrun.KNOWN_GAPS (ROADMAP Queue C)"
                 ) from e
             inplace = name.endswith("_")
             whole = [a if i == 0 and inplace else _replicated(a)
@@ -239,9 +242,6 @@ class Reshards(TorchDispatchMode):
             except (RuntimeError, NotImplementedError):
                 raise e from None
             self.fallbacks[name] = self.fallbacks.get(name, 0) + 1
-        if func is _aten.gather.default:
-            out = _resharded(out, [Replicate() if p.is_partial() else p
-                                   for p in out.placements])
         return out
 
 
@@ -334,9 +334,8 @@ def step_and_args(bundle, shape: ShapeConfig, mesh=None, rules=None):
     ``mesh=None``, else DTensors laid out by the rules on ``mesh`` over
     meta local shards."""
     step_fn, defs = step_and_defs(bundle, shape)
-    return step_fn, tuple(
-        abstract_params(d, None if mesh is None
-                        else param_shardings(d, mesh, rules)) for d in defs)
+    return step_fn, tuple(abstract_params(d) if mesh is None
+                          else abstract_tree(d, mesh, rules) for d in defs)
 
 
 _last_cfg = None                  # the config of the last cell lowered

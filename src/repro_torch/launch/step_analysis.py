@@ -103,20 +103,20 @@ def _group_size(func, args) -> int:
     return _resolve_process_group(args[-1]).size()
 
 
-def _collective_bytes(func, args, outs) -> tuple[str, float]:
-    """(kind, modeled per-device ring bytes) of one collective, as the
-    reference models it: all-gather its output x (g-1)/g, all-reduce twice
-    its size x (g-1)/g, reduce-scatter and all-to-all their output x
-    (g-1)/g, a permute its size."""
+def _collective_bytes(func, args, outs) -> tuple[str, float, int]:
+    """(kind, modeled per-device ring bytes, group size) of one
+    collective, as the reference models it: all-gather its output x
+    (g-1)/g, all-reduce twice its size x (g-1)/g, reduce-scatter and
+    all-to-all their output x (g-1)/g, a permute its size."""
     kind = _KIND[func._schema.name.split("::")[1]]
     g = _group_size(func, args)
     frac = (g - 1) / g if g > 1 else 0.0
     size = sum(_nbytes(t) for t in outs)
     if kind == "all-reduce":
-        return kind, 2 * size * frac
+        return kind, 2 * size * frac, g
     if kind == "collective-permute":
-        return kind, size
-    return kind, size * frac
+        return kind, size, g
+    return kind, size * frac, g
 
 
 def _frame() -> str:
@@ -189,11 +189,13 @@ class StepAnalysis(TorchDispatchMode):
         with self._lock:
             self._kernel -= 1
 
-    def _row(self, kind: str, op: str, shapes: list, nbytes: float) -> None:
+    def _row(self, kind: str, op: str, shapes: list, nbytes: float,
+             **extra) -> None:
         if self.rows is not None and (kind in COLLECTIVES
                                       or nbytes >= ROW_BYTES):
             self.rows.append({"kind": kind, "op": op, "shapes": shapes,
-                              "bytes": float(nbytes), "frame": _frame()})
+                              "bytes": float(nbytes), "frame": _frame(),
+                              **extra})
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -213,11 +215,11 @@ class StepAnalysis(TorchDispatchMode):
         name = func._schema.name.split("::")[1]
         with self._lock:
             if name in _KIND:
-                kind, vol = _collective_bytes(func, args, outs)
+                kind, vol, g = _collective_bytes(func, args, outs)
                 self.coll_bytes[kind] += vol
                 self.coll_count[kind] += 1
                 self._row(kind, str(func), [list(t.shape) for t in ins],
-                          vol)
+                          vol, group=g)
             elif func.overloadpacket in flop_registry:
                 self.flops += flop_registry[func.overloadpacket](
                     *args, **kwargs, out_val=out)
@@ -246,8 +248,8 @@ def analyze(step, *args, record_ops: bool = False):
     ``argument_bytes`` (the arguments' storages) and ``peak_bytes``, the
     high-water mark of live bytes, arguments included; with
     ``record_ops`` also ``ops``, the rows ``launch/breakdown.py`` reads:
-    every collective and every other operation of ``ROW_BYTES`` or
-    more)."""
+    every collective, with its ``group`` size, and every other operation
+    of ``ROW_BYTES`` or more)."""
     mode = StepAnalysis(record_ops=record_ops)
     for t in _tensors(args):
         mode.track(t)

@@ -14,6 +14,7 @@ and a train step of a config launch each hand-written kernel on the card;
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.model import ModelBundle, _llama4_subkinds
 from repro_torch.models.modules import (ParamSpec, init_params, tree_leaves,
@@ -44,7 +45,10 @@ def grads_of(loss_fn, params, batch):
     every leaf of ``params``, as a tree of the same shape in the leaves'
     dtypes; the metrics, detached). The leaves enter the loss as detached
     views that require grad, so the caller's tensors take no part in the
-    graph; a leaf the loss does not reach gets zeros."""
+    graph; a leaf the loss does not reach gets zeros. On a mesh each
+    gradient leaves in its parameter's layout (the counterpart of the
+    reference's pinned ``out_shardings``), so the optimizer moves
+    nothing."""
     p = tree_map(lambda t: t.detach().requires_grad_(), params,
                  is_leaf=torch.is_tensor)
     with torch.enable_grad():
@@ -52,8 +56,15 @@ def grads_of(loss_fn, params, batch):
         leaves = tree_leaves(p, is_leaf=torch.is_tensor)
         gs = iter(torch.autograd.grad(loss, leaves, allow_unused=True,
                                       materialize_grads=True))
-    grads = tree_map(lambda _: next(gs), p, is_leaf=torch.is_tensor)
+    grads = tree_map(lambda t: _laid_out_as(next(gs), t), p,
+                     is_leaf=torch.is_tensor)
     return grads, {k: v.detach() for k, v in metrics.items()}
+
+
+def _laid_out_as(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    if isinstance(p, DTensor) and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def microbatches(batch: dict, n_mb: int) -> list[dict]:

@@ -23,6 +23,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 NEG_INF = -1e30
 
@@ -231,9 +232,55 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     """
     B, Sc = k_cache.shape[0], k_cache.shape[1]
     scale = 1.0 / math.sqrt(q.shape[-1])
+    if isinstance(k_cache, DTensor) and any(
+            p.is_shard(1) for p in k_cache.placements):
+        return _split_decode_attention(q, k_cache, v_cache, cache_len, scale)
     s = _scores(q, k_cache, scale)
     n = torch.as_tensor(cache_len, device=q.device).reshape(-1, 1)
     valid = torch.arange(Sc, device=q.device)[None] < n.expand(B, 1)  # [B,Sc]
     s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1).to(v_cache.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", p, v_cache)
+
+
+def _split_decode_attention(q: DTensor, k_cache: DTensor, v_cache: DTensor,
+                            cache_len, scale: float) -> DTensor:
+    """``decode_attention`` against caches split on their sequence, as
+    GSPMD evaluates it: each device scores its cache shard (masked past
+    ``cache_len`` by global position), and its max, sum of exponentials
+    and exponential-weighted values are reduced over the sequence's mesh
+    dims; q is gathered to the caches' batch layout."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    from repro_torch import kernels
+    mesh = k_cache.device_mesh
+    split = [p.is_shard(1) for p in k_cache.placements]
+    rows = [Replicate() if s or p.is_partial() else p
+            for s, p in zip(split, k_cache.placements)]
+
+    def reduced(t, op, shape):
+        return kernels.from_local(t, mesh, [
+            Partial(op) if s else r for s, r in zip(split, rows)],
+            shape).redistribute(mesh, rows).to_local()
+
+    ql = q.redistribute(mesh, rows).to_local()
+    kl, vl = k_cache.to_local(), v_cache.to_local()
+    _, offset = compute_local_shape_and_global_offset(
+        k_cache.shape, mesh, k_cache.placements)
+    B, H = q.shape[0], q.shape[2]
+    s = _scores(ql, kl, scale)                                # [b,H,1,sc]
+    if isinstance(cache_len, DTensor):
+        cache_len = cache_len.full_tensor()
+    n = torch.as_tensor(cache_len, device=kl.device).reshape(-1, 1)
+    pos = offset[1] + torch.arange(kl.shape[1], device=kl.device)
+    valid = pos[None] < n.expand(kl.shape[0], 1)
+    s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
+    m = reduced(s.amax(-1, keepdim=True), "max", (B, H, 1, 1))
+    e = torch.exp(s - m)
+    den = reduced(e.sum(-1, keepdim=True), "sum", (B, H, 1, 1))
+    o = reduced(torch.einsum("bhqk,bkhd->bqhd", e, vl.float()), "sum",
+                (B, 1, H, v_cache.shape[-1]))
+    o = (o / den.permute(0, 2, 1, 3)).to(v_cache.dtype)
+    return kernels.from_local(o, mesh, rows, (B, 1, H, v_cache.shape[-1]))

@@ -87,23 +87,23 @@ def rec_apply(cfg, p, x, sh, *, cache=None, **_):
     PLACE (-> (out, cache)), where the reference returns a new cache."""
     B, S, d = x.shape
     h = apply_norm(cfg.norm_kind, p["ln"], x, cfg.norm_eps)
-    xb = h @ p["wx"].to(h.dtype)                            # recurrent branch
-    yb = gelu(h @ p["wy"].to(h.dtype))                      # gate branch
+    xb = sh.dot(h, p["wx"].to(h.dtype))                     # recurrent branch
+    yb = gelu(sh.dot(h, p["wy"].to(h.dtype)))               # gate branch
     xb = sh(xb, "batch", None, "act_mlp")
 
     if cache is None:
         xc, _ = _causal_conv(xb, p["conv_w"].to(h.dtype),
                              p["conv_b"].to(h.dtype), act=False)
-        a_gate = xc @ p["w_a"].to(h.dtype)
-        i_gate = xc @ p["w_i"].to(h.dtype)
+        a_gate = sh.dot(xc, p["w_a"].to(h.dtype))
+        i_gate = sh.dot(xc, p["w_i"].to(h.dtype))
         y, _ = _rglru(xc, a_gate, i_gate, p["lam"])
     else:
         conv_in = torch.cat([cache["conv"].to(h.dtype), xb], dim=1)
         w = p["conv_w"].to(h.dtype)
         xc = ((conv_in * w[None]).sum(dim=1, keepdim=True)
               + p["conv_b"].to(h.dtype)[None, None])
-        a_gate = xc @ p["w_a"].to(h.dtype)
-        i_gate = xc @ p["w_i"].to(h.dtype)
+        a_gate = sh.dot(xc, p["w_a"].to(h.dtype))
+        i_gate = sh.dot(xc, p["w_i"].to(h.dtype))
         log_a = (-RG_C * softplus(p["lam"].float())[None]
                  * torch.sigmoid(a_gate[:, 0].float()))
         a = torch.exp(log_a)
@@ -115,5 +115,5 @@ def rec_apply(cfg, p, x, sh, *, cache=None, **_):
         cache["conv"].copy_(conv_in[:, 1:])
         cache["state"].copy_(new_state)
 
-    out = (y * yb) @ p["out"].to(h.dtype)
+    out = sh.dot(y * yb, p["out"].to(h.dtype))
     return x + sh(out, "batch", "seq", "act_embed"), cache

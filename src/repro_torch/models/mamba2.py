@@ -147,7 +147,7 @@ def mamba_apply(cfg, p, x, sh, *, cache=None, **_):
     d_in, nheads, conv_dim = dims(cfg)
     G, N = cfg.ssm_ngroups, cfg.ssm_state
     h = apply_norm(cfg.norm_kind, p["ln"], x, cfg.norm_eps)
-    zxbcdt = h @ p["in_proj"].to(h.dtype)
+    zxbcdt = sh.dot(h, p["in_proj"].to(h.dtype))
     z = zxbcdt[..., :d_in]
     xBC = zxbcdt[..., d_in:d_in + conv_dim]
     dt_raw = zxbcdt[..., -nheads:]
@@ -192,5 +192,5 @@ def mamba_apply(cfg, p, x, sh, *, cache=None, **_):
 
     y = y.reshape(B, S, d_in)
     y = apply_norm("rms", p["out_ln"], y * F.silu(z), cfg.norm_eps)
-    out = y @ p["out_proj"].to(h.dtype)
+    out = sh.dot(y, p["out_proj"].to(h.dtype))
     return x + sh(out, "batch", "seq", "act_embed"), new_cache

@@ -41,7 +41,7 @@ from repro_torch.models import mamba2 as M
 from repro_torch.models import transformer as T
 from repro_torch.models.modules import (ParamSpec, Sharder, apply_norm,
                                         norm_defs, softmax_cross_entropy,
-                                        stack_specs, tree_map)
+                                        stack_specs, token_nll, tree_map)
 from repro_torch.models.moe import moe_apply
 
 AUX_WEIGHT = 0.01
@@ -78,7 +78,7 @@ def _embed_defs(cfg) -> dict:
 
 
 def _embed(cfg, p, tokens, sh):
-    x = p["embed"][tokens].to(cfg.compute_dtype)
+    x = sh.lookup(p["embed"], tokens, cfg.compute_dtype)
     return sh(x, "batch", "seq", "act_embed")
 
 
@@ -89,8 +89,8 @@ def _head(cfg, p):
 
 
 def _logits(cfg, p, h, sh):
-    out = h @ _head(cfg, p).to(h.dtype)
-    out = sh(out, "batch", None, "act_heads")
+    out = sh(sh.dot(h, _head(cfg, p).to(h.dtype)), "batch", None,
+             "act_heads")
     return out[..., :cfg.vocab_size]          # drop vocab padding (serving)
 
 
@@ -111,15 +111,13 @@ def _lm_loss(cfg, p, h, targets, mask, sh):
 
     ck = cfg.logit_chunk
     if not ck or S % ck or S <= ck:
-        logits = sh(h @ head, "batch", None, "act_heads")
+        logits = sh(sh.dot(h, head), "batch", None, "act_heads")
         return softmax_cross_entropy(_mask(logits.float()), targets, mask)
 
     def chunk(hc, head, tc, mc):                         # [B,ck,...]
-        lg = _mask(sh(hc @ head, "batch", None, "act_heads").float())
-        lse = torch.logsumexp(lg, dim=-1)
-        ll = torch.gather(lg, -1, tc[..., None].long())[..., 0]
+        lg = _mask(sh(sh.dot(hc, head), "batch", None, "act_heads").float())
         mf = mc.float()
-        return ((lse - ll) * mf).sum(), mf.sum()
+        return (token_nll(lg, tc) * mf).sum(), mf.sum()
 
     tot = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(0, S, ck):
@@ -617,6 +615,13 @@ def _griffin(cfg: ModelConfig, rules=None, mesh=None) -> ModelBundle:
 WHISPER_MAX_DEC = 32768
 
 
+def _rows(table, n: int, sh):
+    """The first ``n`` rows of a position table, laid out as the table (so
+    that on a mesh their gradient is reduced at their size, then padded
+    to the table's)."""
+    return sh(table[:n], None, "embed")
+
+
 def _whisper(cfg: ModelConfig, rules=None, mesh=None) -> ModelBundle:
     sh = Sharder(mesh, rules)
     enc_layer = {"attn": T.attn_defs(cfg), "mlp": T.mlp_defs(cfg)}
@@ -644,7 +649,7 @@ def _whisper(cfg: ModelConfig, rules=None, mesh=None) -> ModelBundle:
         """frames [B,Senc,d] -> the encoder output [B,Senc,d]: learned
         positions, bidirectional self attention and the MLP a layer."""
         x = frames.to(cfg.compute_dtype)
-        x = x + p["enc_pos"].to(x.dtype)[None, :x.shape[1]]
+        x = x + _rows(p["enc_pos"], x.shape[1], sh).to(x.dtype)[None]
         pos = _positions(x.shape[0], x.shape[1], x.device)
         body = _maybe_remat(enc_layer, remat_cfg, mode)
         for lp in p["enc"]:
@@ -672,7 +677,7 @@ def _whisper(cfg: ModelConfig, rules=None, mesh=None) -> ModelBundle:
         enc_out = encode(p, batch["frames"], mode="train")
         B, S = batch["tokens"].shape
         x = _embed(cfg, p, batch["tokens"], sh)
-        x = x + p["dec_pos"].to(x.dtype)[None, :S]
+        x = x + _rows(p["dec_pos"], S, sh).to(x.dtype)[None]
         x = decode_stack(p, x, enc_out, _positions(B, S, x.device),
                          mode="train")
         ce = _lm_loss(cfg, p, x, batch["targets"], batch["mask"], sh)
@@ -682,7 +687,7 @@ def _whisper(cfg: ModelConfig, rules=None, mesh=None) -> ModelBundle:
         enc_out = encode(p, batch["frames"])
         B, S = batch["tokens"].shape
         x = _embed(cfg, p, batch["tokens"], sh)
-        x = x + p["dec_pos"].to(x.dtype)[None, :S]
+        x = x + _rows(p["dec_pos"], S, sh).to(x.dtype)[None]
         x = decode_stack(p, x, enc_out, _positions(B, S, x.device))
         logits = _logits(cfg, p, x[:, -1:], sh)
         return logits, {"len": _len(S, x.device)}

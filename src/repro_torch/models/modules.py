@@ -194,11 +194,161 @@ class Sharder:
                  ) -> torch.Tensor:
         if self.mesh is None or not isinstance(x, DTensor):
             return x
+        return x.redistribute(self.mesh,
+                              self.placements(x.shape, *logical_axes))
+
+    def placements(self, shape, *logical_axes: str | None) -> tuple:
+        """The placements the rules give ``logical_axes`` of a tensor of
+        ``shape`` on the mesh."""
         from repro_torch.parallel.sharding import (logical_to_placements,
                                                    logical_to_spec)
-        spec = logical_to_spec(x.shape, logical_axes, self.mesh, self.rules)
-        return x.redistribute(self.mesh,
-                              logical_to_placements(spec, self.mesh))
+        spec = logical_to_spec(shape, logical_axes, self.mesh, self.rules)
+        return logical_to_placements(spec, self.mesh)
+
+    def dot(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """``x @ w`` for x [..., k] and a weight w [k, n]; on a mesh, with
+        the layouts of ``einsum``."""
+        if not self._on_mesh(x, w):
+            return x @ w
+        lx = "".join(chr(ord("a") + i) for i in range(x.dim()))
+        spec = f"{lx},{lx[-1]}z->{lx[:-1]}z"
+        return _product(spec, x, w, lambda a, b: a @ b, self._fsdp_dims())
+
+    def einsum(self, spec: str, x: torch.Tensor, w: torch.Tensor
+               ) -> torch.Tensor:
+        """``torch.einsum(spec, x, w)`` of an activation x and a weight w
+        (no ellipsis). On a mesh the layouts are stated, not left to
+        DTensor's per-operation strategy (which changes between releases):
+        w is gathered over the FSDP axes to its compute layout, keeping
+        its tensor-parallel splits; x takes w's split where they share a
+        dim, is replicated where w splits a dim of its own, and keeps its
+        other splits; the product runs on the local shards. Its result is
+        split as its operands are, and a partial sum over a mesh dim where
+        the contracted dim is split (reduced by the next ``sh``). In the
+        backward x's gradient is a partial sum where w's own dim is split,
+        and w's where x's own dim is; the gathers' backwards reduce-scatter
+        them to the operands' layouts, as GSPMD does."""
+        if not self._on_mesh(x, w):
+            return torch.einsum(spec, x, w)
+        return _product(spec, x, w, lambda a, b: torch.einsum(spec, a, b),
+                        self._fsdp_dims())
+
+    def lookup(self, table: torch.Tensor, ids: torch.Tensor, dtype
+               ) -> torch.Tensor:
+        """``table[ids]`` in ``dtype``. On a mesh the table is not gathered:
+        the ids are gathered over its splits, each device looks them up in
+        its rows (0 for an id outside them) and columns, and the result is
+        split as the columns and a partial sum over the row split, which
+        the next ``sh`` reduces; the table's gradient is then whole on
+        each device's shard, with nothing to reduce."""
+        if not self._on_mesh(table, ids):
+            return table[ids].to(dtype)
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        from torch.distributed.tensor._utils import \
+            compute_local_shape_and_global_offset
+        mesh = self.mesh
+        ip = [Replicate() if t.is_shard() or not p.is_shard() else p
+              for t, p in zip(table.placements, ids.placements)]
+        local = table.to_local()
+        _, offset = compute_local_shape_and_global_offset(
+            table.shape, mesh, table.placements)
+        n = local.shape[0]
+        t = ids.redistribute(mesh, ip).to_local().long() - offset[0]
+        inside = (t >= 0) & (t < n)
+        rows = local[t.clamp(0, n - 1)].to(dtype)
+        rows = torch.where(inside[..., None], rows, torch.zeros_like(rows))
+        return kernels.from_local(rows, mesh, [
+            Partial() if p.is_shard(0) else Shard(ids.dim()) if p.is_shard()
+            else q for p, q in zip(table.placements, ip)],
+            (*ids.shape, table.shape[1]))
+
+    def _on_mesh(self, *ts) -> bool:
+        return self.mesh is not None and all(isinstance(t, DTensor)
+                                             for t in ts)
+
+    def _fsdp_dims(self) -> set[int]:
+        from repro_torch.parallel.sharding import resolve_axes
+        names = list(self.mesh.mesh_dim_names)
+        return {names.index(a) for a in resolve_axes(self.mesh)["fsdp"]}
+
+
+class _Gather(torch.autograd.Function):
+    """A DTensor laid out by new placements, one mesh dim at a time from
+    the last (a dim split over two mesh dims is gathered minor first); the
+    gradient goes back one mesh dim at a time from the first, so that a
+    gradient partial over both is reduce-scattered over the major dim,
+    then the minor one reduces half of it, where DTensor's one-step plan
+    all-reduces it whole over one of them."""
+
+    @staticmethod
+    def forward(ctx, t, placements):
+        ctx.placements = t.placements
+        return _stepwise(t, placements, reversed(range(t.device_mesh.ndim)))
+
+    @staticmethod
+    def backward(ctx, g):
+        return _stepwise(g, ctx.placements, range(g.device_mesh.ndim)), None
+
+
+def _stepwise(t: DTensor, placements, dims) -> DTensor:
+    cur = list(t.placements)
+    for m in dims:
+        if cur[m] != placements[m]:
+            cur[m] = placements[m]
+            t = t.redistribute(t.device_mesh, cur)
+    return t
+
+
+def _redistributed(t: DTensor, placements) -> DTensor:
+    placements = tuple(placements)
+    return t if placements == tuple(t.placements) else _Gather.apply(
+        t, placements)
+
+
+def _product(spec: str, x: DTensor, w: DTensor, op: Callable,
+             gather: set[int]) -> DTensor:
+    """``op`` (``spec``'s product) of DTensors x and w on their local
+    shards, laid out as ``Sharder.einsum`` says; ``gather``: the mesh dims
+    w is gathered over."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    ins, out = spec.replace(" ", "").split("->")
+    lx, lw = ins.split(",")
+    mesh = w.device_mesh
+    size = dict(zip(lx, x.shape)) | dict(zip(lw, w.shape))
+    ways = dict.fromkeys(size, 1)             # mesh ways splitting a dim
+    xp, wp, yp, gx, gw = [], [], [], [], []
+    for m, (px, pw) in enumerate(zip(x.placements, w.placements)):
+        a = lx[px.dim] if px.is_shard() else None
+        b = lw[pw.dim] if pw.is_shard() else None
+        if m in gather:
+            b = None                          # w gathered (FSDP)
+        if b is not None and a != b:
+            a = b if b in lx else None        # x takes w's split, or none
+        elif a is not None and b is None and a in lw:
+            b = a                             # w sliced to x's split
+        if a is not None and a not in out and b is None:
+            a = None                          # x's contracted dim: gathered
+        if a is None and b is None and not torch.is_grad_enabled():
+            # serving, neither split here (decode's few rows on a weight
+            # that the tensor-parallel rules leave whole): the contracted
+            # dim is split and the product reduced, as GSPMD divides it,
+            # rather than repeated on every device
+            a = b = next((c for c in lx if c in lw and c not in out
+                          and size[c] % (ways[c] * mesh.size(m)) == 0),
+                         None)
+        for c in {a, b} - {None}:
+            ways[c] *= mesh.size(m)
+        xp.append(Shard(lx.index(a)) if a else Replicate())
+        wp.append(Shard(lw.index(b)) if b else Replicate())
+        s = a or b
+        yp.append(Shard(out.index(s)) if s and s in out
+                  else Partial() if s else Replicate())
+        gx.append(Partial() if b and not a else xp[-1])
+        gw.append(Partial() if a and not b else wp[-1])
+    shape = [size[c] for c in out]
+    xl = x.redistribute(mesh, xp).to_local(grad_placements=gx)
+    wl = _redistributed(w, wp).to_local(grad_placements=gw)
+    return kernels.from_local(op(xl, wl), mesh, yp, shape)
 
 
 # ---------------------------------------------------------------------------
@@ -246,13 +396,59 @@ def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return F.silu(gate) * up
 
 
+def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """-log softmax(logits)[label] for each row: logsumexp less the label's
+    logit. logits [..., V] f32; labels int [...]. Logits that are a
+    DTensor split on the vocabulary are reduced without gathering it
+    (``_vocab_parallel_nll``)."""
+    if isinstance(logits, DTensor) and any(
+            p.is_shard(logits.dim() - 1) for p in logits.placements):
+        return _vocab_parallel_nll(logits, labels)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return lse - ll
+
+
+def _vocab_parallel_nll(logits: DTensor, labels: DTensor) -> DTensor:
+    """``token_nll`` of logits split on the vocabulary, as GSPMD evaluates
+    it: each device takes its shard's max and sum of exponentials and its
+    label logits (a masked local gather: a label outside the shard gives
+    0), and one all-reduce over the vocabulary's mesh dims combines each
+    (max, then sum). The rows keep their splits; the labels are laid out
+    as the rows."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh, v = logits.device_mesh, logits.dim() - 1
+    rows = [Replicate() if p.is_shard(v) or p.is_partial() else p
+            for p in logits.placements]
+    logits = logits.redistribute(mesh, [
+        p if p.is_shard(v) else r for p, r in zip(logits.placements, rows)])
+    split = [p.is_shard(v) for p in logits.placements]
+    shape = logits.shape[:-1]
+
+    def reduced(t, op):
+        return kernels.from_local(t, mesh, [
+            Partial(op) if s else r for s, r in zip(split, rows)],
+            shape).redistribute(mesh, rows)
+
+    local = logits.to_local()
+    _, offset = compute_local_shape_and_global_offset(
+        logits.shape, mesh, logits.placements)
+    n = local.shape[-1]
+    m = reduced(local.detach().amax(-1), "max").to_local()
+    sum_exp = reduced(torch.exp(local - m[..., None]).sum(-1), "sum")
+    t = labels.redistribute(mesh, rows).to_local().long() - offset[v]
+    inside = (t >= 0) & (t < n)
+    ll = torch.gather(local, -1, t.clamp(0, n - 1)[..., None])[..., 0]
+    ll = reduced(torch.where(inside, ll, torch.zeros_like(ll)), "sum")
+    return kernels.from_local(m, mesh, rows, shape) + torch.log(sum_exp) - ll
+
+
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                           mask: torch.Tensor | None = None):
     """Mean next-token CE. logits [..., V] fp-anything; labels int [...]."""
-    logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = lse - ll
+    nll = token_nll(logits.float(), labels)
     if mask is not None:
         mask = mask.float()
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

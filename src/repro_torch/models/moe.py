@@ -34,7 +34,9 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch import kernels
 from repro_torch.kernels._autograd import index_select
 from repro_torch.kernels.partition_pack import ops as pp_ops
 from repro_torch.models.modules import (ParamSpec, apply_norm, norm_defs,
@@ -117,12 +119,13 @@ def dispatch_indices(experts: torch.Tensor, num_experts: int,
 
 
 def dispatch(h: torch.Tensor, experts: torch.Tensor, num_experts: int,
-             capacity: int):
+             capacity: int, sh=None):
     """Pack the entries of h [B,S,d] by expert, per batch row, in one
     ``partition_pack`` call: entry j of row b (token j // k, experts
     [B*S, k]) has id b·E + e. The pack places each entry's token number
     (1-based: the kernel zero-fills empty slots, and row 0 of the gather
-    is zeros); the token rows follow in one gather.
+    is zeros); the token rows follow in one gather (on a mesh,
+    ``_gather_on_mesh`` with ``sh``'s rules).
     -> (buf [B, E, C, d] with empty slots zero, ids [B*S*k] int32, slots
     [B*S*k] int32: an entry's slot within its expert, at or past C where
     it was dropped)."""
@@ -135,9 +138,81 @@ def dispatch(h: torch.Tensor, experts: torch.Tensor, num_experts: int,
                          device=dev).repeat_interleave(k)[:, None]
     (packed,), _, slots = pp_ops.partition_pack_groups(
         [token], ids, n_parts=B * num_experts, capacity=capacity)
+    if isinstance(h, DTensor):
+        return _gather_on_mesh(h, packed, num_experts, capacity, sh), ids, \
+            slots
     rows = torch.cat([h.new_zeros(1, d), h.reshape(B * S, d)])
     buf = index_select(rows, 0, packed.reshape(-1))
     return buf.view(B, num_experts, capacity, d), ids, slots
+
+
+def _whole(t, grad=None):
+    """A DTensor gathered whole, as a local tensor (``grad``: its
+    gradient's placements); a plain tensor as it is."""
+    if not isinstance(t, DTensor):
+        return t
+    from torch.distributed.tensor import Replicate
+    return t.redistribute(t.device_mesh, [Replicate()] * t.device_mesh.ndim
+                          ).to_local(grad_placements=grad)
+
+
+def _gather_on_mesh(h: DTensor, packed, E: int, C: int, sh) -> DTensor:
+    """The dispatch's gather on a mesh, on each device's shard: the buffer
+    [B, E, C, d] is laid out as the expert FFN takes it (batch and
+    experts split by ``sh``'s rules); each device gathers the packed
+    token numbers of its batch split and experts (the packed table whole:
+    one int a slot) from the rows of its batch split, h gathered over the
+    other mesh dims. h's gradient is a partial sum over the expert
+    split."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh = h.device_mesh
+    B, S, d = h.shape
+    shape = (B, E, C, d)
+    lay = sh.placements(shape, "batch", "act_experts", None, None)
+    hp = [Shard(0) if p.is_shard(0) else Replicate() for p in lay]
+    hl = h.redistribute(mesh, hp).to_local(grad_placements=[
+        Partial() if p.is_shard(1) else q for p, q in zip(lay, hp)])
+    (nb, ne, _, _), (b0, e0, _, _) = compute_local_shape_and_global_offset(
+        shape, mesh, lay)
+    tok = _whole(packed).view(B, E, C)[b0:b0 + nb, e0:e0 + ne].long()
+    rows = torch.cat([hl.new_zeros(1, d), hl.reshape(nb * S, d)])
+    buf = rows[torch.where(tok > 0, tok - b0 * S, 0)]
+    return kernels.from_local(buf, mesh, lay, shape)
+
+
+def _combine_on_mesh(eout: DTensor, ids, slots, weights, S: int, k: int
+                     ) -> DTensor:
+    """The combine of expert outputs eout [B, E, C, d] split on its batch
+    and expert dims, on each device's shard: the entries of its batch
+    split (their ids b·E + e, slots and router weights, gathered whole:
+    a few ints a token) read their rows from its experts (0 from another
+    device's), weighted and summed over a token's k in order. -> out
+    [B, S, d] split as eout's batch and a partial sum over its expert
+    split (reduced by the next ``sh``); the router weights' gradient is a
+    partial sum over every mesh dim."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh = eout.device_mesh
+    B, E, C, d = eout.shape
+    eout = eout.redistribute(mesh, [p if p.is_shard(0) or p.is_shard(1)
+                                    else Replicate() for p in eout.placements])
+    local = eout.to_local()
+    (nb, ne, _, _), (b0, e0, _, _) = compute_local_shape_and_global_offset(
+        eout.shape, mesh, eout.placements)
+    span = slice(b0 * S * k, (b0 + nb) * S * k)
+    ids, slots = _whole(ids)[span].long(), _whole(slots)[span].long()
+    w = _whole(weights, [Partial()] * mesh.ndim).reshape(-1)[span]
+    e = ids % E - e0
+    keep = (e >= 0) & (e < ne) & (slots < C)
+    rows = local[ids // E - b0, e.clamp(0, ne - 1), slots.clamp(0, C - 1)]
+    rows = torch.where(keep[:, None], rows, torch.zeros_like(rows))
+    out = (rows * w[:, None]).view(nb, S, k, d).sum(dim=2)
+    return kernels.from_local(out, mesh, [
+        Partial() if p.is_shard(1) else p for p in eout.placements],
+        (B, S, d))
 
 
 def moe_apply(cfg, p, x, sh):
@@ -149,24 +224,28 @@ def moe_apply(cfg, p, x, sh):
     weights, experts, aux = route(cfg, p, h)                     # [T,k]
     C = expert_capacity(S, m.num_experts, k, m.capacity_factor)
 
-    ebuf, ids, slots = dispatch(h, experts, m.num_experts, C)
+    ebuf, ids, slots = dispatch(h, experts, m.num_experts, C, sh)
     ebuf = sh(ebuf, "batch", "act_experts", None, None)
-    g = torch.einsum("becd,edf->becf", ebuf, p["w_gate"].to(h.dtype))
-    u = torch.einsum("becd,edf->becf", ebuf, p["w_up"].to(h.dtype))
+    g = sh.einsum("becd,edf->becf", ebuf, p["w_gate"].to(h.dtype))
+    u = sh.einsum("becd,edf->becf", ebuf, p["w_up"].to(h.dtype))
     z = sh(swiglu(g, u), "batch", "act_experts", None, None)
-    eout = torch.einsum("becf,efd->becd", z, p["w_down"].to(h.dtype))
+    eout = sh.einsum("becf,efd->becd", z, p["w_down"].to(h.dtype))
     # combine: each entry's row back from its slot (zero where dropped),
     # weighted, then a token's k entries summed in order
-    back = pp_ops.partition_unpack(eout.reshape(B * m.num_experts, C, d),
-                                   ids, slots, C)                # [B*S*k,d]
-    back = back * weights.reshape(-1, 1).to(h.dtype)
-    out = back.view(B, S, k, d).sum(dim=2)
+    if isinstance(eout, DTensor):
+        out = _combine_on_mesh(eout, ids, slots, weights.to(h.dtype), S, k)
+    else:
+        back = pp_ops.partition_unpack(
+            eout.reshape(B * m.num_experts, C, d), ids, slots,
+            C)                                                   # [B*S*k,d]
+        back = back * weights.reshape(-1, 1).to(h.dtype)
+        out = back.view(B, S, k, d).sum(dim=2)
 
     if m.num_shared:
         sp = p["shared"]
-        g = h @ sp["w_gate"].to(h.dtype)
-        u = h @ sp["w_up"].to(h.dtype)
+        g = sh.dot(h, sp["w_gate"].to(h.dtype))
+        u = sh.dot(h, sp["w_up"].to(h.dtype))
         z = sh(swiglu(g, u), "batch", None, "act_mlp")
-        out = out + z @ sp["w_down"].to(h.dtype)
+        out = out + sh.dot(z, sp["w_down"].to(h.dtype))
 
     return x + sh(out, "batch", "seq", "act_embed"), aux

@@ -35,6 +35,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch import kernels
 from repro_torch.kernels._autograd import index_select
@@ -135,9 +136,9 @@ def _qkv(cfg, p, x, sh, positions, mrope_positions=None):
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     Hq, Hkv = _heads(cfg)
-    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, Hq, hd)
-    k = (x @ p["wk"].to(x.dtype)).reshape(B, S, Hkv, hd)
-    v = (x @ p["wv"].to(x.dtype)).reshape(B, S, Hkv, hd)
+    q = sh.dot(x, p["wq"].to(x.dtype)).reshape(B, S, Hq, hd)
+    k = sh.dot(x, p["wk"].to(x.dtype)).reshape(B, S, Hkv, hd)
+    v = sh.dot(x, p["wv"].to(x.dtype)).reshape(B, S, Hkv, hd)
     q = sh(q, "batch", "act_seq_q", "act_heads", None)
     k = sh(k, "batch", None, None, None)
     v = sh(v, "batch", None, None, None)
@@ -166,9 +167,28 @@ def _attend(cfg, q, k, v, *, causal: bool, window: int):
             return flash_ops.flash_gqa(q, k, v, causal=causal,
                                        window=window, kv_head=_kv_map(cfg))
         FK.count_routed()
-    return A.attention(q, _expand_kv(cfg, k), _expand_kv(cfg, v),
-                       impl=cfg.attn_impl, causal=causal, window=window,
-                       chunk=cfg.attn_chunk)
+    k, v = _expand_kv(cfg, k), _expand_kv(cfg, v)
+    if isinstance(q, DTensor):
+        return _attention_on_mesh(cfg, q, k, v, causal=causal,
+                                  window=window)
+    return A.attention(q, k, v, impl=cfg.attn_impl, causal=causal,
+                       window=window, chunk=cfg.attn_chunk)
+
+
+def _attention_on_mesh(cfg, q, k, v, *, causal: bool, window: int):
+    """The reference's algorithm on DTensors q, k, v [B,S,H,D] (k and v at
+    q's heads), on each device's shard: each keeps q's batch and head
+    splits (any other split is gathered), so the attention of each (batch,
+    head) is local, whatever DTensor's per-operation strategy would pick.
+    -> o laid out as q."""
+    lay = [p if p.is_shard(0) or p.is_shard(2) else Replicate()
+           for p in q.placements]
+    mesh = q.device_mesh
+    q, k, v = (t.redistribute(mesh, lay) for t in (q, k, v))
+    o = A.attention(q.to_local(), k.to_local(), v.to_local(),
+                    impl=cfg.attn_impl, causal=causal, window=window,
+                    chunk=cfg.attn_chunk)
+    return kernels.from_local(o, mesh, lay, (*q.shape[:3], v.shape[3]))
 
 
 def attn_apply(cfg, p, x, sh, *, positions, layer_kind: str = "full",
@@ -192,11 +212,11 @@ def attn_apply(cfg, p, x, sh, *, positions, layer_kind: str = "full",
         hd = cfg.resolved_head_dim
         Hq, Hkv = _heads(cfg)
         enc = kv_override
-        q = (h @ p["wq"].to(h.dtype)).reshape(B, S, Hq, hd)
-        k = (enc @ p["wk"].to(h.dtype)).reshape(B, enc.shape[1], Hkv, hd)
-        v = (enc @ p["wv"].to(h.dtype)).reshape(B, enc.shape[1], Hkv, hd)
+        q = sh.dot(h, p["wq"].to(h.dtype)).reshape(B, S, Hq, hd)
+        k = sh.dot(enc, p["wk"].to(h.dtype)).reshape(B, enc.shape[1], Hkv, hd)
+        v = sh.dot(enc, p["wv"].to(h.dtype)).reshape(B, enc.shape[1], Hkv, hd)
         o = _attend(cfg, q, k, v, causal=False, window=0)
-        out = o.reshape(B, S, -1) @ p["wo"].to(h.dtype)
+        out = sh.dot(o.reshape(B, S, -1), p["wo"].to(h.dtype))
         return x + sh(out, "batch", "seq", "act_embed"), cache
 
     if cache is None:
@@ -208,7 +228,7 @@ def attn_apply(cfg, p, x, sh, *, positions, layer_kind: str = "full",
                         window=cfg.window if layer_kind == "window" else 0)
         o = _apply_head_mask(cfg, sh(o, "batch", "act_seq_q", "act_heads",
                                      None))
-        out = o.reshape(B, S, -1) @ p["wo"].to(h.dtype)
+        out = sh.dot(o.reshape(B, S, -1), p["wo"].to(h.dtype))
         kv = {"k": k.to(cfg.compute_dtype), "v": v.to(cfg.compute_dtype)}
         return x + sh(out, "batch", "seq", "act_embed"), kv
 
@@ -231,7 +251,7 @@ def attn_apply(cfg, p, x, sh, *, positions, layer_kind: str = "full",
     o = A.decode_attention(q, _expand_kv(cfg, cache["k"]),
                            _expand_kv(cfg, cache["v"]), valid)
     o = _apply_head_mask(cfg, o)
-    out = o.reshape(B, S, -1) @ p["wo"].to(h.dtype)
+    out = sh.dot(o.reshape(B, S, -1), p["wo"].to(h.dtype))
     return x + sh(out, "batch", "seq", "act_embed"), cache
 
 
@@ -284,17 +304,17 @@ def mla_cache_defs(cfg, batch: int, cache_len: int, long: bool = False
     }
 
 
-def _mla_qc(cfg, p, h, positions):
+def _mla_qc(cfg, p, h, sh, positions):
     """Shared q / compressed-kv computation. Returns q_nope, q_rope, ckv,
     krope."""
     B, S, _ = h.shape
     H = cfg.num_heads
     nope, rope_d = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     r = cfg.kv_lora_rank
-    q = (h @ p["wq"].to(h.dtype)).reshape(B, S, H, nope + rope_d)
+    q = sh.dot(h, p["wq"].to(h.dtype)).reshape(B, S, H, nope + rope_d)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = A.apply_rope(q_rope, positions, cfg.rope_theta)
-    c = h @ p["w_dkv"].to(h.dtype)                              # [B,S,r+rope]
+    c = sh.dot(h, p["w_dkv"].to(h.dtype))                     # [B,S,r+rope]
     ckv = apply_norm("rms", p["kv_ln"], c[..., :r], cfg.norm_eps)
     krope = A.apply_rope(c[..., None, r:], positions, cfg.rope_theta)[:, :, 0]
     return q_nope, q_rope, ckv, krope
@@ -316,19 +336,19 @@ def mla_apply(cfg, p, x, sh, *, positions, cache: dict | None = None,
     vd = cfg.v_head_dim
     r = cfg.kv_lora_rank
     h = apply_norm(cfg.norm_kind, p["ln"], x, cfg.norm_eps)
-    q_nope, q_rope, ckv, krope = _mla_qc(cfg, p, h, positions)
+    q_nope, q_rope, ckv, krope = _mla_qc(cfg, p, h, sh, positions)
 
     if cache is None:
         # decompressed path: materialize per-head k/v (prefill). The
         # softmax scale is 1/sqrt(nope + rope), q's head dim.
-        k_nope = (ckv @ p["w_uk"].to(h.dtype)).reshape(B, S, H, nope)
-        v = (ckv @ p["w_uv"].to(h.dtype)).reshape(B, S, H, vd)
+        k_nope = sh.dot(ckv, p["w_uk"].to(h.dtype)).reshape(B, S, H, nope)
+        v = sh.dot(ckv, p["w_uv"].to(h.dtype)).reshape(B, S, H, vd)
         k = torch.cat([k_nope, krope[:, :, None].expand(B, S, H, rope_d)],
                       -1)
         q = torch.cat([q_nope, q_rope], -1)
         q = sh(q, "batch", "act_seq_q", "act_heads", None)
         o = _attend(cfg, q, k, v, causal=True, window=0)
-        out = o.reshape(B, S, -1) @ p["wo"].to(h.dtype)
+        out = sh.dot(o.reshape(B, S, -1), p["wo"].to(h.dtype))
         new_cache = {"ckv": ckv, "krope": krope}
         return x + sh(out, "batch", "seq", "act_embed"), new_cache
 
@@ -352,7 +372,7 @@ def mla_apply(cfg, p, x, sh, *, positions, cache: dict | None = None,
     pr = torch.softmax(s, dim=-1).to(h.dtype)
     o_c = torch.einsum("bhqk,bkr->bqhr", pr, ckv_c)              # [B,1,H,r]
     o = torch.einsum("bqhr,rhd->bqhd", o_c, w_uv)
-    out = o.reshape(B, S, -1) @ p["wo"].to(h.dtype)
+    out = sh.dot(o.reshape(B, S, -1), p["wo"].to(h.dtype))
     return x + sh(out, "batch", "seq", "act_embed"), cache
 
 
@@ -378,14 +398,14 @@ def mlp_defs(cfg, d_ff: int | None = None) -> dict:
 def mlp_apply(cfg, p, x, sh):
     h = apply_norm(cfg.norm_kind, p["ln"], x, cfg.norm_eps)
     if cfg.mlp_kind == "swiglu":
-        g = h @ p["w_gate"].to(h.dtype)
-        u = h @ p["w_up"].to(h.dtype)
+        g = sh.dot(h, p["w_gate"].to(h.dtype))
+        u = sh.dot(h, p["w_up"].to(h.dtype))
         z = sh(swiglu(g, u), "batch", None, "act_mlp")
-        out = z @ p["w_down"].to(h.dtype)
+        out = sh.dot(z, p["w_down"].to(h.dtype))
     else:
-        u = gelu(h @ p["w_up"].to(h.dtype) + p["b_up"].to(h.dtype))
+        u = gelu(sh.dot(h, p["w_up"].to(h.dtype)) + p["b_up"].to(h.dtype))
         u = sh(u, "batch", None, "act_mlp")
-        out = u @ p["w_down"].to(h.dtype) + p["b_down"].to(h.dtype)
+        out = sh.dot(u, p["w_down"].to(h.dtype)) + p["b_down"].to(h.dtype)
     return x + sh(out, "batch", "seq", "act_embed")
 
 

@@ -286,6 +286,16 @@ def deserialize_segment(data: bytes, device="cpu"):
     return _tensor(np.frombuffer(data, _DTYPES[dtc], n, pos), device)
 
 
+def table_segments(t: Table) -> tuple[list[str], list[bytes],
+                                      list[tuple[float, float]]]:
+    """-> (column names, per-column segment bytes, per-column zone maps)."""
+    t = t.to("cpu")
+    names = t.column_names()
+    segs = [serialize_segment(t[n]) for n in names]
+    stats = [column_stats(t[n]) for n in names]
+    return names, segs, stats
+
+
 def partitions_to_object(parts: list[Table]) -> bytes:
     """Write the §3.2 columnar partitioned object for one producer's
     output partitions (all share one column set — op_partition slices a
@@ -309,6 +319,12 @@ def table_to_object(t: Table) -> bytes:
     the same two range GETs + projection/zone-map pushdown as shuffle
     intermediates."""
     return partitions_to_object([t])
+
+
+def segments_to_table(names: list[str], blobs: list[bytes],
+                      device="cpu") -> Table:
+    return Table({n: deserialize_segment(b, device)
+                  for n, b in zip(names, blobs)})
 
 
 def decode_object(data: bytes, columns: list[str] | None = None,

@@ -103,3 +103,38 @@ def test_breakdown_reads_the_saved_ops(tmp_path, monkeypatch):
     assert breakdown.collective_breakdown(record) == []
     assert any("models/" in r["frame"] for r in record["ops"])
 
+
+
+def test_abstract_tree_is_the_reference_on_the_production_meshes():
+    """``dryrun.abstract_tree`` of every arch's parameters on the 16x16 and
+    2x16x16 meshes: each leaf's shape, dtype and spec (the mesh axes of
+    each dim, major to minor) are the reference's ``abstract_tree``'s,
+    which a child process with 512 host devices computes."""
+    import sys
+    import torch.distributed as dist
+    sys.path.insert(0, str(__import__("pathlib").Path(__file__).parent))
+    from make_torch_mesh_reference import abstract_trees
+
+    from repro_torch.launch.mesh import make_mesh_by_name
+    from repro_torch.models.modules import tree_leaves
+
+    def spec(x):
+        axes = [[] for _ in x.shape]
+        for name, p in zip(x.device_mesh.mesh_dim_names, x.placements):
+            if p.is_shard():
+                axes[p.dim].append(name)
+        return axes
+
+    want = abstract_trees()
+    assert not dist.is_initialized()
+    try:
+        for arch in ARCHS:
+            defs = build_model(get_config(arch)).param_defs
+            for name in ("single", "multi"):
+                leaves = tree_leaves(D.abstract_tree(
+                    defs, make_mesh_by_name(name)), is_leaf=torch.is_tensor)
+                got = [[list(x.shape), str(x.dtype).replace("torch.", ""),
+                        spec(x)] for x in leaves]
+                assert got == want[arch][name], (arch, name)
+    finally:
+        dist.destroy_process_group()

@@ -1,16 +1,27 @@
 """Smoke steps of llama4 (chunked-local attention, MoE) on 2x4 and 2x2x2
 fake meshes (``tests/_torch_mesh.py``): train, prefill and decode run
 under ``launch/dryrun.lower_cell`` on the meshes that ``CELLS`` names,
-and each device's FLOPs times the devices cover the unsharded step's. The train step on 2x2x2 is in
+and each device's FLOPs times the devices cover the unsharded step's;
+each step reads the reference's counts (``matches_reference``). The
+train step on 2x2x2 is in
 ``test_torch_dryrun_mesh_llama4_train.py``."""
 import pytest
 
 pytest.importorskip("torch")
 
-from _torch_mesh import CELLS, holds_on_mesh, meshes  # noqa: E402,F401
+from _torch_mesh import (CELLS, holds_on_mesh,  # noqa: E402,F401
+                         matches_reference, meshes, reference_cases)
 
 
 @pytest.mark.parametrize("kind,mesh_name",
                          [c for c in CELLS if c != ("train", "2x2x2")])
 def test_step_runs_on_the_mesh(meshes, kind, mesh_name):  # noqa: F811
     holds_on_mesh("llama4-maverick-400b-a17b", kind, meshes[mesh_name])
+
+
+@pytest.mark.parametrize("arch,kind,mesh_name", reference_cases(
+    ["llama4-maverick-400b-a17b"],
+    [c for c in CELLS if c != ("train", "2x2x2")]))
+def test_step_reads_the_reference_counts(meshes, arch, kind,  # noqa: F811
+                                         mesh_name):
+    matches_reference(arch, kind, mesh_name, meshes)

@@ -1,0 +1,211 @@
+"""The layouts the port states on a mesh where GSPMD would choose them
+(``models/modules.py:Sharder``): FSDP weights gathered at use
+(``Sharder.dot``, ``Sharder.einsum``), the vocabulary kept split through
+the loss (``token_nll``) and the embedding lookup (``Sharder.lookup``),
+and gradients returned in their parameters' layouts
+(``launch/steps.grads_of``). On the fake 2x4 mesh the tests read the
+collectives from the op record; the values are held against the
+reference's functions on a real 2x2 mesh of four CPU processes (gloo)."""
+import os
+import pathlib
+import socket
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from _torch_mesh import B, LAYERS, S, meshes  # noqa: E402,F401
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.configs.smoke import smoke_config  # noqa: E402
+
+HERE = pathlib.Path(__file__).resolve()
+
+
+def _dtensor(shape, mesh, placements, requires_grad=False):
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    from repro_torch import kernels
+    local, _ = compute_local_shape_and_global_offset(shape, mesh, placements)
+    t = kernels.from_local(torch.empty(local, device="meta"), mesh,
+                           placements, shape)
+    return t.requires_grad_(requires_grad)
+
+
+def test_a_projection_gathers_its_weight_over_fsdp_only(meshes):  # noqa
+    """x [B@data, S@model, d] @ w [d@data, n@model]: w is gathered over
+    "data" and x over "model" (its sequence), the product is [B@data, S,
+    n@model] whatever the release's per-operation strategy, and in the
+    backward w's gradient is reduce-scattered over "data" into w's
+    layout, x's over "model" into x's."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.launch.step_analysis import analyze
+    from repro_torch.models.modules import Sharder
+    mesh = meshes["2x4"]
+    x = _dtensor((4, 16, 64), mesh, [Shard(0), Shard(1)], True)
+    w = _dtensor((64, 32), mesh, [Shard(0), Shard(1)], True)
+
+    def step(x, w):
+        y = Sharder(mesh, {}).dot(x, w)
+        y.sum().backward()
+        return y
+
+    y, ana = analyze(step, x, w, record_ops=True)
+    assert tuple(y.placements) == (Shard(0), Shard(2))
+    assert tuple(x.grad.placements) == tuple(x.placements)
+    assert tuple(w.grad.placements) == tuple(w.placements)
+    colls = sorted((r["kind"], r["group"], tuple(r["shapes"][0]))
+                   for r in ana["ops"] if "group" in r)
+    assert ("all-gather", 2, (32, 8)) in colls           # w over data
+    assert ("all-gather", 4, (2, 4, 64)) in colls        # x over model
+    assert ("reduce-scatter", 2, (64, 8)) in colls       # dw over data
+    assert not any(k == "all-gather" and g == 2 and len(s) == 3
+                   for k, g, s in colls)                 # no batch gather
+
+
+def test_the_loss_and_the_lookup_move_no_vocabulary(meshes):  # noqa: F811
+    """mamba2-2.7b's smoke train step on 2x4 (its vocabulary padded to
+    50288, split 4 ways): no collective moves an activation whose last dim
+    is the vocabulary or its shard (logits [B, S, V]), since the loss
+    reduces each device's max, sum of exponentials and label logit, and
+    the lookup reduces its rows; the tied head's own gather and its
+    gradient's reduce-scatter are 2-D."""
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.launch.step_analysis import COLLECTIVES
+    arch = "mamba2-2.7b"
+    cfg = smoke_config(arch).replace(num_layers=LAYERS.get(arch, 2))
+    ana, _ = lower_cell(arch, ShapeConfig("smoke", S, B, "train"),
+                        meshes["2x4"], cfg=cfg, record_ops=True)
+    vocab = {cfg.pad_vocab_to, cfg.pad_vocab_to // 4}
+    moved = [r for r in ana["ops"] if r["kind"] in COLLECTIVES
+             and any(len(s) > 2 and s[-1] in vocab for s in r["shapes"])]
+    assert not moved, moved[:3]
+
+
+def test_gradients_leave_in_their_parameters_layouts(meshes):  # noqa: F811
+    """``grads_of`` on 2x4 for a smoke config of each family with a tied or
+    vocab-split embedding: every gradient is laid out as its parameter,
+    so the optimizer's redistribute moves nothing."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch.dryrun import Reshards, abstract_tree
+    from repro_torch.launch.steps import grads_of
+    from repro_torch.models.model import build_model
+    from repro_torch.models.modules import tree_leaves
+    from repro_torch.parallel.sharding import effective_rules
+    for arch in ("mamba2-2.7b", "glm4-9b"):
+        cfg = smoke_config(arch).replace(num_layers=2)
+        rules = effective_rules(cfg)
+        bundle = build_model(cfg, mesh=meshes["2x4"], rules=rules)
+        params = abstract_tree(bundle.param_defs, meshes["2x4"], rules)
+        batch = abstract_tree(bundle.batch_defs(ShapeConfig(
+            "smoke", S, B, "train")), meshes["2x4"], rules)
+        with implicit_replication(), Reshards():
+            grads, _ = grads_of(bundle.loss_fn, params, batch)
+        for p, g in zip(tree_leaves(params, torch.is_tensor),
+                        tree_leaves(grads, torch.is_tensor)):
+            assert tuple(g.placements) == tuple(p.placements), (arch, p.shape)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def test_on_a_real_mesh_the_values_are_the_reference_s():
+    """Four CPU processes over gloo, a 2x2 ("data", "model") mesh: the
+    vocab-parallel loss and its gradient (logits split on both), the
+    lookup of a vocab-split table and its gradient, and a projection and
+    its gradients, gathered whole, equal the reference's functions
+    (``_reference``, float64 numpy) on the same inputs to 1e-5; no JAX,
+    so the test runs on the card's machine too."""
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(HERE.parents[1] / "src"), str(HERE.parent)]))
+    procs = [subprocess.Popen([sys.executable, str(HERE), str(r), str(port)],
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(4)]
+    outs = [p.communicate(timeout=240)[0] for p in procs]
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+    assert "values match" in outs[0], outs[0][-3000:]
+
+
+def _reference(logits, labels, mask, table, ids, x, w, co) -> list:
+    """The reference's functions in float64 numpy: the masked mean of
+    logsumexp less the label logit (``softmax_cross_entropy``) and its
+    gradient, ``table[ids]`` and the gradient of ``(table[ids] * x).sum()``,
+    ``x @ w`` and the gradients of ``((x @ w) * co).sum()``."""
+    lg = logits.astype(np.float64)
+    m = lg.max(-1, keepdims=True)
+    e = np.exp(lg - m)
+    lse = np.log(e.sum(-1)) + m[..., 0]
+    ll = np.take_along_axis(lg, labels[..., None].astype(np.int64), -1)[
+        ..., 0]
+    mf = mask.astype(np.float64)
+    cnt = max(mf.sum(), 1.0)
+    loss = ((lse - ll) * mf).sum() / cnt
+    onehot = np.eye(lg.shape[-1])[labels]
+    dlg = (e / e.sum(-1, keepdims=True) - onehot) * (mf / cnt)[..., None]
+    dtable = np.zeros_like(table, dtype=np.float64)
+    np.add.at(dtable, ids, x)
+    return [loss, dlg, table[ids], dtable, x @ w, co @ w.T,
+            x.reshape(-1, x.shape[-1]).T @ co.reshape(-1, co.shape[-1])]
+
+
+def _worker(rank: int, port: int) -> None:
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from repro_torch.models.modules import Sharder, softmax_cross_entropy
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=4)
+    mesh = DeviceMesh("cpu", torch.arange(4).reshape(2, 2),
+                      mesh_dim_names=("data", "model"))
+    sh = Sharder(mesh, {})
+    rng = np.random.default_rng(0)
+    b, s, v, d, n = 4, 6, 12, 8, 10
+    logits = rng.standard_normal((b, s, v)).astype(np.float32) * 3
+    labels = rng.integers(0, v, (b, s)).astype(np.int32)
+    mask = (rng.random((b, s)) < 0.8).astype(np.int32)
+    table = rng.standard_normal((v, d)).astype(np.float32)
+    ids = rng.integers(0, v, (b, s)).astype(np.int32)
+    x = rng.standard_normal((b, s, d)).astype(np.float32)
+    w = rng.standard_normal((d, n)).astype(np.float32)
+    co = rng.standard_normal((b, s, n)).astype(np.float32)
+
+    def dt(a, placements, grad=False):
+        return distribute_tensor(torch.tensor(a), mesh, placements
+                                 ).requires_grad_(grad)
+
+    lg = dt(logits, [Shard(0), Shard(2)], True)
+    loss = softmax_cross_entropy(lg, dt(labels, [Shard(0), Shard(1)]),
+                                 dt(mask, [Shard(0), Shard(1)]))
+    loss.backward()
+    tb = dt(table, [Shard(1), Shard(0)], True)
+    emb = sh(sh.lookup(tb, dt(ids, [Shard(0), Shard(1)]), torch.float32),
+             "batch", "seq", "act_embed")
+    (emb * dt(x, list(emb.placements))).sum().backward()
+    xd, wd = dt(x, [Shard(0), Shard(1)], True), dt(w, [Shard(0), Shard(1)],
+                                                   True)
+    y = sh.dot(xd, wd)
+    (y * dt(co, list(y.placements))).sum().backward()
+    got = [t.full_tensor().detach().numpy() for t in (
+        loss, lg.grad, emb, tb.grad, y, xd.grad, wd.grad)]
+    if rank == 0:
+        want = _reference(logits, labels, mask, table, ids, x, w, co)
+        for g, r in zip(got, want):
+            np.testing.assert_allclose(g, r, rtol=1e-5, atol=1e-5)
+        print("values match")
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    _worker(int(sys.argv[1]), int(sys.argv[2]))

@@ -95,3 +95,19 @@ def test_concat_merges_dictionaries():
     assert t["s"].decode() == rt["s"].decode()
     assert t["s"].values == rt["s"].values
     assert PT.serialize_table(t) == RT.serialize_table(rt)
+
+
+@pytest.mark.parametrize("name", ["orders", "lineitem", "part"])
+def test_table_segments_round_trip_as_the_reference(both, name):
+    """``table_segments``: the reference's names, segment bytes (byte for
+    byte) and zone maps; ``segments_to_table`` of those bytes: the same
+    table, whose segments are the same bytes again."""
+    ref, port = both
+    names, segs, stats = PT.table_segments(port[name])
+    want = RT.table_segments(ref[name])
+    assert (names, segs, stats) == want
+    back = PT.segments_to_table(names, segs)
+    assert back.column_names() == names
+    assert PT.serialize_table(back) == RT.serialize_table(
+        RT.segments_to_table(*want[:2]))
+    assert PT.table_segments(back) == want
