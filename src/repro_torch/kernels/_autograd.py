@@ -3,13 +3,14 @@
 A kernel fills its outputs through ctypes, which autograd cannot see. So
 each public kernel entry runs through :func:`kernel_call`: when grad is
 enabled and an input requires it, the call goes through :class:`Recompute`,
-whose forward launches the kernel as before and whose backward recomputes
-the kernel's plain PyTorch version on the saved inputs under
-``torch.enable_grad()`` and returns that version's vector-Jacobian
-product. Outputs of an integer type (counts, slots, ids) get no gradient.
-There is no backward kernel (the Pallas kernels have none either). Under
-``torch.no_grad()`` or ``torch.inference_mode()`` the launch is called
-directly.
+whose forward launches the kernel as before and whose backward computes a
+vector-Jacobian product from the saved inputs in plain PyTorch: the
+kernel's own (``vjp``, flash_gqa's chunk-by-chunk backward of the model's
+algorithm), or by default the plain version recomputed under
+``torch.enable_grad()`` and differentiated. Outputs of an integer type
+(counts, slots, ids) get no gradient. There is no backward kernel (the
+Pallas kernels have none either). Under ``torch.no_grad()`` or
+``torch.inference_mode()`` the launch is called directly.
 """
 from __future__ import annotations
 
@@ -17,12 +18,14 @@ import torch
 
 
 class Recompute(torch.autograd.Function):
-    """forward: ``launch(*xs)``; backward: the VJP of ``plain(*xs)``. Both
-    return a tuple of tensors, alike in number, shape and dtype."""
+    """forward: ``launch(*xs)``, a tuple of tensors; backward: ``vjp(xs,
+    gouts, need)`` -> the gradient of each input (None where ``need`` is
+    False), with ``gouts`` one cotangent an output (None where it has
+    none)."""
 
     @staticmethod
-    def forward(ctx, launch, plain, *xs):
-        ctx.plain = plain
+    def forward(ctx, launch, vjp, *xs):
+        ctx.vjp = vjp
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(*xs)
         outs = tuple(launch(*xs))
@@ -33,24 +36,33 @@ class Recompute(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *gouts):
         need = ctx.needs_input_grad[2:]
+        return (None, None, *ctx.vjp(ctx.saved_tensors, gouts, need))
+
+
+def plain_vjp(plain):
+    """The backward of a call whose ``plain(*xs)`` -> the tuple of
+    outputs: the plain version recomputed on the saved inputs under
+    ``torch.enable_grad()``, and its vector-Jacobian product."""
+    def vjp(saved, gouts, need):
         with torch.enable_grad():
-            xs = [x.detach().requires_grad_(n)
-                  for x, n in zip(ctx.saved_tensors, need)]
-            outs = ctx.plain(*xs)
+            xs = [x.detach().requires_grad_(n) for x, n in zip(saved, need)]
+            outs = plain(*xs)
             pairs = [(o, g) for o, g in zip(outs, gouts)
                      if g is not None and o.requires_grad]
             wrt = [x for x, n in zip(xs, need) if n]
             grads = iter(torch.autograd.grad(
                 [o for o, _ in pairs], wrt, [g for _, g in pairs],
                 allow_unused=True) if pairs else [None] * len(wrt))
-        return (None, None, *[next(grads) if n else None for n in need])
+        return [next(grads) if n else None for n in need]
+    return vjp
 
 
-def kernel_call(launch, plain, *xs: torch.Tensor) -> tuple:
-    """``launch(*xs)``, differentiable through ``plain`` where grad is
-    needed. -> the tuple of outputs."""
+def kernel_call(launch, plain, *xs: torch.Tensor, vjp=None) -> tuple:
+    """``launch(*xs)``, differentiable where grad is needed through
+    ``vjp`` (``Recompute``'s), by default ``plain_vjp(plain)``. -> the
+    tuple of outputs."""
     if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
-        return Recompute.apply(launch, plain, *xs)
+        return Recompute.apply(launch, vjp or plain_vjp(plain), *xs)
     return tuple(launch(*xs))
 
 
@@ -76,15 +88,22 @@ class _Select(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (index,) = ctx.saved_tensors
-        if g.device.type not in ("cuda", "meta"):
-            shape = list(g.shape)
-            shape[ctx.dim] = ctx.size
-            return (g.new_zeros(shape).index_add_(ctx.dim, index, g), None,
-                    None)
-        g = g.movedim(ctx.dim, 0)
-        out = g.new_zeros((ctx.size,) + g.shape[1:])
-        out.index_put_((index.long(),), g, accumulate=True)
-        return out.movedim(0, ctx.dim), None, None
+        return add_rows(g, ctx.dim, index, ctx.size), None, None
+
+
+def add_rows(g: torch.Tensor, dim: int, index: torch.Tensor, size: int
+             ) -> torch.Tensor:
+    """The gradient of ``x.index_select(dim, index)`` for x of ``size``
+    rows along ``dim``: ``g``'s rows added into their indices, in the fixed
+    order ``_Select`` describes."""
+    if g.device.type not in ("cuda", "meta"):
+        shape = list(g.shape)
+        shape[dim] = size
+        return g.new_zeros(shape).index_add_(dim, index, g)
+    g = g.movedim(dim, 0)
+    out = g.new_zeros((size,) + g.shape[1:])
+    out.index_put_((index.long(),), g, accumulate=True)
+    return out.movedim(0, dim)
 
 
 def index_select(x: torch.Tensor, dim: int, index: torch.Tensor

@@ -13,8 +13,10 @@ It checks device, dtype, shape, contiguity, alignment and the map,
 allocates the output, launches on the current stream, checks the error
 code, and counts one launch per call in ``launches``. On the meta device
 (the dry run) the launch is shape-only: the checks and the output. Where grad is needed
-the call runs inside an autograd Function whose backward is the plain
-version's (``kernels/_autograd.py``).
+the call runs inside an autograd Function (``kernels/_autograd.py``) whose
+backward is ``grads``: the model's own attention algorithm
+(``models/attention.py:attention`` at the call's ``impl`` and ``chunk``)
+differentiated chunk by chunk, as the reference's backward runs it.
 
 ``takes`` says by shape alone whether the kernel takes a call; a model
 sends the calls it does not take to the plain path and counts them with
@@ -29,8 +31,9 @@ import threading
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._autograd import index_select, kernel_call
+from repro_torch.kernels._autograd import add_rows, index_select, kernel_call
 from repro_torch.kernels.flash_gqa.ref import attention_ref
+from repro_torch.models.attention import attention_vjp
 
 launches = 0                      # flash_gqa() calls that launched the kernel
 routed = 0                        # calls the model sent to the plain path
@@ -141,19 +144,43 @@ def _map_on(m: tuple[int, ...], dev: torch.device) -> torch.Tensor:
 
 
 def flash_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True, window: int = 0,
-              kv_head=None) -> torch.Tensor:
+              causal: bool = True, window: int = 0, kv_head=None,
+              impl: str = "chunked", chunk: int | None = None
+              ) -> torch.Tensor:
     """q [B,Sq,H,D], k [B,Skv,Hkv,D], v [B,Skv,Hkv,Dv], contiguous on one
     CUDA device, f32 or bf16 alike (Sq == Skv unless neither ``causal``
     nor ``window``); ``kv_head``: query head -> kv head (host ints, default
     h // (H / Hkv)). -> o [B,Sq,H,Dv] in q's dtype: softmax(q.k / sqrt(D))
     v over the keys at or before each query (``causal``) and within the
     last ``window`` positions (``window`` > 0). Differentiable in q, k and
-    v through the plain version."""
+    v through ``grads`` at ``impl`` and ``chunk`` (the model's
+    ``attn_impl`` and ``attn_chunk``; ``chunk`` None: one chunk of Sq
+    queries)."""
     kw = {"causal": causal, "window": window, "kv_head": kv_head}
     launch = _shape_only if q.device.type == "meta" else _launch
+
+    def vjp(saved, gouts, need):
+        return grads(*saved, gouts[0], impl=impl, chunk=chunk, **kw)
     return kernel_call(lambda *t: (launch(*t, **kw),),
-                       lambda *t: (plain(*t, **kw),), q, k, v)[0]
+                       lambda *t: (plain(*t, **kw),), q, k, v, vjp=vjp)[0]
+
+
+def grads(q, k, v, go, *, causal: bool = True, window: int = 0,
+          kv_head=None, impl: str = "chunked", chunk: int | None = None):
+    """The backward of a ``flash_gqa`` call under the cotangent ``go``
+    [B,Sq,H,Dv] (None: no gradient) -> (dq, dk, dv): ``attention_vjp`` of
+    the model's algorithm at ``impl`` and ``chunk`` over k and v gathered
+    to the query heads by the map, the gathered gradients added back into
+    the kv heads in a fixed order (``_autograd.add_rows``)."""
+    if go is None:
+        return None, None, None
+    m = check_args(q, k, v, window, kv_head, causal)
+    idx = torch.tensor(m, device=q.device)
+    dq, dk, dv = attention_vjp(
+        q, k.index_select(2, idx), v.index_select(2, idx), go, impl=impl,
+        causal=causal, window=window, chunk=chunk or q.shape[1])
+    Hkv = k.shape[2]
+    return dq, add_rows(dk, 2, idx, Hkv), add_rows(dv, 2, idx, Hkv)
 
 
 def _shape_only(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -3,7 +3,10 @@ tensors, a shape-only launch for meta tensors (the dry run's stand-in for
 the card), the plain chunked SSD for CPU tensors, nothing else. DTensors
 (a mesh's dry run) run the entry on their local shards, after
 redistributing the inputs to a layout that is local to the kernel
-(``_on_mesh``). ``work`` is the function's closed-form FLOPs and bytes."""
+(``_on_mesh``). ``work`` is the function's closed-form FLOPs and bytes, the
+least it needs (every bound's numerator); ``model_work`` is what a step
+analysis counts for a call: the FLOPs of ``ssd_chunked``, the model's own
+algorithm, which the reference's program runs in the kernel's place."""
 from __future__ import annotations
 
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
@@ -34,6 +37,24 @@ def work(x_shape, bc_shape, *, chunk: int, elem_bytes: int
     return flops, nbytes
 
 
+def model_work(x_shape, bc_shape, *, chunk: int, elem_bytes: int
+               ) -> tuple[int, int]:
+    """(flops, bytes) a step analysis counts for a call: the products of
+    ``ssd_chunked`` (the reference's ``models/mamba2.py:ssd_chunked``) with
+    B and C repeated to the heads, per (b, h, chunk) the full square of
+    C.B^T and of the scores by x*dt, B^T.(x*dt) and C.state; the
+    recurrence over the nc + 1 chunk states; the bytes are ``work``'s,
+    what the kernel moves."""
+    B, S, H, P = x_shape
+    N = bc_shape[3]
+    Q = min(chunk, S)
+    nc = S // Q
+    flops = 2 * B * H * (nc * Q * Q * (N + P) + 2 * nc * Q * P * N
+                         + (nc + 1) ** 2 * P * N)
+    return flops, work(x_shape, bc_shape, chunk=chunk,
+                       elem_bytes=elem_bytes)[1]
+
+
 def ssd(x, dt, A, Bm, Cm, *, chunk: int = 128):
     """x [B,S,H,P], dt [B,S,H] (post-softplus), A [H], Bm/Cm [B,S,G,N].
     Returns (y [B,S,H,P] in x's dtype, state [B,H,P,N] f32), in chunks of
@@ -46,7 +67,7 @@ def ssd(x, dt, A, Bm, Cm, *, chunk: int = 128):
         return _on_mesh(x, dt, A, Bm, Cm, chunk=Q)
     if kernels.kernel_route(x):
         args = [t.contiguous() for t in (x, dt, A, Bm, Cm)]
-        with kernels.entry("ssd_scan", lambda: work(
+        with kernels.entry("ssd_scan", lambda: model_work(
                 x.shape, Bm.shape, chunk=Q, elem_bytes=x.element_size())):
             return K.ssd_scan(*args, chunk=Q)
     if x.device.type != "cpu":

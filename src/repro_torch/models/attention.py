@@ -10,7 +10,10 @@ computes the same function.
 Prefill uses *chunked online-softmax* attention (a loop over query chunks
 against the full K with masking), so the [S, S] score matrix is never
 materialized at once: memory O(chunk x S) a step. ``causal_split_attention``
-skips most of the causal upper triangle by recursion.
+skips most of the causal upper triangle by recursion. ``attention_chunks``
+lists the chunks ``attention`` computes, and ``attention_vjp`` is its
+backward chunk by chunk: the kernel's backward, and what the dry run
+counts for a kernel call.
 
 Where the reference asks a product for an f32 result from bf16 operands
 (``preferred_element_type=jnp.float32``), the port multiplies the operands
@@ -119,27 +122,36 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if pad:
         q = F.pad(q, (0, 0, 0, 0, 0, pad))
     n = (Sq + pad) // chunk
-    kpos = torch.arange(Skv, device=q.device)
     outs = []
     for idx in range(n):
         qi = q[:, idx * chunk:(idx + 1) * chunk]              # [B,chunk,H,D]
-        qpos = q_offset + idx * chunk + torch.arange(chunk, device=q.device)
-        s = _scores(qi, k, scale)
-        m = torch.ones((chunk, Skv), dtype=torch.bool, device=q.device)
-        if causal:
-            m &= kpos[None, :] <= qpos[:, None]
-        if window > 0:
-            m &= kpos[None, :] > qpos[:, None] - window
-        if kv_valid_len is not None:
-            valid = kpos[None, None, :] < torch.as_tensor(
-                kv_valid_len, device=q.device)[:, None, None]
-            s = s.masked_fill(~(m[None] & valid)[:, None], NEG_INF)
-        else:
-            s = s.masked_fill(~m[None, None], NEG_INF)
-        p = torch.softmax(s, dim=-1).to(v.dtype)
-        outs.append(torch.einsum("bhqk,bkhd->bqhd", p, v))
+        p = _chunk_probs(qi, k, q_offset + idx * chunk, scale, causal=causal,
+                         window=window, kv_valid_len=kv_valid_len)
+        outs.append(torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v))
     out = torch.cat(outs, dim=1)
     return out[:, :Sq] if pad else out
+
+
+def _chunk_probs(qi, k, row, scale, *, causal, window, kv_valid_len=None):
+    """The f32 softmax probabilities [B,H,c,Skv] of query chunk qi
+    [B,c,H,D], whose first query sits at position ``row`` of k [B,Skv,H,D],
+    under ``chunked_attention``'s masks."""
+    Skv, c = k.shape[1], qi.shape[1]
+    kpos = torch.arange(Skv, device=qi.device)
+    qpos = row + torch.arange(c, device=qi.device)
+    s = _scores(qi, k, scale)
+    m = torch.ones((c, Skv), dtype=torch.bool, device=qi.device)
+    if causal:
+        m &= kpos[None, :] <= qpos[:, None]
+    if window > 0:
+        m &= kpos[None, :] > qpos[:, None] - window
+    if kv_valid_len is not None:
+        valid = kpos[None, None, :] < torch.as_tensor(
+            kv_valid_len, device=qi.device)[:, None, None]
+        s = s.masked_fill(~(m[None] & valid)[:, None], NEG_INF)
+    else:
+        s = s.masked_fill(~m[None, None], NEG_INF)
+    return torch.softmax(s, dim=-1)
 
 
 def block_tri_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -192,7 +204,11 @@ def block_tri_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.permute(1, 0, 3, 2, 4).reshape(B, Sq, H, Dv).to(v.dtype)
 
 
-def causal_split_attention(q, k, v, *, chunk=512, q_offset=0, depth=3):
+SPLIT_DEPTH = 3                   # causal_split_attention's recursion
+
+
+def causal_split_attention(q, k, v, *, chunk=512, q_offset=0,
+                           depth=SPLIT_DEPTH):
     """Recursive causal decomposition (the triangular skip in plain
     PyTorch): the lower query half attends only to the lower KV half
     (recurse); the upper half attends to everything (plain masked chunked
@@ -219,6 +235,65 @@ def attention(q, k, v, *, impl="chunked", causal=True, window=0, chunk=1024,
     return chunked_attention(q, k, v, causal=causal, window=window,
                              chunk=chunk, q_offset=q_offset,
                              kv_valid_len=kv_valid_len)
+
+
+def attention_chunks(Sq: int, Skv: int, *, impl="chunked", causal=True,
+                     window=0, chunk=1024) -> list[tuple[int, int, int, int]]:
+    """The query chunks that ``attention`` (no ``q_offset``, no
+    ``kv_valid_len``) computes for Sq queries against Skv keys, in its
+    order: (row, rows, padded, keys) for each, the ``rows`` queries from
+    ``row`` (zero-padded to ``padded``, as ``chunked_attention`` pads the
+    last chunk) against the first ``keys`` keys. The causal split gives
+    the lower half's chunks against the lower half's keys (recursively),
+    then the upper half's against all keys."""
+    def chunked(row, n, keys):
+        c = min(chunk, n)
+        return [(row + i, min(c, n - i), c, keys) for i in range(0, n, c)]
+
+    def split(S, depth):
+        if depth <= 0 or S < 2 * chunk or S % 2:
+            return chunked(0, S, S)
+        half = S // 2
+        return split(half, depth - 1) + chunked(half, half, S)
+
+    if impl == "block_tri" and causal and window == 0 and Skv == Sq:
+        return split(Sq, SPLIT_DEPTH)
+    return chunked(0, Sq, Skv)
+
+
+def attention_vjp(q, k, v, go, *, impl="chunked", causal=True, window=0,
+                  chunk=1024):
+    """The gradients (dq, dk, dv) of ``attention(q, k, v, impl=, causal=,
+    window=, chunk=)`` under the cotangent ``go`` [B,Sq,H,Dv], k and v at
+    q's heads, in the dtypes of q, k and v. It takes the chunks of
+    ``attention_chunks`` one by one and recomputes each chunk's
+    probabilities from q and k, as the reference's backward recomputes its
+    checkpointed chunk (``jax.checkpoint`` of ``one_chunk``), so no score
+    matrix outlives its chunk: five products a chunk (the scores, then
+    dv = p^T.go, dp = go.v^T, dq = ds.k and dk = ds^T.q with ds = p *
+    (dp - rowsum(dp * p))), in the dtypes the forward's products have;
+    dq, dk and dv are summed in f32."""
+    B, Sq, H, D = q.shape
+    scale = 1.0 / math.sqrt(D)
+    f32 = torch.float32
+    dq = torch.zeros(q.shape, dtype=f32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=f32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=f32, device=v.device)
+    for row, n, c, keys in attention_chunks(Sq, k.shape[1], impl=impl,
+                                            causal=causal, window=window,
+                                            chunk=chunk):
+        qi, gi = q[:, row:row + n], go[:, row:row + n]
+        if c > n:
+            qi, gi = (F.pad(t, (0, 0, 0, 0, 0, c - n)) for t in (qi, gi))
+        kc, vc = k[:, :keys], v[:, :keys]
+        p = _chunk_probs(qi, kc, row, scale, causal=causal, window=window)
+        dv[:, :keys] += torch.einsum("bhqk,bqhd->bkhd", p.to(v.dtype), gi)
+        dp = torch.einsum("bqhd,bkhd->bhqk", gi, vc).float()
+        ds = p * (dp - (dp * p).sum(-1, keepdim=True)) * scale
+        dq[:, row:row + n] = torch.einsum("bhqk,bkhd->bqhd", ds,
+                                          kc.float())[:, :n]
+        dk[:, :keys] += torch.einsum("bhqk,bqhd->bkhd", ds, qi.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -94,8 +94,13 @@ def rec_apply(cfg, p, x, sh, *, cache=None, **_):
     if cache is None:
         xc, _ = _causal_conv(xb, p["conv_w"].to(h.dtype),
                              p["conv_b"].to(h.dtype), act=False)
-        a_gate = sh.dot(xc, p["w_a"].to(h.dtype))
-        i_gate = sh.dot(xc, p["w_i"].to(h.dtype))
+        # on a mesh the gates take xb's layout, the sequence whole, so the
+        # scan over it runs on each device's shard; DTensor would reduce
+        # the products' partial sums onto a sequence split instead
+        a_gate = sh(sh.dot(xc, p["w_a"].to(h.dtype)), "batch", None,
+                    "act_mlp")
+        i_gate = sh(sh.dot(xc, p["w_i"].to(h.dtype)), "batch", None,
+                    "act_mlp")
         y, _ = _rglru(xc, a_gate, i_gate, p["lam"])
     else:
         conv_in = torch.cat([cache["conv"].to(h.dtype), xb], dim=1)

@@ -40,8 +40,9 @@ from repro_torch.models import griffin as G
 from repro_torch.models import mamba2 as M
 from repro_torch.models import transformer as T
 from repro_torch.models.modules import (ParamSpec, Sharder, apply_norm,
-                                        norm_defs, softmax_cross_entropy,
-                                        stack_specs, token_nll, tree_map)
+                                        norm_defs, recomputed,
+                                        softmax_cross_entropy, stack_specs,
+                                        token_nll, tree_map)
 from repro_torch.models.moe import moe_apply
 
 AUX_WEIGHT = 0.01
@@ -121,8 +122,9 @@ def _lm_loss(cfg, p, h, targets, mask, sh):
 
     tot = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(0, S, ck):
-        t, c = checkpoint(chunk, h[:, i:i + ck], head, targets[:, i:i + ck],
-                          mask[:, i:i + ck], use_reentrant=False)
+        t, c = checkpoint(_recomputed(chunk), h[:, i:i + ck], head,
+                          targets[:, i:i + ck], mask[:, i:i + ck],
+                          use_reentrant=False)
         tot, cnt = tot + t, cnt + c
     return tot / torch.clamp(cnt, min=1.0)
 
@@ -143,7 +145,18 @@ def _maybe_remat(f, cfg, mode):
     if mode != "train" or cfg.remat == "none":
         return f
     kw = {"context_fn": _SAVE_DOTS} if cfg.remat == "dots" else {}
-    return functools.partial(checkpoint, f, use_reentrant=False, **kw)
+    return functools.partial(checkpoint, _recomputed(f), use_reentrant=False,
+                             **kw)
+
+
+def _recomputed(f):
+    """``f`` marked as a body its backward recomputes
+    (``modules.recomputed``)."""
+    @functools.wraps(f)
+    def body(*args, **kwargs):
+        with recomputed():
+            return f(*args, **kwargs)
+    return body
 
 
 def _base_batch_defs(cfg, shape: ShapeConfig) -> dict:

@@ -11,8 +11,10 @@ same nesting; the declaration drives
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import threading
 from typing import Any, Callable
 
 import numpy as np
@@ -305,11 +307,61 @@ def _redistributed(t: DTensor, placements) -> DTensor:
         t, placements)
 
 
+_recompute = threading.local()      # .depth: recomputed bodies running
+
+
+@contextlib.contextmanager
+def recomputed():
+    """Marks code that its backward recomputes (a body under
+    ``torch.utils.checkpoint``): a product there gathers its weight again
+    in the recompute, so ``_product`` lets the backward keep that
+    gather."""
+    depth = getattr(_recompute, "depth", 0)
+    _recompute.depth = depth + 1
+    try:
+        yield
+    finally:
+        _recompute.depth = depth
+
+
+class _Regather:
+    """What the backward saves of a weight gathered for a product: the
+    view's geometry; the shard stays with the gather's closure."""
+
+    def __init__(self, t: torch.Tensor, gather: Callable):
+        self.geometry = (t.size(), t.stride(), t.storage_offset())
+        self.gather = gather
+
+
+@contextlib.contextmanager
+def _gathered_again(wl: torch.Tensor, gather: Callable):
+    """Within it, a tensor that autograd saves for the backward and that
+    views ``wl``'s storage is saved as its geometry, and the backward
+    gathers ``gather()`` again and views it so, as GSPMD's compiled step
+    gathers an FSDP weight again in the backward rather than keeping it
+    from the forward (C6a)."""
+    key = wl.untyped_storage()._cdata
+
+    def pack(t):
+        if t.untyped_storage()._cdata == key:
+            return _Regather(t, gather)
+        return t
+
+    def unpack(t):
+        if isinstance(t, _Regather):
+            return t.gather().as_strided(*t.geometry)
+        return t
+    with torch.autograd.graph.saved_tensors_hooks(pack, unpack):
+        yield
+
+
 def _product(spec: str, x: DTensor, w: DTensor, op: Callable,
              gather: set[int]) -> DTensor:
     """``op`` (``spec``'s product) of DTensors x and w on their local
     shards, laid out as ``Sharder.einsum`` says; ``gather``: the mesh dims
-    w is gathered over."""
+    w is gathered over. Where w is gathered and grad is on outside a
+    ``recomputed`` body, the backward gathers w again
+    (``_gathered_again``) instead of keeping the gathered weight."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     ins, out = spec.replace(" ", "").split("->")
     lx, lw = ins.split(",")
@@ -348,15 +400,37 @@ def _product(spec: str, x: DTensor, w: DTensor, op: Callable,
     shape = [size[c] for c in out]
     xl = x.redistribute(mesh, xp).to_local(grad_placements=gx)
     wl = _redistributed(w, wp).to_local(grad_placements=gw)
-    return kernels.from_local(op(xl, wl), mesh, yp, shape)
+    if tuple(wp) == tuple(w.placements) or not torch.is_grad_enabled() \
+            or getattr(_recompute, "depth", 0):
+        return kernels.from_local(op(xl, wl), mesh, yp, shape)
+    shard = w.detach()
+    with _gathered_again(wl, lambda: _redistributed(shard, wp).to_local()):
+        y = op(xl, wl)
+    return kernels.from_local(y, mesh, yp, shape)
 
 
 # ---------------------------------------------------------------------------
 # Common NN pieces (pure functions; params passed explicitly)
 # ---------------------------------------------------------------------------
 
+def at_use(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A weight w over x's last dim (a norm's scale or bias) as a product
+    with x uses it: on a mesh, split where x's last dim is split and whole
+    elsewhere, its FSDP split gathered at use as GSPMD gathers it; left to
+    DTensor, a multiply may split x's last dim to match w instead, where x
+    is whole on a mesh dim (a microbatch the batch axes do not divide,
+    C6b). Plain tensors: w."""
+    if not (isinstance(w, DTensor) and isinstance(x, DTensor)):
+        return w
+    from torch.distributed.tensor import Replicate, Shard
+    last = x.dim() - 1
+    return _redistributed(w, [Shard(0) if p.is_shard(last) else Replicate()
+                              for p in x.placements])
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
              ) -> torch.Tensor:
+    scale = at_use(scale, x)
     dt = x.dtype
     x = x.float()
     var = x.square().mean(-1, keepdim=True)
@@ -366,6 +440,7 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
+    scale, bias = at_use(scale, x), at_use(bias, x)
     dt = x.dtype
     x = x.float()
     mu = x.mean(-1, keepdim=True)

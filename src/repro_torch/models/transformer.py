@@ -165,7 +165,9 @@ def _attend(cfg, q, k, v, *, causal: bool, window: int):
         if FK.takes(q.shape, k.shape, v.shape, causal=causal,
                     window=window):
             return flash_ops.flash_gqa(q, k, v, causal=causal,
-                                       window=window, kv_head=_kv_map(cfg))
+                                       window=window, kv_head=_kv_map(cfg),
+                                       impl=cfg.attn_impl,
+                                       chunk=cfg.attn_chunk)
         FK.count_routed()
     k, v = _expand_kv(cfg, k), _expand_kv(cfg, v)
     if isinstance(q, DTensor):

@@ -7,7 +7,9 @@ every cell of ``_torch_mesh.CELLS``, the JAX package lowers and compiles
 the step on a fake mesh of 8 host devices with its own shardings (train
 with ``out_shardings=(state_sh, None)``, decode with ``(None, cache_sh)``,
 as ``repro.launch.dryrun.lower_cell`` does) and ``hlo_analysis.analyze``
-counts each device's FLOPs and collective bytes. The numbers go to
+counts each device's FLOPs and collective bytes. The cells of
+``_torch_mesh.ONE_DEVICE_CELLS`` (mesh name "1") compile the same steps
+on one device with no mesh. The numbers go to
 ``tests/data/torch_mesh_reference.json``, which the port's tests read
 without JAX (so they also run where JAX is not installed).
 
@@ -39,8 +41,8 @@ COMMAND = "PYTHONPATH=src python tests/make_torch_mesh_reference.py"
 
 def _mesh_spec():
     sys.path.insert(0, str(HERE))
-    from _torch_mesh import B, CELLS, LAYERS, MESHES, S
-    return B, S, CELLS, LAYERS, MESHES
+    from _torch_mesh import B, CELLS, LAYERS, MESHES, ONE_DEVICE_CELLS, S
+    return B, S, CELLS + ONE_DEVICE_CELLS, LAYERS, MESHES
 
 
 def key(arch: str, kind: str, mesh_name: str) -> str:
@@ -70,7 +72,7 @@ def _count(cells: list[str]) -> dict:
     out = {}
     for cell in cells:
         arch, kind, mesh_name = cell.split(":")
-        mesh = meshes[mesh_name]
+        mesh = meshes.get(mesh_name)          # None: one device ("1")
         cfg = smoke_config(arch).replace(num_layers=LAYERS.get(arch, 2))
         if cfg.family == "audio":
             cfg = cfg.replace(encoder_layers=1)
@@ -79,26 +81,32 @@ def _count(cells: list[str]) -> dict:
         bundle = build_model(cfg, mesh=mesh, rules=rules)
 
         def tree(defs):
+            if mesh is None:
+                return abstract_params(defs)
             return abstract_params(defs, param_shardings(defs, mesh, rules))
+
+        def pinned(defs):
+            return None if mesh is None else param_shardings(defs, mesh,
+                                                             rules)
 
         batch = tree(bundle.batch_defs(shape))
         if kind == "train":
             step, state_defs = make_train_step(
                 bundle, make_optimizer(cfg.optimizer))
-            state_sh = param_shardings(state_defs, mesh, rules)
-            lowered = jax.jit(step, out_shardings=(state_sh, None)).lower(
-                abstract_params(state_defs, state_sh), batch)
+            lowered = jax.jit(step, out_shardings=(pinned(state_defs),
+                                                   None)).lower(
+                tree(state_defs), batch)
         elif kind == "prefill":
             lowered = jax.jit(make_prefill_step(bundle)).lower(
                 tree(bundle.param_defs), batch)
         else:
             cache_defs = bundle.cache_defs(B, S, S >= 2 ** 19)
-            cache_sh = param_shardings(cache_defs, mesh, rules)
             lowered = jax.jit(make_decode_step(bundle),
-                              out_shardings=(None, cache_sh)).lower(
-                tree(bundle.param_defs), abstract_params(cache_defs,
-                                                         cache_sh), batch)
-        ha = analyze(lowered.compile().as_text(), DEVICES)
+                              out_shardings=(None, pinned(cache_defs))
+                              ).lower(tree(bundle.param_defs),
+                                      tree(cache_defs), batch)
+        ha = analyze(lowered.compile().as_text(),
+                     1 if mesh is None else DEVICES)
         out[cell] = {"flops": ha["flops"],
                      "collective_bytes_by_kind":
                          ha["collective_bytes_by_kind"],

@@ -1,8 +1,10 @@
 """The kernels inside autograd (``kernels/_autograd.py``): on the CPU,
 each kernel wrapper's autograd Function, with its forward run in the plain
 form (the launch replaced by the plain version), gives the gradients that
-autograd through the plain version gives, exactly; integer outputs (ids,
-counts, slots) get none; with grad off the launch is called directly. The
+autograd through the plain version gives, exactly (flash_gqa: its own
+chunk-by-chunk backward, exactly, which is the plain version's within
+1e-5); integer outputs (ids, counts, slots) get none; with grad off the
+launch is called directly. The
 card tests hold the real launches' gradients against the CPU's
 (tests/test_torch_cuda.py)."""
 import numpy as np
@@ -50,6 +52,9 @@ def _same_grads(through, plain, xs, seed=0):
     (64, None, 0), (32, (0, 0, 0, 1, 1, 1, 0, 0), 0), (64, None, 24)])
 def test_flash_gqa_backward_is_the_plain_versions(monkeypatch, D, kv_head,
                                                   window):
+    """The wrapper's backward is ``FK.grads``, the model's algorithm
+    differentiated chunk by chunk, exactly; it is the plain version's
+    gradient within f32 rounding (1e-5)."""
     calls = []
 
     def launch(q, k, v, **kw):
@@ -59,12 +64,51 @@ def test_flash_gqa_backward_is_the_plain_versions(monkeypatch, D, kv_head,
     rng = np.random.default_rng(D)
     xs = _leaves(rng, (2, 48, 8, D), (2, 48, 2, D), (2, 48, 2, D))
     kw = dict(causal=True, window=window, kv_head=kv_head)
-    _same_grads(lambda *t: (FK.flash_gqa(*t, **kw),),
-                lambda *t: (FK.plain(*t, **kw),), xs)
+    got = FK.flash_gqa(*xs, **kw, impl="block_tri", chunk=16)
+    assert "Recompute" in got.grad_fn.name()
+    go = torch.from_numpy(rng.standard_normal(got.shape).astype(np.float32))
+    g_got = torch.autograd.grad(got, xs, go)
+    g_fn = FK.grads(*[x.detach() for x in xs], go, **kw, impl="block_tri",
+                    chunk=16)
+    fresh = [x.detach().clone().requires_grad_() for x in xs]
+    g_plain = torch.autograd.grad(FK.plain(*fresh, **kw), fresh, go)
+    for a, b, c in zip(g_got, g_fn, g_plain):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-5)
     assert len(calls) == 1
     with torch.inference_mode():
         assert FK.flash_gqa(*xs, **kw).grad_fn is None
     assert len(calls) == 2
+
+
+@pytest.mark.parametrize("Sq,Skv,causal,window,impl,chunk,kv_head", [
+    (48, 48, True, 0, "block_tri", 8, None),      # causal split, depth 2
+    (64, 64, True, 0, "block_tri", 8, None),      # depth 3, then chunks
+    (40, 40, True, 0, "block_tri", 8, (0, 0, 1, 1)),   # odd halves: chunked
+    (48, 48, True, 0, "block_tri", 20, None),     # padded last chunks
+    (48, 48, True, 12, "block_tri", 8, None),     # window: chunked
+    (48, 48, True, 12, "chunked", 16, None),
+    (48, 48, False, 0, "chunked", 16, None),      # bidirectional
+    (12, 40, False, 0, "block_tri", 8, None),     # cross: Sq != Skv
+    (9, 23, False, 0, "chunked", 4, (1, 1, 0, 0)),    # padded, Sq != Skv
+])
+def test_flash_gqa_chunked_backward_matches_attention_ref(
+        Sq, Skv, causal, window, impl, chunk, kv_head):
+    """``FK.grads`` (the backward of a kernel call: the model's algorithm
+    at ``impl`` and ``chunk``, chunk by chunk) gives the gradients of
+    ``attention_ref`` over k and v gathered by the map, within 1e-5 in
+    f32, for the causal split, windows, padded chunks and Sq != Skv."""
+    rng = np.random.default_rng(Sq * Skv + chunk)
+    q, k, v = _leaves(rng, (2, Sq, 4, 16), (2, Skv, 2, 16), (2, Skv, 2, 16))
+    go = torch.from_numpy(rng.standard_normal((2, Sq, 4, 16))
+                          .astype(np.float32))
+    kw = dict(causal=causal, window=window, kv_head=kv_head)
+    want = torch.autograd.grad(FK.plain(q, k, v, **kw), (q, k, v), go)
+    got = FK.grads(q.detach(), k.detach(), v.detach(), go, **kw, impl=impl,
+                   chunk=chunk)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
 
 
 def test_ssd_scan_backward_is_the_plain_versions(monkeypatch):

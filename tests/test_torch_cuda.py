@@ -1121,3 +1121,75 @@ def test_step_analysis_of_the_card_matches_its_meta_dry_run(card):
     own_card = r["card_peak_bytes"] - r["allocated_before"]
     own_meta = m["peak_bytes"] - m["argument_bytes"]
     assert abs(own_meta - own_card) <= 0.10 * own_card
+
+
+# flash_gqa's backward (kernels/flash_gqa/flash_gqa.py:grads): the model's
+# attention differentiated chunk by chunk (the causal split at the smoke
+# chunk, a window, cross attention) at glm4-9b's published heads (32 q
+# over 2 kv, so the kv gathers' gradients add more than 16 rows an index)
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq,Skv,causal,window,impl,chunk", [
+    (256, 256, True, 0, "block_tri", 64), (200, 200, True, 48, "block_tri",
+                                           64),
+    (48, 300, False, 0, "block_tri", 32)])
+def test_flash_gqa_backward_gives_the_same_bits_every_run(
+        card, Sq, Skv, causal, window, impl, chunk):
+    """Three runs of the backward on the card give the same bits (C5),
+    within 1e-3 of the CPU's in f32, of each gradient's largest entry."""
+    rng = np.random.default_rng(Sq + Skv)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((2, Sq, 32, 64), (2, Skv, 2, 64), (2, Skv, 2, 64)))
+    go = torch.from_numpy(rng.standard_normal((2, Sq, 32, 64))
+                          .astype(np.float32))
+    kw = dict(causal=causal, window=window, impl=impl, chunk=chunk)
+    want = FK.grads(q, k, v, go, **kw)
+    runs = []
+    for _ in range(3):
+        xs = [t.to(card).requires_grad_() for t in (q, k, v)]
+        o = FK.flash_gqa(*xs, causal=causal, window=window, impl=impl,
+                         chunk=chunk)
+        runs.append(torch.autograd.grad(o, xs, go.to(card)))
+    for later in runs[1:]:
+        for a, b in zip(runs[0], later, strict=True):
+            assert torch.equal(a, b)
+    for a, b in zip(runs[0], want, strict=True):
+        assert float((a.cpu() - b).abs().max()) <= 1e-3 * float(
+            b.abs().max())
+
+
+@pytest.mark.cuda
+def test_smollm_train_gradients_at_full_width_match_the_cpu(card):
+    """One train step's gradients of smollm-135m at full width and depth
+    (30 layers, f32 parameters and compute, remat, B 2 x S 256) on the
+    card, through flash_gqa and its chunk-by-chunk backward, within 1e-3
+    of the CPU's (the reference's attention algorithm), of each leaf's
+    largest entry; the loss within 1e-5."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.steps import grads_of
+    from repro_torch.models.model import build_model
+    from repro_torch.models.modules import init_params, tree_leaves, tree_map
+    cfg = get_config("smollm-135m").replace(param_dtype=torch.float32,
+                                            compute_dtype=torch.float32)
+    bundle = build_model(cfg)
+    params = init_params(bundle.param_defs, torch.Generator().manual_seed(0),
+                         "cpu")
+    seq = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 257)).astype(np.int32))
+    batch = {"tokens": seq[:, :-1].contiguous(),
+             "targets": seq[:, 1:].contiguous(),
+             "mask": torch.ones(2, 256, dtype=torch.int32)}
+    move = lambda t: tree_map(lambda x: x.to(card), t,  # noqa: E731
+                              is_leaf=torch.is_tensor)
+    gc, mc = grads_of(bundle.loss_fn, params, batch)
+    before = FK.launches
+    gg, mg = grads_of(bundle.loss_fn, move(params), move(batch))
+    torch.cuda.synchronize()
+    assert FK.launches - before == 2 * cfg.num_layers
+    assert abs(float(mg["loss"]) - float(mc["loss"])) <= \
+        TRAIN_LOSS_TOL * abs(float(mc["loss"]))
+    for a, b in zip(tree_leaves(gg, torch.is_tensor),
+                    tree_leaves(gc, torch.is_tensor), strict=True):
+        a = a.cpu()
+        assert torch.isfinite(a).all() and float(b.abs().max()) > 0
+        assert float((a - b).abs().max()) <= TRAIN_GRAD_TOL * float(
+            b.abs().max())

@@ -6,6 +6,7 @@ and gradients returned in their parameters' layouts
 (``launch/steps.grads_of``). On the fake 2x4 mesh the tests read the
 collectives from the op record; the values are held against the
 reference's functions on a real 2x2 mesh of four CPU processes (gloo)."""
+import contextlib
 import os
 import pathlib
 import socket
@@ -109,6 +110,89 @@ def test_gradients_leave_in_their_parameters_layouts(meshes):  # noqa: F811
         for p, g in zip(tree_leaves(params, torch.is_tensor),
                         tree_leaves(grads, torch.is_tensor)):
             assert tuple(g.placements) == tuple(p.placements), (arch, p.shape)
+
+
+def test_a_weight_gathered_at_use_is_gathered_again_for_the_backward(
+        meshes):  # noqa: F811
+    """The head's product on 2x4 (x [4@data, 16@model, 64] @ w [64@data,
+    512@model]) keeps the shard and gathers w again in the backward, as
+    GSPMD's compiled step does, where inside a recomputed body (a layer
+    under remat, whose recompute gathers it anyway) the gathered weight is
+    saved: after the forward the live bytes differ by exactly the
+    gathered local weight, and the backward issues one more all-gather of
+    w's shard. On plain tensors the product is ``x @ w`` as before."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.launch.step_analysis import StepAnalysis, analyze
+    from repro_torch.models.modules import Sharder, recomputed
+    mesh = meshes["2x4"]
+    sh = Sharder(mesh, {})
+    x = _dtensor((4, 16, 64), mesh, [Shard(0), Shard(1)], True)
+    w = _dtensor((64, 512), mesh, [Shard(0), Shard(1)], True)
+    live = []
+    for ctx in (recomputed, contextlib.nullcontext):
+        mode = StepAnalysis()
+        mode.track(x)
+        mode.track(w)
+        with ctx(), mode:
+            y = sh.dot(x, w)
+            live.append(mode.live)
+        del y
+    gathered = 64 * 128 * 4                  # w's local shard gathered
+    assert live[0] - live[1] == gathered
+
+    def step(x, w):
+        y = sh.dot(x, w)
+        y.sum().backward()
+        return y
+
+    _, ana = analyze(step, x, w, record_ops=True)
+    gathers = [r for r in ana["ops"] if r["kind"] == "all-gather"
+               and r["shapes"][0] == [32, 128]]
+    assert len(gathers) == 2                 # the forward's and again
+    xp = torch.randn(4, 16, 64, requires_grad=True)
+    wp = torch.randn(64, 512, requires_grad=True)
+    y, want = Sharder().dot(xp, wp), xp @ wp
+    assert torch.equal(y, want) and y.grad_fn.name() == want.grad_fn.name()
+    g = torch.randn(4, 16, 512)
+    assert all(torch.equal(a, b) for a, b in zip(
+        torch.autograd.grad(y, (xp, wp), g),
+        torch.autograd.grad(want, (xp, wp), g)))
+
+
+def test_a_microbatch_of_two_rows_keeps_the_stated_layout(
+        meshes):  # noqa: F811
+    """On 2x2x2 a microbatch of 2 rows (granite-20b's grad_accum 2 on a
+    batch of 4) is laid out as the rules say, its rows over "pod" (the
+    prefix of the batch axes that divides them), its sequence over
+    "model", its embedding dim whole; a norm gathers its scale (split
+    over the FSDP axes) at use and keeps that layout, where DTensor would
+    split the embedding dim to match the scale; the next projection
+    gathers its weight and computes [16, 64] x [64, 48] a device."""
+    from repro_torch.launch.step_analysis import analyze
+    from repro_torch.models.modules import Sharder, rms_norm
+    from repro_torch.parallel.sharding import effective_rules
+    mesh = meshes["2x2x2"]
+    sh = Sharder(mesh, effective_rules(smoke_config("granite-20b")))
+    lay = sh.placements((2, 16, 64), "batch", "seq", "act_embed")
+    x = _dtensor((2, 16, 64), mesh, list(lay), True)
+    scale = _dtensor((64,), mesh, list(sh.placements((64,), "embed")), True)
+    w = _dtensor((64, 96), mesh, list(sh.placements((64, 96), "embed",
+                                                     "mlp")), True)
+    from torch.distributed.tensor import Replicate, Shard
+    assert tuple(lay) == (Shard(0), Replicate(), Shard(1))
+
+    def step(x, scale, w):
+        h = rms_norm(x, scale)
+        assert tuple(h.placements) == tuple(lay)
+        y = sh.dot(h, w)
+        y.sum().backward()
+        return y
+
+    y, ana = analyze(step, x, scale, w, record_ops=True)
+    assert tuple(y.placements) == (Shard(0), Replicate(), Shard(2))
+    assert tuple(scale.grad.placements) == tuple(scale.placements)
+    assert ana["flops"] == 3 * 2 * 16 * 64 * 48
 
 
 def _free_port() -> int:

@@ -101,12 +101,27 @@ def test_collective_bytes_by_the_ring_model(meshes):
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 24),
                                            (False, 0)])
 def test_kernel_entry_on_meta_counts_its_work_alone(causal, window):
+    """A kernel entry is one row: the FLOPs of the model's algorithm that
+    the reference runs in its place (``model_work``: the causal split at
+    chunk 16 computes the queries [48, 96) against 96 keys, [24, 48)
+    padded to 32 rows against 48 and [0, 24) padded to 32 against 24, so
+    6912 (query, key) pairs where the kernel needs the triangle's 4656;
+    a window or no mask: all 96 x 96) and the bytes of the kernel's
+    ``work``; nothing inside the launch is counted."""
     q = torch.empty(2, 96, 8, 64, dtype=torch.bfloat16, device="meta")
     k = torch.empty(2, 96, 2, 64, dtype=torch.bfloat16, device="meta")
     _, got = analyze(lambda q, k: flash_ops.flash_gqa(
-        q, k, k, causal=causal, window=window), q, k)
-    flops, nbytes = flash_ops.work(q.shape, k.shape, k.shape, causal=causal,
-                                   window=window, elem_bytes=2)
+        q, k, k, causal=causal, window=window, impl="block_tri", chunk=16),
+        q, k)
+    flops, nbytes = flash_ops.model_work(
+        q.shape, k.shape, k.shape, causal=causal, window=window,
+        impl="block_tri", chunk=16, elem_bytes=2)
+    assert nbytes == flash_ops.work(q.shape, k.shape, k.shape,
+                                    causal=causal, window=window,
+                                    elem_bytes=2)[1]
+    pairs = 48 * 96 + 32 * 48 + 32 * 24 if causal and not window \
+        else 96 * 96
+    assert flops == 2 * (64 + 64) * pairs * 2 * 8
     assert (got["flops"], got["memory_bytes"]) == (flops, nbytes)
     assert got["kernel_calls"] == {"flash_gqa": 1}
     # the output it allocates (2 x 96 x 8 x 64 bf16) is live at the end
@@ -117,7 +132,7 @@ def test_kernel_entry_on_meta_counts_its_work_alone(causal, window):
     A = torch.empty(4, device="meta")
     bc = torch.empty(2, 64, 1, 8, device="meta")
     _, got = analyze(lambda *t: ssd_ops.ssd(*t, chunk=16), x, dt, A, bc, bc)
-    assert (got["flops"], got["memory_bytes"]) == ssd_ops.work(
+    assert (got["flops"], got["memory_bytes"]) == ssd_ops.model_work(
         x.shape, bc.shape, chunk=16, elem_bytes=4)
     assert got["kernel_calls"] == {"ssd_scan": 1}
 
