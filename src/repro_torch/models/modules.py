@@ -213,8 +213,8 @@ class Sharder:
         if not self._on_mesh(x, w):
             return x @ w
         lx = "".join(chr(ord("a") + i) for i in range(x.dim()))
-        spec = f"{lx},{lx[-1]}z->{lx[:-1]}z"
-        return _product(spec, x, w, lambda a, b: a @ b, self._fsdp_dims())
+        return _product(f"{lx},{lx[-1]}z->{lx[:-1]}z", x, w,
+                        self._fsdp_dims())
 
     def einsum(self, spec: str, x: torch.Tensor, w: torch.Tensor
                ) -> torch.Tensor:
@@ -226,14 +226,14 @@ class Sharder:
         dim, is replicated where w splits a dim of its own, and keeps its
         other splits; the product runs on the local shards. Its result is
         split as its operands are, and a partial sum over a mesh dim where
-        the contracted dim is split (reduced by the next ``sh``). In the
-        backward x's gradient is a partial sum where w's own dim is split,
-        and w's where x's own dim is; the gathers' backwards reduce-scatter
-        them to the operands' layouts, as GSPMD does."""
+        the contracted dim is split (reduced by the next ``sh``). A
+        microbatch whose rows leave FSDP axes idle is split over them
+        (``_layout``). Under grad the backward's two products are laid
+        out on their own and their results go to the operands' layouts
+        (``_GradProduct``), as GSPMD does."""
         if not self._on_mesh(x, w):
             return torch.einsum(spec, x, w)
-        return _product(spec, x, w, lambda a, b: torch.einsum(spec, a, b),
-                        self._fsdp_dims())
+        return _product(spec, x, w, self._fsdp_dims())
 
     def lookup(self, table: torch.Tensor, ids: torch.Tensor, dtype
                ) -> torch.Tensor:
@@ -313,9 +313,9 @@ _recompute = threading.local()      # .depth: recomputed bodies running
 @contextlib.contextmanager
 def recomputed():
     """Marks code that its backward recomputes (a body under
-    ``torch.utils.checkpoint``): a product there gathers its weight again
-    in the recompute, so ``_product`` lets the backward keep that
-    gather."""
+    ``torch.utils.checkpoint``): a product there keeps the weight its
+    recompute gathers for the backward, which elsewhere gathers the
+    weight again (``_GradProduct``)."""
     depth = getattr(_recompute, "depth", 0)
     _recompute.depth = depth + 1
     try:
@@ -324,55 +324,32 @@ def recomputed():
         _recompute.depth = depth
 
 
-class _Regather:
-    """What the backward saves of a weight gathered for a product: the
-    view's geometry; the shard stays with the gather's closure."""
+def _layout(lx: str, lw: str, out: str, xpl, wpl, size: dict, mesh,
+            gather: set[int], grad: bool, keep: bool = True):
+    """The layout of the product ``lx,lw->out`` of operands laid out as
+    ``xpl`` and ``wpl``: for each mesh dim, [the dim of x split there, the
+    dim of w] (None: whole), as ``Sharder.einsum`` states them. On a mesh
+    dim of ``gather`` w is gathered, unless x is whole on every mesh dim
+    that splits w's dim there and x has that dim: then x takes w's split
+    and the product's contraction is split, as GSPMD contracts a
+    microbatch whose rows leave the FSDP axes idle. Under grad, a mesh dim
+    where neither is split then splits a token dim of x (in x and the
+    result, not in w) if the result is a partial sum over a mesh dim of
+    its size: GSPMD reduces such a sum over half the tokens and moves them
+    where the next layout puts them."""
+    def whole(m):
+        return xpl[m].is_replicate()
 
-    def __init__(self, t: torch.Tensor, gather: Callable):
-        self.geometry = (t.size(), t.stride(), t.storage_offset())
-        self.gather = gather
-
-
-@contextlib.contextmanager
-def _gathered_again(wl: torch.Tensor, gather: Callable):
-    """Within it, a tensor that autograd saves for the backward and that
-    views ``wl``'s storage is saved as its geometry, and the backward
-    gathers ``gather()`` again and views it so, as GSPMD's compiled step
-    gathers an FSDP weight again in the backward rather than keeping it
-    from the forward (C6a)."""
-    key = wl.untyped_storage()._cdata
-
-    def pack(t):
-        if t.untyped_storage()._cdata == key:
-            return _Regather(t, gather)
-        return t
-
-    def unpack(t):
-        if isinstance(t, _Regather):
-            return t.gather().as_strided(*t.geometry)
-        return t
-    with torch.autograd.graph.saved_tensors_hooks(pack, unpack):
-        yield
-
-
-def _product(spec: str, x: DTensor, w: DTensor, op: Callable,
-             gather: set[int]) -> DTensor:
-    """``op`` (``spec``'s product) of DTensors x and w on their local
-    shards, laid out as ``Sharder.einsum`` says; ``gather``: the mesh dims
-    w is gathered over. Where w is gathered and grad is on outside a
-    ``recomputed`` body, the backward gathers w again
-    (``_gathered_again``) instead of keeping the gathered weight."""
-    from torch.distributed.tensor import Partial, Replicate, Shard
-    ins, out = spec.replace(" ", "").split("->")
-    lx, lw = ins.split(",")
-    mesh = w.device_mesh
-    size = dict(zip(lx, x.shape)) | dict(zip(lw, w.shape))
+    kept = {m for m in gather if keep and wpl[m].is_shard()
+            and lw[wpl[m].dim] in lx
+            and all(q in gather and whole(q) for q, p in enumerate(wpl)
+                    if p == wpl[m])}
     ways = dict.fromkeys(size, 1)             # mesh ways splitting a dim
-    xp, wp, yp, gx, gw = [], [], [], [], []
-    for m, (px, pw) in enumerate(zip(x.placements, w.placements)):
+    plan = []
+    for m, (px, pw) in enumerate(zip(xpl, wpl)):
         a = lx[px.dim] if px.is_shard() else None
         b = lw[pw.dim] if pw.is_shard() else None
-        if m in gather:
+        if m in gather and m not in kept:
             b = None                          # w gathered (FSDP)
         if b is not None and a != b:
             a = b if b in lx else None        # x takes w's split, or none
@@ -380,7 +357,7 @@ def _product(spec: str, x: DTensor, w: DTensor, op: Callable,
             b = a                             # w sliced to x's split
         if a is not None and a not in out and b is None:
             a = None                          # x's contracted dim: gathered
-        if a is None and b is None and not torch.is_grad_enabled():
+        if a is None and b is None and not grad:
             # serving, neither split here (decode's few rows on a weight
             # that the tensor-parallel rules leave whole): the contracted
             # dim is split and the product reduced, as GSPMD divides it,
@@ -390,23 +367,233 @@ def _product(spec: str, x: DTensor, w: DTensor, op: Callable,
                          None)
         for c in {a, b} - {None}:
             ways[c] *= mesh.size(m)
+        plan.append([a, b])
+    partial = {mesh.size(m) for m, (a, b) in enumerate(plan)
+               if (a or b) and (a or b) not in out}
+    for m, ab in enumerate(plan):
+        if grad and ab == [None, None] and mesh.size(m) in partial:
+            t = next((c for c in lx if c in out and c not in lw
+                      and size[c] % (ways[c] * mesh.size(m)) == 0), None)
+            if t:
+                ab[0] = t
+                return plan, m
+    return plan, None
+
+
+def _placements(plan, lx: str, lw: str, out: str) -> tuple[list, ...]:
+    """-> the placements of x, w and the result of a ``_layout``, and of
+    w's gradient at that layout (a partial sum where x alone is
+    split)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    xp, wp, yp, gw = [], [], [], []
+    for a, b in plan:
         xp.append(Shard(lx.index(a)) if a else Replicate())
         wp.append(Shard(lw.index(b)) if b else Replicate())
         s = a or b
         yp.append(Shard(out.index(s)) if s and s in out
                   else Partial() if s else Replicate())
-        gx.append(Partial() if b and not a else xp[-1])
         gw.append(Partial() if a and not b else wp[-1])
-    shape = [size[c] for c in out]
-    xl = x.redistribute(mesh, xp).to_local(grad_placements=gx)
-    wl = _redistributed(w, wp).to_local(grad_placements=gw)
-    if tuple(wp) == tuple(w.placements) or not torch.is_grad_enabled() \
-            or getattr(_recompute, "depth", 0):
-        return kernels.from_local(op(xl, wl), mesh, yp, shape)
-    shard = w.detach()
-    with _gathered_again(wl, lambda: _redistributed(shard, wp).to_local()):
-        y = op(xl, wl)
-    return kernels.from_local(y, mesh, yp, shape)
+    return xp, wp, yp, gw
+
+
+def _product(spec: str, x: DTensor, w: DTensor,
+             gather: set[int]) -> DTensor:
+    """``torch.einsum(spec)`` of DTensors x and w on their local shards,
+    laid out as ``_layout`` says; ``gather``: the mesh dims w is gathered
+    over. Under grad the backward's products are laid out on their own
+    (``_GradProduct``)."""
+    ins, out = spec.replace(" ", "").split("->")
+    lx, lw = ins.split(",")
+    size = dict(zip(lx, x.shape)) | dict(zip(lw, w.shape))
+    grad = torch.is_grad_enabled()
+    plan, tokens = _layout(lx, lw, out, x.placements, w.placements, size,
+                           w.device_mesh, gather, grad)
+    layout = (lx, lw, out, gather, plan, tokens, x.placements)
+    if not grad:
+        return _forward(x, w, layout)
+    with torch.no_grad():
+        # x at the forward's layout but its token split, kept for w's
+        # gradient; in a recomputed body w gathered too
+        xb = _relaid(x, _placements(_untokened(plan, tokens), lx, lw,
+                                    out)[0])
+        wg = _relaid(w, _placements(plan, lx, lw, out)[1]) \
+            if getattr(_recompute, "depth", 0) else None
+    xo, wo = _Operands.apply(x, w, xb, wg)
+    return _GradProduct.apply(xo, wo, xb, wg, xo.grad_fn, layout)
+
+
+def _untokened(plan, tokens) -> list:
+    """``plan`` without its token split."""
+    return [[None, b] if m == tokens else [a, b]
+            for m, (a, b) in enumerate(plan)]
+
+
+def _forward(x: DTensor, w: DTensor, layout: tuple, wg=None) -> DTensor:
+    """The product of x and w that ``layout`` (``_product``'s) describes
+    (``wg``: w already gathered to its layout), no autograd. Its sums
+    over the splits w keeps on the FSDP axes, and all its sums where its
+    tokens are split, are reduced at once."""
+    from torch.distributed.tensor import Replicate
+    lx, lw, out, gather, plan, tokens, _ = layout
+    xp, wp, yp, _ = _placements(plan, lx, lw, out)
+    y = _local_einsum(f"{lx},{lw}->{out}", x, xp, w if wg is None else wg,
+                      wp, yp)
+    return _relaid(y, [Replicate() if p.is_partial() and (
+        tokens is not None or m in gather and plan[m][1]) else p
+        for m, p in enumerate(yp)])
+
+
+def _local_einsum(spec: str, a: DTensor, ap, b: DTensor, bp, yp) -> DTensor:
+    """``torch.einsum(spec)`` of a laid out as ``ap`` and b as ``bp`` on
+    their local shards, as a DTensor laid out as ``yp``; no autograd."""
+    ins, out = spec.split("->")
+    la, lb = ins.split(",")
+    size = dict(zip(la, a.shape)) | dict(zip(lb, b.shape))
+    mesh = a.device_mesh
+    al, bl = _relaid(a, ap).to_local(), _relaid(b, bp).to_local()
+    return kernels.from_local(torch.einsum(spec, al, bl), mesh, yp,
+                              [size[c] for c in out])
+
+
+def _relaid(t: DTensor, placements) -> DTensor:
+    """t laid out as ``placements``, moving as little as it can: first
+    the partial sums (one all-reduce over the mesh dims where they are to
+    be whole, or split on a dim another mesh dim splits; a
+    reduce-scatter where they are to be split alone), then the new
+    splits that slice locally, then the old splits gathered from the
+    last mesh dim, then the other new splits sliced from the first."""
+    from torch.distributed.tensor import Replicate
+    cur, mesh = list(t.placements), t.device_mesh
+
+    def alone(m, p):                          # slicing p on m is local
+        return all(n < m and placements[n] == p for n, q in enumerate(cur)
+                   if q == p and n != m) and all(
+            cur[n] == p for n in range(m) if placements[n] == p)
+    summed = [m for m, p in enumerate(placements) if cur[m].is_partial()
+              and not p.is_partial() and (p.is_replicate() or any(
+                  q == p for n, q in enumerate(cur) if n != m))]
+    if summed:
+        t = _all_reduced(t, summed)
+        cur = list(t.placements)
+    for m, p in enumerate(placements):
+        if cur[m].is_partial() and not p.is_partial():
+            cur[m] = p
+            t = t.redistribute(mesh, cur)
+    for m, p in enumerate(placements):
+        if cur[m].is_replicate() and p.is_shard() and alone(m, p):
+            cur[m] = p
+            t = t.redistribute(mesh, cur)
+    for m in reversed(range(mesh.ndim)):
+        if cur[m].is_shard() and cur[m] != placements[m]:
+            cur[m] = Replicate()
+            t = t.redistribute(mesh, cur)
+    return _stepwise(t, placements, range(mesh.ndim))
+
+
+def _all_reduced(t: DTensor, dims: list[int]) -> DTensor:
+    """t's partial sums over the mesh dims ``dims`` summed by one
+    all-reduce over their devices (``_group``), as GSPMD sums a product
+    split over several mesh axes; ``Replicate`` there."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import Replicate
+    mesh = t.device_mesh
+    if len(dims) == 1:
+        return t.redistribute(mesh, [Replicate() if m in dims else p
+                                     for m, p in enumerate(t.placements)])
+    local = funcol.wait_tensor(funcol.all_reduce(
+        t.to_local(), "sum", _group(mesh, tuple(dims))))
+    return kernels.from_local(local, mesh, [
+        Replicate() if m in dims else p for m, p in enumerate(t.placements)],
+        t.shape)
+
+
+def _group(mesh, dims: tuple[int, ...]):
+    """The process group of this rank's devices along ``mesh``'s dims
+    ``dims``, made once a mesh (every rank makes every such group, in
+    the same order). Not a flattened ``DeviceMesh``: DTensor would then
+    move every later tensor split over those dims in one collective, and
+    the counts of a step would depend on the steps before it."""
+    import torch.distributed as dist
+    groups = mesh.__dict__.setdefault("_sum_groups", {})
+    if dims not in groups:
+        rest = [m for m in range(mesh.ndim) if m not in dims]
+        ranks = mesh.mesh.permute(*rest, *dims).reshape(
+            -1, math.prod(mesh.size(m) for m in dims))
+        groups[dims], _ = dist.new_subgroups_by_enumeration(ranks.tolist())
+    return groups[dims]
+
+
+class _Operands(torch.autograd.Function):
+    """x and w of a ``_GradProduct``, passed on unchanged; the node keeps
+    what the product's backward needs (x laid out for it, w, and in a
+    recomputed body w gathered), so that a recompute under
+    ``torch.utils.checkpoint`` that needs no more than these stops before
+    the product, as it stops before a local matmul."""
+
+    @staticmethod
+    def forward(ctx, x, w, xb, wg):
+        ctx.save_for_backward(xb, w, wg)
+        return x.view_as(x), w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, gx, gw):
+        return gx, gw, None, None
+
+
+class _GradProduct(torch.autograd.Function):
+    """A product under grad. GSPMD partitions each product of the step on
+    its own, the backward's too, and so does this: the forward as
+    ``_layout`` says (``_forward``); x's gradient (``out,w->x``, the
+    output gradient laid out as the forward's result was before its
+    token split) keeps w's split where the forward kept it or where one
+    mesh dim alone splits w's dim and the output gradient is whole
+    there, and splits its tokens by the forward's rule; w's gradient is
+    computed at the forward's layout without its token split, in w's own
+    split on the mesh dims where w was gathered and neither x nor the
+    result is split. Each gradient goes to its operand's layout
+    (``_relaid``): a gathered weight's gradient is reduce-scattered over
+    the FSDP axes, as GSPMD does. Outside a recomputed body the backward
+    gathers w again, as the compiled step does; inside one it uses the
+    recompute's."""
+
+    @staticmethod
+    def forward(ctx, x, w, xb, wg, src, layout):
+        ctx.src, ctx.layout = src, layout
+        return _forward(xb, w, layout, wg)
+
+    @staticmethod
+    def backward(ctx, gy):
+        from torch.distributed.tensor import Replicate, Shard
+        x, w, wg = ctx.src.saved_tensors       # x at the layout of base
+        lx, lw, out, gather, plan, tokens, xpl = ctx.layout
+        size = dict(zip(lx, x.shape)) | dict(zip(lw, w.shape))
+        base = _untokened(plan, tokens)
+        xp, wp, yp, gw = _placements(base, lx, lw, out)
+        gp = [Replicate() if p.is_partial() else p for p in yp]
+        pw = w.placements
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            kept = {m for m in gather if pw[m].is_shard() and (
+                wp[m] == pw[m]
+                or gp[m].is_replicate() and pw.count(pw[m]) == 1)}
+            dplan, _ = _layout(out, lw, lx, gp, pw, size, w.device_mesh,
+                               gather - kept, True, keep=False)
+            gp2, wp2, dxp, _ = _placements(dplan, out, lw, lx)
+            if wg is not None and tuple(wg.placements) == tuple(wp2):
+                w = wg
+            dx = _relaid(_local_einsum(f"{out},{lw}->{lx}", gy, gp2, w, wp2,
+                                       dxp), xpl)
+        if ctx.needs_input_grad[1]:
+            idle = {m for m in gather if gw[m].is_replicate()
+                    and xp[m].is_replicate() and gp[m].is_replicate()}
+            for m in gather:
+                if pw[m].is_shard() and lw[pw[m].dim] not in lx and all(
+                        q in idle for q, p in enumerate(pw) if p == pw[m]):
+                    gw[m] = pw[m]             # the result sliced to it
+                    gp[m] = Shard(out.index(lw[pw[m].dim]))
+            dw = _relaid(_local_einsum(f"{lx},{out}->{lw}", x, xp, gy, gp,
+                                       gw), pw)
+        return dx, dw, None, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -414,12 +601,14 @@ def _product(spec: str, x: DTensor, w: DTensor, op: Callable,
 # ---------------------------------------------------------------------------
 
 def at_use(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """A weight w over x's last dim (a norm's scale or bias) as a product
-    with x uses it: on a mesh, split where x's last dim is split and whole
-    elsewhere, its FSDP split gathered at use as GSPMD gathers it; left to
-    DTensor, a multiply may split x's last dim to match w instead, where x
-    is whole on a mesh dim (a microbatch the batch axes do not divide,
-    C6b). Plain tensors: w."""
+    """A weight w over x's last dim (a norm's scale or bias) laid out as
+    x is, whatever x's layout: on a mesh, split where x's last dim is
+    split and whole elsewhere, its FSDP split gathered at use as GSPMD
+    gathers it. Where x is whole on batch axes its rows leave idle (a
+    microbatch with fewer rows than they have devices) the norm keeps it
+    whole there, and the next product splits it as the compiled step
+    does (``_layout``); left to DTensor, a multiply would split x's last
+    dim to match w instead. Plain tensors: w."""
     if not (isinstance(w, DTensor) and isinstance(x, DTensor)):
         return w
     from torch.distributed.tensor import Replicate, Shard

@@ -67,8 +67,9 @@ FLOPS_TOL = 0.025
 # port's reduce-scatters is priced as that all-reduce (``cpu_lowered``)
 COLL_TOL = 0.25
 # cells whose port step reads outside a tolerance, with the traced cause
-# and the counts by kind (ROADMAP.md Queue C lists each as an open fault);
-# each stays a strict xfail of the mesh tests
+# and the counts by kind (ROADMAP.md lists each where the port does not
+# mirror the reference's behaviour); each stays a strict xfail of the
+# mesh tests
 _TARGET_LOGITS = (
     "collective bytes 0.736x of the reference's: the port moves all-gather "
     "3621760, reduce-scatter 882304 (priced as the CPU's all-reduce), "
@@ -79,57 +80,14 @@ _TARGET_LOGITS = (
     "split, repro/models/modules.py:175), where the port's vocabulary-"
     "parallel loss (models/modules.py:_vocab_parallel_nll) moves partial "
     "sums of a few bytes a token")
-_FEW_ROWS = (
-    "FLOPs {:+.1f} % of the reference's (the port {:.2f}x its one-device "
-    "count over 8, the reference {:.2f}x): a microbatch of {} (grad_accum "
-    "{} on a batch of 4) that the batch axes' {} devices do not divide; "
-    "the port repeats it over the axes that do not divide its rows, in "
-    "the forward and the backward, as the rules lay out its activations "
-    "(batch over the dividing prefix, the embedding dim whole, the norm "
-    "weights gathered at use: models/modules.py:at_use); GSPMD splits "
-    "part of that work over those axes ({}) and repeats the rest. "
-    "Collective bytes {:.3f}x: the port {}, the reference {}")
 KNOWN_FAULTS: dict[tuple[str, str, str], str] = {
     ("whisper-tiny", "train", "2x4"): _TARGET_LOGITS,
-    ("granite-20b", "train", "2x2x2"): _FEW_ROWS.format(
-        17.6, 2.00, 1.70, "2 rows", 2, 4,
-        "its compiled step takes the head's input gradient over 8 tokens "
-        "a device, [8, 256] x [256, 64], where the port's covers 16",
-        0.886, "all-gather 694304, reduce-scatter 130688, all-to-all "
-        "6144, all-reduce 17408", "all-gather 779552, all-reduce 472416, "
-        "collective-permute 147728"),
-    ("recurrentgemma-9b", "train", "2x2x2"): _FEW_ROWS.format(
-        22.9, 2.00, 1.63, "2 rows", 2, 4,
-        "its compiled step takes the input gradients of the head and of "
-        "the MLP's down projection over 8 tokens a device, where the "
-        "port's cover 16",
-        0.924, "all-gather 904736, reduce-scatter 192384, all-to-all "
-        "6144, all-reduce 73984", "all-gather 919968, all-reduce 723296, "
-        "collective-permute 256272"),
-    ("llama4-maverick-400b-a17b", "train", "2x4"): _FEW_ROWS.format(
-        52.6, 1.96, 1.28, "one row", 4, 2,
-        "its compiled step contracts projections over the embedding dim "
-        "split over them",
-        1.316, "all-gather 2830176, reduce-scatter 114464, all-reduce "
-        "412662", "all-gather 1272512, all-reduce 1796942, all-to-all "
-        "44032, collective-permute 39808"),
-    ("llama4-maverick-400b-a17b", "train", "2x2x2"): _FEW_ROWS.format(
-        119.4, 3.84, 1.75, "one row", 4, 4,
-        "its compiled step contracts projections over the embedding dim "
-        "split 4 ways, [16, 16] x [16, 384] a device",
-        1.627, "all-gather 6557472, reduce-scatter 152832, all-reduce "
-        "359548", "all-gather 2297120, all-reduce 2015488, "
-        "collective-permute 260736, all-to-all 53248"),
 }
 # the open cells' FLOPs a device as torch 2.13.0+cpu counts them in these
 # tests: the layouts are stated, so chip_smoke.py [dryrun mesh] holds the
 # card's torch release to them within FLOPS_TOL
 OPEN_CELL_FLOPS: dict[tuple[str, str, str], float] = {
     ("whisper-tiny", "train", "2x4"): 163639296.0,
-    ("granite-20b", "train", "2x2x2"): 11059200.0,
-    ("recurrentgemma-9b", "train", "2x2x2"): 16875520.0,
-    ("llama4-maverick-400b-a17b", "train", "2x4"): 72916992.0,
-    ("llama4-maverick-400b-a17b", "train", "2x2x2"): 143450112.0,
 }
 _ANALYSES: dict[tuple[str, str, str], dict] = {}
 

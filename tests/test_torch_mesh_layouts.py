@@ -167,8 +167,12 @@ def test_a_microbatch_of_two_rows_keeps_the_stated_layout(
     prefix of the batch axes that divides them), its sequence over
     "model", its embedding dim whole; a norm gathers its scale (split
     over the FSDP axes) at use and keeps that layout, where DTensor would
-    split the embedding dim to match the scale; the next projection
-    gathers its weight and computes [16, 64] x [64, 48] a device."""
+    split the embedding dim to match the scale. The next projection's
+    products are those of the reference's compiled step (granite-20b's
+    MLP gate): the forward gathers the weight and computes [16, 64] x
+    [64, 48] a device, w's gradient [64, 16] x [16, 48], and x's gradient,
+    a sum over the "model" split, [8, 48] x [48, 64]: its tokens split
+    over the idle "data" axis, half the repeated count."""
     from repro_torch.launch.step_analysis import analyze
     from repro_torch.models.modules import Sharder, rms_norm
     from repro_torch.parallel.sharding import effective_rules
@@ -192,7 +196,45 @@ def test_a_microbatch_of_two_rows_keeps_the_stated_layout(
     y, ana = analyze(step, x, scale, w, record_ops=True)
     assert tuple(y.placements) == (Shard(0), Replicate(), Shard(2))
     assert tuple(scale.grad.placements) == tuple(scale.placements)
-    assert ana["flops"] == 3 * 2 * 16 * 64 * 48
+    assert ana["flops"] == (2 + 2 + 1) * 16 * 64 * 48
+
+
+@pytest.mark.parametrize("split,mesh_name,rows,x_axes,w_axes,k,n", [
+    # granite-20b's attention output on 2x2x2, 2 rows ("data" idle): the
+    # sum over the "model" split of the heads moves over half the tokens
+    ("tokens", "2x2x2", 2, ("batch", None, "act_heads"),
+     ("heads_q", "embed"), 64, 64),
+    # llama4's normed input on 2x4, 1 row ("data" idle): the weight keeps
+    # its FSDP split of the contracted embedding dim
+    ("contraction", "2x4", 1, ("batch", "seq", "act_embed"),
+     ("embed", "mlp"), 64, 96)])
+def test_a_product_on_an_idle_axis_does_half_the_repeated_work(
+        meshes, split, mesh_name, rows, x_axes, w_axes, k, n):  # noqa: F811
+    """Under grad, a projection of a microbatch whose rows leave a batch
+    axis idle does half the FLOPs a device of the same product repeated
+    on both of that axis' devices: split on the tokens where the result
+    is a sum over a mesh axis of the idle one's size, or on the
+    contraction where the weight's FSDP split covers it."""
+    from repro_torch.launch.step_analysis import analyze
+    from repro_torch.models.modules import Sharder
+    from repro_torch.parallel.sharding import effective_rules
+    mesh = meshes[mesh_name]
+    sh = Sharder(mesh, effective_rules(smoke_config("granite-20b")))
+    x = _dtensor((rows, 16, k), mesh,
+                 list(sh.placements((rows, 16, k), *x_axes)), True)
+    w = _dtensor((k, n), mesh, list(sh.placements((k, n), *w_axes)), True)
+
+    def step(x, w):
+        with torch.enable_grad():
+            return sh.dot(x, w)
+
+    y, ana = analyze(step, x, w)
+    per_row = 1 if split == "tokens" else rows    # rows a device holds
+    ways_n = 1 if split == "tokens" else mesh.size(mesh.ndim - 1)
+    ways_k = mesh.size(mesh.ndim - 1) if split == "tokens" else 1
+    repeated = 2 * per_row * 16 * (k // ways_k) * (n // ways_n)
+    assert ana["flops"] == repeated / 2, (ana["flops"], repeated)
+    assert y.shape == (rows, 16, n)
 
 
 def _free_port() -> int:
@@ -201,20 +243,34 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def test_on_a_real_mesh_the_values_are_the_reference_s():
-    """Four CPU processes over gloo, a 2x2 ("data", "model") mesh: the
-    vocab-parallel loss and its gradient (logits split on both), the
-    lookup of a vocab-split table and its gradient, and a projection and
-    its gradients, gathered whole, equal the reference's functions
+# a real mesh's shape and axes for each case of the values test
+_REAL_MESHES = {"batch": ((2, 2), ("data", "model")),
+                "one_row": ((2, 2), ("data", "model")),
+                "one_row_3d": ((2, 2, 2), ("pod", "data", "model"))}
+
+
+@pytest.mark.parametrize("case", list(_REAL_MESHES))
+def test_on_a_real_mesh_the_values_are_the_reference_s(case):
+    """CPU processes over gloo, one a device of a real mesh: 2x2 ("data",
+    "model"), or 2x2x2 ("pod", "data", "model") for ``one_row_3d``. A
+    batch of 4: the vocab-parallel loss and its gradient (logits split on
+    both), the lookup of a vocab-split table and its gradient, and a
+    projection and its gradients. A microbatch of one row (the batch axes
+    idle), under grad: a projection whose tokens are split over an idle
+    axis (its sum over the heads' "model" split) and one whose
+    contraction is (the weight's FSDP split kept; over "pod" and "data"
+    on 2x2x2, summed by one all-reduce), each with both gradients.
+    Gathered whole, each equals the reference's functions
     (``_reference``, float64 numpy) on the same inputs to 1e-5; no JAX,
     so the test runs on the card's machine too."""
     port = _free_port()
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(HERE.parents[1] / "src"), str(HERE.parent)]))
-    procs = [subprocess.Popen([sys.executable, str(HERE), str(r), str(port)],
+    procs = [subprocess.Popen([sys.executable, str(HERE), str(r), str(port),
+                               case],
                               env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
-             for r in range(4)]
+             for r in range(int(np.prod(_REAL_MESHES[case][0])))]
     outs = [p.communicate(timeout=240)[0] for p in procs]
     for p, out in zip(procs, outs):
         assert p.returncode == 0, out[-3000:]
@@ -239,20 +295,80 @@ def _reference(logits, labels, mask, table, ids, x, w, co) -> list:
     dlg = (e / e.sum(-1, keepdims=True) - onehot) * (mf / cnt)[..., None]
     dtable = np.zeros_like(table, dtype=np.float64)
     np.add.at(dtable, ids, x)
-    return [loss, dlg, table[ids], dtable, x @ w, co @ w.T,
+    return [loss, dlg, table[ids], dtable] + _reference_product(x, w, co)
+
+
+def _reference_product(x, w, co) -> list:
+    """``x @ w`` and the gradients of ``((x @ w) * co).sum()`` in float64
+    numpy."""
+    x, w, co = (a.astype(np.float64) for a in (x, w, co))
+    return [x @ w, co @ w.T,
             x.reshape(-1, x.shape[-1]).T @ co.reshape(-1, co.shape[-1])]
 
 
-def _worker(rank: int, port: int) -> None:
+def _worker(rank: int, port: int, case: str) -> None:
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
+
+    shape, axes = _REAL_MESHES[case]
+    n = int(np.prod(shape))
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=n)
+    mesh = DeviceMesh("cpu", torch.arange(n).reshape(shape),
+                      mesh_dim_names=axes)
+    got, want = (_batch if case == "batch" else _one_row)(mesh)
+    if rank == 0:
+        for g, r in zip(got, want):
+            np.testing.assert_allclose(g, r, rtol=1e-5, atol=1e-5)
+        print("values match")
+    dist.destroy_process_group()
+
+
+def _one_row(mesh) -> tuple[list, list]:
+    """A microbatch of one row, under grad, the batch axes idle: x [1, 6,
+    8] @ w [8, 8] with x split on its heads over "model" and w on them
+    and on its embedding dim (FSDP), the tokens split over the first
+    batch axis; and x [1, 6, 8] @ w [8, 10] with x's sequence over
+    "model" and w split over the batch axes on the contracted dim, which
+    x takes. -> (each result and gradient gathered, the reference's)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.models.modules import Sharder
+    sh = Sharder(mesh, {})
+    rng = np.random.default_rng(1)
+    got, want = [], []
+    idle = [Replicate()] * (mesh.ndim - 1)
+    for (xs, xpl), (ws, wpl), ypl in (
+            (((1, 6, 8), idle + [Shard(2)]),
+             ((8, 8), [Shard(1)] * (mesh.ndim - 1) + [Shard(0)]),
+             (Shard(1),) + (Replicate(),) * (mesh.ndim - 1)),
+            (((1, 6, 8), idle + [Shard(1)]),
+             ((8, 10), [Shard(0)] * (mesh.ndim - 1) + [Shard(1)]),
+             (Replicate(),) * (mesh.ndim - 1) + (Shard(2),))):
+        x = rng.standard_normal(xs).astype(np.float32)
+        w = rng.standard_normal(ws).astype(np.float32)
+        co = rng.standard_normal(xs[:2] + ws[1:]).astype(np.float32)
+        xd = distribute_tensor(torch.tensor(x), mesh, xpl).requires_grad_()
+        wd = distribute_tensor(torch.tensor(w), mesh, wpl).requires_grad_()
+        with torch.enable_grad():
+            y = sh.dot(xd, wd)
+            assert tuple(y.placements) == ypl, y.placements
+            (y * distribute_tensor(torch.tensor(co), mesh, list(
+                y.placements))).sum().backward()
+        assert tuple(xd.grad.placements) == tuple(xpl)
+        assert tuple(wd.grad.placements) == tuple(wpl)
+        got += [t.full_tensor().detach().numpy() for t in (y, xd.grad,
+                                                             wd.grad)]
+        want += _reference_product(x, w, co)
+    return got, want
+
+
+def _batch(mesh) -> tuple[list, list]:
+    """A batch of 4 rows: the loss, the lookup and a projection, with
+    their gradients. -> (each gathered, the reference's)."""
     from torch.distributed.tensor import Shard, distribute_tensor
 
     from repro_torch.models.modules import Sharder, softmax_cross_entropy
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            rank=rank, world_size=4)
-    mesh = DeviceMesh("cpu", torch.arange(4).reshape(2, 2),
-                      mesh_dim_names=("data", "model"))
     sh = Sharder(mesh, {})
     rng = np.random.default_rng(0)
     b, s, v, d, n = 4, 6, 12, 8, 10
@@ -283,13 +399,8 @@ def _worker(rank: int, port: int) -> None:
     (y * dt(co, list(y.placements))).sum().backward()
     got = [t.full_tensor().detach().numpy() for t in (
         loss, lg.grad, emb, tb.grad, y, xd.grad, wd.grad)]
-    if rank == 0:
-        want = _reference(logits, labels, mask, table, ids, x, w, co)
-        for g, r in zip(got, want):
-            np.testing.assert_allclose(g, r, rtol=1e-5, atol=1e-5)
-        print("values match")
-    dist.destroy_process_group()
+    return got, _reference(logits, labels, mask, table, ids, x, w, co)
 
 
 if __name__ == "__main__":
-    _worker(int(sys.argv[1]), int(sys.argv[2]))
+    _worker(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])
