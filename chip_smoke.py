@@ -84,7 +84,10 @@ Phases, each printing its own lines and seconds:
      library (scaled_dot_product_attention with enable_gqa, a window as
      an explicit mask, k and v expanded beforehand under a padded head
      map, timed as a yardstick only, and the kernels it ran, which name
-     its backend) and bound times at every main shape;
+     its backend) and bound times at every main shape; each record names
+     the body that ran (split for the one-query cross attention, wgmma
+     for head dim 256 in bf16, mma for bf16 otherwise, fma for f32; the
+     kernels line lists each body's CUDA functions);
  10a. grad: a dense smoke layer's wq/wk/wv gradients through flash_gqa
      (one launch forward, none backward) against the CPU's, f32;
  11. dense serve phase, after the Mamba weights are released: the serve
@@ -1479,10 +1482,10 @@ def flash_case(shape, dev, dtype, timed=False, dv=None, sq=None) -> dict:
     """Kernel vs plain on the card: |o - want| <= tol + tol * |want|, tol
     2e-5 in f32, 2e-2 in bf16 (the Pallas kernel test's); ``dv``: v's head
     dim where it is not q's; ``sq``: the queries' length where it is not
-    the keys' (no mask: cross attention). Timed, also the library
-    yardstick (``scaled_dot_product_attention`` with ``enable_gqa``, the
-    window as an explicit mask) and the kernels it ran (which name its
-    backend)."""
+    the keys' (no mask: cross attention). The record names the body that
+    ran (``flash_gqa.body``). Timed, also the library yardstick
+    (``scaled_dot_product_attention`` with ``enable_gqa``, the window as
+    an explicit mask) and the kernels it ran (which name its backend)."""
     B, S, H, Hkv, D, causal, window, kv_head = shape
     Sq = sq or S
     q, k, v = flash_inputs(B, S, H, Hkv, D, S + H, dev, dtype, dv, Sq)
@@ -1509,7 +1512,9 @@ def flash_case(shape, dev, dtype, timed=False, dv=None, sq=None) -> dict:
     check(bool(((o.float() - want.float()).abs()
                 <= tol + tol * want.float().abs()).all()),
           f"flash {label}: differs from the plain version by {err}")
-    rec = {"case": label, "max_abs_err": err}
+    rec = {"case": label, "max_abs_err": err,
+           "body": FK.body(q.shape, v.shape, dtype, causal=causal,
+                           window=window)}
     if timed:
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         if kv_head is not None:
@@ -1594,8 +1599,8 @@ def flash_phase(dev) -> tuple[dict, dict, dict, float]:
         f32 = flash_case(shape, dev, torch.float32, timed=True, sq=sq)
         new[name] = flash_case(shape, dev, torch.bfloat16, timed=True, sq=sq)
         new[name]["f32"] = {key: f32[key] for key in (
-            "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-            "max_abs_err")}
+            "body", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "max_abs_err")}
         err = max(err, f32["max_abs_err"], new[name]["max_abs_err"])
     return main_rec, mla_rec, new, max(err, main_rec["max_abs_err"],
                                        mla_rec["max_abs_err"])
@@ -2402,11 +2407,13 @@ def main() -> int:
         "bound_ms": flash_rec["bound_ms"],
         "bound_by": flash_rec["bound_by"],
         "library_ms": flash_rec["library_ms"],
+        "cuda_functions": FK.BODY_KERNELS,
+        "body": flash_rec["body"],
         "mla_prefill": {key: mla_rec[key] for key in (
-            "case", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+            "case", "body", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library_backend", "max_abs_err")},
         **{name: {key: r[key] for key in (
-            "case", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+            "case", "body", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library_backend", "max_abs_err", "f32")}
            for name, r in flash_new.items()}}]}),
         flush=True)

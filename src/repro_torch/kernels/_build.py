@@ -150,8 +150,11 @@ def resources(name: str) -> dict[str, dict]:
     return {names[k]: v for k, v in res.items()}
 
 
-def count_tensor_core_ops(sass: str) -> dict[str, int]:
-    """{function: HMMA + HGMMA instructions} in ``cuobjdump -sass`` text."""
+def count_tensor_core_ops(sass: str, kinds=("HMMA", "HGMMA")
+                          ) -> dict[str, int]:
+    """{function: tensor-core instructions of ``kinds``} in ``cuobjdump
+    -sass`` text: HMMA (``mma.sync``) and HGMMA (``wgmma``) by default."""
+    op = re.compile(r"\b(" + "|".join(kinds) + r")\b")
     counts: dict[str, int] = {}
     cur = None
     for line in sass.splitlines():
@@ -159,12 +162,13 @@ def count_tensor_core_ops(sass: str) -> dict[str, int]:
         if m:
             cur = m.group(1)
             counts[cur] = 0
-        elif cur is not None and re.search(r"\bHG?MMA\b", line):
+        elif cur is not None and op.search(line):
             counts[cur] += 1
     return counts
 
 
-def tensor_core_ops(name: str) -> dict[str, int] | None:
+def tensor_core_ops(name: str, kinds=("HMMA", "HGMMA")
+                    ) -> dict[str, int] | None:
     """``count_tensor_core_ops`` of kernel ``name``'s built library, by
     demangled function name; None where cuobjdump is missing."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -173,7 +177,7 @@ def tensor_core_ops(name: str) -> dict[str, int] | None:
     lib = build([_source(name)])[name]
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
-    counts = count_tensor_core_ops(sass)
+    counts = count_tensor_core_ops(sass, kinds)
     names = _demangle(sorted(counts))
     return {names[k]: v for k, v in counts.items()}
 

@@ -20,13 +20,23 @@
 // v 128), whose pair the Pallas kernel cannot take (its wrapper pads v
 // with q's padding).
 //
-// Shared by both bodies. The TPU grid's sequential kv axis is a loop
-// inside one block of 128 threads per (b, h, 64 query rows, DVB output
-// columns), with m, l and the accumulator in registers for the whole row
-// range. DVB is DV up to 128; at DV = 256 (recurrentgemma-9b: 16 heads
-// over 1 kv head of 256) each block computes one 128-column half of O and
-// recomputes S = Q.K^T in full, so the accumulator stays the D = 128
-// body's (two blocks read the same Q and K tiles, back to back, from L2).
+// Which body a call takes (flash_gqa below picks by shape; the wrapper's
+// flash_gqa.body says the same in Python):
+//   split  no mask, Sq <= FS_MAX_SQ (16) and H <= FS_MAX_H, either dtype,
+//          when the wrapper passes n_split > 0 (it does for Skv up to 128
+//          splits of 128 keys): whisper's cross attention at a decode step;
+//   wgmma  bf16 at (256, 256): recurrentgemma-9b's local attention;
+//   mma    bf16 at the other pairs;
+//   fma    f32 at every pair.
+//
+// Shared by the mma and fma bodies. The TPU grid's sequential kv axis is a
+// loop inside one block of 128 threads per (b, h, 64 query rows, DVB
+// output columns), with m, l and the accumulator in registers for the
+// whole row range. DVB is DV up to 128; at DV = 256 (f32 only now) each
+// block computes one 128-column half of O and recomputes S = Q.K^T in
+// full, so a pair costs 2 * 2 * 256 FLOP of S and 2 * 2 * 128 of P.V:
+// 1.5 times the function's 2 * (256 + 256). (The bf16 body at (256, 256)
+// did the same until the wgmma body replaced it.)
 // Blocks are numbered so that the last query tiles, which see the most
 // keys under the causal mask, start first (with no mask every tile has
 // the same work and the order does not matter), and consecutive blocks
@@ -44,8 +54,8 @@
 // Sq and keys past Skv are zero-filled on load; keys past Skv are masked,
 // and rows past Sq are never stored.
 //
-// bf16 body (flash_gqa_fwd_mma, the serve path): FA2-style on the tensor
-// cores. Each of the 4 warps owns 16 query rows. Per kv tile:
+// mma body (flash_gqa_fwd_mma, bf16 up to D = 192): FA2-style on the
+// tensor cores. Each of the 4 warps owns 16 query rows. Per kv tile:
 //   1. S = Q.K^T by mma.sync.m16n8k16 bf16 -> f32: Q's A fragments are
 //      loaded once by ldmatrix and kept in registers (D/4 registers), K's
 //      B fragments by ldmatrix from the tile in shared memory;
@@ -59,50 +69,112 @@
 // At D = 192 Q's fragments would take 48 registers a thread on top of the
 // 64 of the [16 x 128] accumulator and the 32 of S (the D = 128 build
 // already uses about 204), so above D = 128 they are not kept: each k-step
-// loads its fragment from the Q tile in shared memory by ldmatrix, 12 (at
-// D = 256, 16) more ldmatrix a kv tile and warp.
+// loads its fragment from the Q tile in shared memory by ldmatrix.
 // K and V tiles come in by cp.async (16 bytes a thread, zero-filled past
 // Skv) into a ring of two stages: tile t+1 loads while tile t is
-// computed, one __syncthreads a tile. V's tile holds only the block's DVB
-// columns. Rows of shared memory are D + 8 (V: DVB + 8) elements, so the
-// 8 rows an ldmatrix reads fall in distinct banks. Shared memory:
-// ((64 + 2 * 64) * (D + 8) + 2 * 64 * (DVB + 8)) * 2 bytes: 87,040 at
-// D = DV = 128 and 111,616 at (192, 128), two blocks an SM either way;
-// 136,192 at (256, 256), one block an SM (opt-in above 48 KB).
-// f32 body (flash_gqa_fwd): f32 FMA from shared memory, as the tests hold
+// computed, one __syncthreads a tile. Rows of shared memory are D + 8
+// elements, so the 8 rows an ldmatrix reads fall in distinct banks.
+// Shared memory: ((64 + 2 * 64) * (D + 8) + 2 * 64 * (DV + 8)) * 2 bytes:
+// 87,040 at D = DV = 128 and 111,616 at (192, 128), two blocks an SM.
+// fma body (flash_gqa_fwd): f32 FMA from shared memory, as the tests hold
 // f32 to 2e-5, which TF32 (about three digits) cannot meet: K^T and V by
 // plain loads (K transposed on the way), each thread a 4x8 score tile and
 // a 4 x DVB/8 output tile, P through shared memory; 98 KB, two blocks an
 // SM at D = 128; 134 KB, one block an SM, at (192, 128); 164 KB at
-// (256, 256) with the same 128-column halves of O.
+// (256, 256) with the 128-column halves of O.
 //
-// Bound. At the serve path's shape (B=4, S=512, H=32, Hkv=2, D=128,
-// causal) the function needs, over the causal triangle (512*513/2 =
-// 131,328 pairs a head), 2 products of 2*128 FLOP a pair for 128 (b, h):
-// 8.61 GFLOP; it moves q and o (33.6 MB in bf16) and k and v (2.1 MB).
-// In bf16 that is 0.0107 ms of memory at 3.35 TB/s (8.61 GFLOP take
-// 0.0087 ms at 989 TFLOP/s); in f32 0.129 ms of f32 FMA at 67 TFLOP/s,
-// above its 0.021 ms of memory. Both bodies compute whole 64x64 tiles on
-// the diagonal (9.66 GFLOP at that shape). ptxas (-Xptxas=-v, CUDA 12.8,
-// sm_90a): registers, shared memory and spills of each instantiation are
-// printed by chip_smoke.py and written in PERF.md. Left to do: wgmma with
-// TMA and a producer warp (FA3), and an epilogue through shared memory
-// for coalesced stores. 128-row query tiles of 8 warps were tried: at two
-// blocks an SM the 128-register cap spills at D = 128, and they ran
-// slower.
+// wgmma body (flash_gqa_fwd_wgmma, bf16 at (256, 256)): FA3's shape on
+// wgmma with TMA. A block of 256 threads takes 128 query rows of one
+// (b, h): consumer warpgroup c (4 warps) owns rows q0 + 64 c .. + 63.
+//   - Q [128 x 256] comes once by TMA (a 4-D map (column, head, row,
+//     batch), boxes of 64 columns x 64 rows, 128-byte swizzle, zeros past
+//     Sq); K and V tiles of 64 rows the same way into two-stage rings, K
+//     and V each with a full and an empty mbarrier a stage.
+//   - S = Q.K^T once for each (64-row group, kv tile): 16 wgmma
+//     m64n64k16 with both operands in shared memory (K-major, descriptors
+//     of the 128-byte swizzle), into 32 f32 registers a thread.
+//   - Softmax on the accumulator fragments in the log2 domain: p =
+//     2^(s c - m c), c = scale * log2 e, one FFMA and one ex2.approx a
+//     score; masks only on the tiles that need them.
+//   - O += P.V by 4 wgmma m64n256k16: P rounded to bf16 stays in registers
+//     as the A operand (the fragment layout of S's accumulator), V [64 x
+//     256] from shared memory, MN-major through the transpose bit. O
+//     [64 x 256] f32 is 128 registers a thread.
+//   - Per tile i, S of tile i + 1 is issued before P.V of tile i, and the
+//     softmax of tile i + 1 runs while P.V of tile i does (FA3's overlap
+//     within a warpgroup); the two warpgroups overlap each other too.
+//   - Each warpgroup has its own diagonal (its rows end 64 apart): the
+//     block loads the union of the two ranges of tiles, and a warpgroup
+//     waits for and releases a tile it does not compute, so the rings
+//     stay in step; the window's first tiles differ the same way.
+//   - Thread 0 issues every TMA load: Q and tiles 0 and 1 first, then
+//     tile j + 2's K (V) into tile j's stage once both warpgroups have
+//     released tile j's K (V). There is no producer warp: with one beside
+//     the consumers (288 or 384 threads) ptxas allocates at most 168
+//     registers a thread whatever setmaxnreg asks, and spills O, S and P,
+//     which together need more (ptxas reports the 256-thread build's
+//     count, printed by chip_smoke.py). The warpgroup index goes through
+//     a shuffle so that ptxas
+//     treats branches on it as warp-uniform and does not serialize the
+//     products (its C7518 note).
+//   - O / l is rounded to bf16 and staged through the warpgroup's own
+//     rows of the Q tile (16-byte chunks XOR-swizzled by row), then
+//     stored 512 contiguous bytes a warp.
+//   Shared memory: 64 KB of Q + 2 x (32 + 32) KB of K and V, mbarriers,
+//   and 1 KB to align to the swizzle: 197,760 bytes, one block an SM.
+//   Tried and not kept: two heads that share a kv head packed into a block
+//   (both warpgroups on the same tiles: barely faster, for one more C
+//   argument), the warpgroups taking turns at the tensor cores by named
+//   barriers (slower), rescaling O only when a row's max moved (no
+//   faster).
+//   Work at recurrentgemma-9b's prefill (B=4, S=512, 16 heads over 1,
+//   causal): each 64-row group g = 0..7 of a head visits g + 1 tiles,
+//   147,456 (query, key) pairs a head, so the body does 2 * (256 + 256) *
+//   147,456 * 64 = 9.66 GFLOP: ops.work's 8.61 GFLOP plus the masked
+//   halves of the 8 diagonal tiles (2,016 pairs each). The two-halves
+//   body before it did 1.5 times as much, 14.5 GFLOP.
 //
-// MLA prefill (deepseek-v2-lite: B=4, S=512, H=Hkv=16, D=192, DV=128,
-// causal): 4 * 16 * 131,328 pairs of 2 * (192 + 128) FLOP, 5.38 GFLOP;
-// q, k (2 * 12.6 MB), v and o (2 * 8.4 MB) in bf16: 41.9 MB, 0.0125 ms at
-// 3.35 TB/s, against 0.0054 ms for the FLOP at 989 TFLOP/s.
+// split body (flash_gqa_split + flash_gqa_merge, no mask, Sq <= 16): at
+// whisper's decode a tiled block would compute 64 query rows to use one,
+// and B * H = 24 blocks would hold 132 SMs. Instead:
+//   - first pass, grid (split, kv head, b): a block of 128 threads takes
+//     ceil(Skv / n_split) <= 128 keys of its kv head and every query row
+//     (i, h) whose head maps to it (up to 16 rows a pass), so it reads its
+//     K and V rows once for all of those heads. Scores in f32 (a thread a
+//     key), the chunk's max and sum by warp reductions, and P.V over the
+//     V rows that cp.async brought to shared memory while the scores ran
+//     (keys split over 4 thread groups at DV = 64, their sums added in a
+//     fixed order); it writes the chunk's unnormalized (m, l, o) in f32 to
+//     scratch that the wrapper allocates;
+//   - second pass: each output element merges its row's n_split partials
+//     in split order, with no atomics, so the same inputs give the same
+//     bits every run, and writes o in the call's dtype.
+//   The wrapper picks n_split for about two first-pass blocks an SM:
+//   whisper's decode (B = 4, 6 heads over 6, Skv = 1500) has 12 splits of
+//   125 keys, 288 blocks. The call is bound by its bytes (k and v read
+//   once, 2.3 MB in bf16 at that shape); its time is mostly the two
+//   launches' fixed cost.
+//
+// Bounds. At the dense serve path's shape (B=4, S=512, H=32, Hkv=2,
+// D=128, causal) the function needs, over the causal triangle (512*513/2
+// = 131,328 pairs a head), 2 products of 2*128 FLOP a pair for 128
+// (b, h): 8.61 GFLOP; it moves q and o (33.6 MB in bf16) and k and v
+// (2.1 MB). In bf16 that is 0.0107 ms of memory at 3.35 TB/s (8.61 GFLOP
+// take 0.0087 ms at 989 TFLOP/s); in f32 0.129 ms of f32 FMA at 67
+// TFLOP/s, above its 0.021 ms of memory. MLA prefill (deepseek-v2-lite:
+// B=4, S=512, H=Hkv=16, D=192, DV=128, causal): 5.38 GFLOP; 41.9 MB in
+// bf16, 0.0125 ms at 3.35 TB/s, against 0.0054 ms for the FLOP.
 // recurrentgemma-9b prefill (B=4, S=512, 16 heads over 1, D = DV = 256,
-// causal): 8.61 GFLOP, 0.0087 ms at 989 TFLOP/s, under its 35.7 MB of
-// q, k, v and o (0.0107 ms at 3.35 TB/s); the S recomputed by the second
-// half of O adds a quarter to the FLOP the kernel does. whisper-tiny (6 heads of 64, no
-// mask): the encoder's 1500 x 1500 pairs a head and the cross
-// attention's 64 (prefill) or 1 (decode) query rows against 1500 frames;
-// at Sq = 1 a block computes 64 query rows for one, so such a call is
-// bound by the k and v it reads (2.3 MB in bf16 at B = 4), not by FLOP.
+// causal): 8.61 GFLOP, 0.0087 ms at 989 TFLOP/s, under its 35.7 MB of q,
+// k, v and o (0.0107 ms); at 4096 tokens with its window of 2048, 103.1
+// GFLOP, 0.1042 ms, bound by operations. whisper-tiny's cross attention
+// (6 heads of 64, no mask, 1500 frames): bound by the k and v it reads.
+// ptxas (-Xptxas=-v, sm_90a): registers, shared memory and spills of each
+// instantiation are printed by chip_smoke.py. Times: PERF.md.
+// Left to do: the mma body (D <= 192) on wgmma and TMA; a persistent
+// wgmma body whose next tile's loads overlap this one's epilogue; K and V
+// tiles multicast to the blocks of heads that share them; the split
+// body's two passes in one launch.
 //
 // Limits: (D, DV) in {(16, 16), (32, 32), (64, 64), (128, 128), (192,
 // 128), (256, 256)}; Sq, Skv >= 1; Sq == Skv unless causal == 0 and
@@ -112,6 +184,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 #define FA_THREADS 128
 #define FA_BQ 64                    // query rows a block
@@ -594,6 +668,581 @@ flash_gqa_fwd_mma(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// ---------------------------------------------- bf16 body at (256, 256)
+#define FW_BQ 128                   // query rows a block: 2 consumers x 64
+#define FW_BK 64                    // kv rows a tile
+#define FW_D 256
+#define FW_THREADS 256              // 2 consumer warpgroups
+#define FW_BOX 64                   // columns a TMA box (128 bytes)
+#define FW_Q_BOX (FW_BQ * FW_BOX * 2)         // 16,384 bytes
+#define FW_KV_BOX (FW_BK * FW_BOX * 2)        // 8,192 bytes
+#define FW_Q_BYTES (FW_BQ * FW_D * 2)         // 65,536
+#define FW_KV_BYTES (FW_BK * FW_D * 2)        // 32,768: K or V, one stage
+// Q, two stages of K and V, 9 mbarriers, and slack to align to 1024
+#define FW_SMEM (1024 + FW_Q_BYTES + 4 * FW_KV_BYTES + 128)
+
+// the kv tiles [lo, hi] holding an unmasked key for some query row of
+// [qa, qa + 64); empty (hi < lo) where the rows start past Sq
+struct KvTiles {
+  int lo, hi;
+};
+__device__ __forceinline__ KvTiles kv_tiles(int qa, int Sq, int Skv,
+                                            int causal, int window) {
+  if (qa >= Sq) return {0, -1};
+  const int qb = min(Sq, qa + 64);
+  const int k_lo = window > 0 ? max(0, qa - window + 1) : 0;
+  const int k_hi = causal ? qb : Skv;                        // exclusive
+  return {k_lo / FW_BK, (k_hi - 1) / FW_BK};
+}
+
+// S = Q.K^T of one kv tile for this warpgroup's 64 rows: 16 k-steps of
+// m64n64k16, both operands in shared memory (K-major); issued, not waited
+__device__ __forceinline__ void qk_issue(float (&s)[32], uint32_t qrows,
+                                         uint32_t kb) {
+  fence_regs(s);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < FW_D / 16; ++kk)
+    wgmma_m64n64k16_ss(
+        s, sw128_desc(qrows + (kk >> 2) * FW_Q_BOX + (kk & 3) * 32, 16, 1024),
+        sw128_desc(kb + (kk >> 2) * FW_KV_BOX + (kk & 3) * 32, 16, 1024),
+        kk > 0);
+  wgmma_commit();
+}
+
+// O += P.V of one kv tile: P (bf16, the A fragments of S's accumulator)
+// from registers, V [64 x 256] from shared memory, MN-major through the
+// transpose bit; issued, not waited
+__device__ __forceinline__ void pv_issue(float (&acc)[128],
+                                         const uint32_t (&pf)[4][4],
+                                         uint32_t vb) {
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < FW_BK / 16; ++kk)
+    wgmma_m64n256k16_rs_tb(
+        acc, pf[kk], sw128_desc(vb + kk * 16 * 128, FW_KV_BOX, 1024), 1);
+  wgmma_commit();
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__global__ void __launch_bounds__(FW_THREADS, 1)
+flash_gqa_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const int* __restrict__ kv_head,
+                    __nv_bfloat16* __restrict__ o, int Sq, int Skv, int H,
+                    int BH, int causal, int window, float scale_log2) {
+  extern __shared__ __align__(16) uint8_t fw_raw[];
+  const uint32_t raw = smem_u32(fw_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;    // the swizzle's period
+  uint8_t* gbase = fw_raw + (base - raw);          // generic address of base
+  const uint32_t sQ = base;                        // 4 boxes [128][64]
+  const uint32_t sK = sQ + FW_Q_BYTES;             // 2 stages x 4 [64][64]
+  const uint32_t sV = sK + 2 * FW_KV_BYTES;
+  // mbarriers: Q, then K full, V full, K empty, V empty, two stages each
+  const uint32_t q_full = sV + 2 * FW_KV_BYTES;
+  const uint32_t k_full = q_full + 8, v_full = q_full + 24;
+  const uint32_t k_empty = q_full + 40, v_empty = q_full + 56;
+
+  // the block's tile: the last query tiles first, consecutive blocks on
+  // consecutive (b, h), so they share kv heads
+  const int n_qt = (Sq + FW_BQ - 1) / FW_BQ;
+  const int bh = (int)(blockIdx.x % BH);
+  const int b = bh / H, h = bh % H;
+  const int q0 = (n_qt - 1 - (int)(blockIdx.x / BH)) * FW_BQ;
+  const int hk = kv_head[h];
+  const KvTiles t1 = kv_tiles(q0, Sq, Skv, causal, window);
+  const KvTiles t2 = kv_tiles(q0 + 64, Sq, Skv, causal, window);
+  const int lo = t1.lo, hi = max(t1.hi, t2.hi), n_kt = hi - lo + 1;
+
+  // the warpgroup index through a shuffle, so that ptxas sees every
+  // branch on it as warp-uniform and keeps the products unserialized
+  const int tid = threadIdx.x;
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(k_empty + 8 * s, 8);        // every warp arrives
+      mbar_init(v_empty + 8 * s, 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  {
+    // ---- consumers: warpgroup cw owns query rows qa .. qa + 63
+    const int cw = wg, ct = tid - 128 * wg;
+    const int warp = ct >> 5, lane = ct & 31;
+    const int g = lane >> 2, t = lane & 3;          // fragment row, column pair
+    const int qa = q0 + cw * 64;
+    const KvTiles mine = cw == 0 ? t1 : t2;
+    const int r0 = qa + warp * 16 + g;              // rows r0 and r0 + 8
+    const int q_end = min(Sq, qa + 64);
+    const uint32_t qrows = sQ + cw * (FW_Q_BOX / 2);   // in each Q box
+    // the block's tiles ia .. ib (of 0 .. n_kt - 1) are this warpgroup's
+    const bool any = mine.hi >= mine.lo;
+    const int ia = any ? mine.lo - lo : n_kt, ib = any ? mine.hi - lo : -1;
+    // tile i's stage is i & 1, in its (i >> 1)-th use; a warp releases
+    // a stage once its last product that reads it is done
+    auto wait_k = [&](int i) {
+      mbar_wait(k_full + 8 * (i & 1), (i >> 1) & 1);
+    };
+    auto wait_v = [&](int i) {
+      mbar_wait(v_full + 8 * (i & 1), (i >> 1) & 1);
+    };
+    // Thread 0 loads: Q and tiles 0 and 1 first; tile j + 2's K (V) into
+    // tile j's stage once it has released tile j's K (V) itself and the
+    // other warpgroup has too, which leaves tile j + 2 one and a half
+    // tiles of work to land. (A producer warp beside the consumers would
+    // make ptxas allocate for 384 threads: 168 registers, which O, S and P
+    // in flight together exceed.)
+    const bool loader = tid == 0;
+    auto load = [&](uint32_t ring, uint32_t full, uint32_t empty,
+                    const CUtensorMap* map, int j) {
+      if (j >= n_kt) return;
+      const int st = j & 1;
+      mbar_wait(empty + 8 * st, ((j >> 1) & 1) ^ 1);   // stage read by all
+      mbar_expect_tx(full + 8 * st, FW_KV_BYTES);
+      for (int c = 0; c < FW_D / FW_BOX; ++c)
+        tma_load_4d(ring + st * FW_KV_BYTES + c * FW_KV_BOX, map, full + 8 * st,
+                    c * FW_BOX, hk, (lo + j) * FW_BK, b);
+    };
+    auto free_k = [&](int i) {
+      if (lane == 0) mbar_arrive(k_empty + 8 * (i & 1));
+      if (loader) load(sK, k_full, k_empty, &tk, i + 2);
+    };
+    auto free_v = [&](int i) {
+      if (lane == 0) mbar_arrive(v_empty + 8 * (i & 1));
+      if (loader) load(sV, v_full, v_empty, &tv, i + 2);
+    };
+    if (loader) {
+      mbar_expect_tx(q_full, FW_Q_BYTES);
+      for (int c = 0; c < FW_D / FW_BOX; ++c)
+        tma_load_4d(sQ + c * FW_Q_BOX, &tq, q_full, c * FW_BOX, h, q0, b);
+      for (int j = 0; j < 2; ++j) {
+        load(sK, k_full, k_empty, &tk, j);
+        load(sV, v_full, v_empty, &tv, j);
+      }
+    }
+
+    float acc[128];                 // O [64 x 256]: 32 n-tiles of 8 x 4
+    float s[32];                    // S [64 x 64]: 8 n-tiles of 8 x 4
+    uint32_t pf[4][4];              // P in bf16: the A fragments of P.V
+#pragma unroll
+    for (int e = 0; e < 128; ++e) acc[e] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 32; ++e) s[e] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    float alpha[2] = {1.f, 1.f};
+    mbar_wait(q_full, 0);
+
+    // mask (only where tile i needs it) and online softmax of tile i's S
+    // in the log2 domain: p = 2^(s c - m c), c = scale * log2 e, m the
+    // raw row max; alpha rescales O
+    auto softmax = [&](int i) {
+      const int k0 = (lo + i) * FW_BK;
+      const bool masked = k0 + FW_BK > Skv
+                          || (causal && k0 + FW_BK - 1 > qa)
+                          || (window > 0 && k0 <= q_end - 1 - window);
+      if (masked) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int qpos = r0 + ((e >> 1) & 1) * 8;
+          const int kpos = k0 + (e >> 2) * 8 + 2 * t + (e & 1);
+          const bool ok = kpos < Skv && (!causal || kpos <= qpos)
+                          && (window <= 0 || kpos > qpos - window);
+          if (!ok) s[e] = -INFINITY;
+        }
+      }
+      float mx[2] = {-INFINITY, -INFINITY}, mc[2];
+#pragma unroll
+      for (int e = 0; e < 32; ++e)
+        mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        // no unmasked key for this row yet: nothing changes
+        alpha[r] = m_new == -INFINITY ? 1.f
+                                      : ex2((m[r] - m_new) * scale_log2);
+        mc[r] = m_new == -INFINITY ? 0.f : m_new * scale_log2;
+        m[r] = m_new;
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int r = (e >> 1) & 1;
+        s[e] = ex2(fmaf(s[e], scale_log2, -mc[r]));    // masked: 2^-inf = 0
+        l[r] += s[e];
+      }
+    };
+    auto pack_p = [&]() {           // P rounded to bf16
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        pf[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+        pf[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+        pf[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+        pf[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+      }
+    };
+
+    // tiles of the block before this warpgroup's: released unread
+    for (int i = 0; i < min(ia, n_kt); ++i) {
+      wait_k(i); free_k(i); wait_v(i); free_v(i);
+    }
+    if (any) {
+      wait_k(ia);
+      qk_issue(s, qrows, sK + (ia & 1) * FW_KV_BYTES);
+      wgmma_wait<0>();
+      fence_regs(s);
+      free_k(ia);
+      softmax(ia);
+      pack_p();
+    }
+    // Per tile i (P of tile i in registers, nothing in flight): S of tile
+    // i + 1 and then P.V of tile i go to the tensor cores back to back;
+    // the softmax of tile i + 1 runs while P.V of tile i does.
+    for (int i = ia; i <= ib; ++i) {
+      const bool next = i < ib;
+      if (next) {
+        wait_k(i + 1);
+        qk_issue(s, qrows, sK + ((i + 1) & 1) * FW_KV_BYTES);
+      }
+#pragma unroll
+      for (int n = 0; n < 32; ++n) {
+        acc[4 * n] *= alpha[0]; acc[4 * n + 1] *= alpha[0];
+        acc[4 * n + 2] *= alpha[1]; acc[4 * n + 3] *= alpha[1];
+      }
+      wait_v(i);
+      pv_issue(acc, pf, sV + (i & 1) * FW_KV_BYTES);
+      if (next) {
+        wgmma_wait<1>();            // S of tile i + 1 (committed first)
+        fence_regs(s);
+        free_k(i + 1);
+        softmax(i + 1);
+      }
+      wgmma_wait<0>();              // P.V of tile i
+      fence_regs(acc);
+      free_v(i);
+      if (next) pack_p();
+    }
+    // tiles of the block after this warpgroup's: released unread
+    for (int i = max(ib + 1, ia); i < n_kt; ++i) {
+      wait_k(i); free_k(i); wait_v(i); free_v(i);
+    }
+
+    // o = acc / max(l, 1e-30), rounded to bf16 once, staged through this
+    // warpgroup's rows of the Q tile (no longer read): row r of 128 bytes
+    // a box, 16-byte chunk c at c ^ (r & 7), then 16-byte coalesced stores
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      l[r] = 1.f / fmaxf(l[r], 1e-30f);
+    }
+    uint8_t* stage = gbase + (qrows - base);
+#pragma unroll
+    for (int n = 0; n < 32; ++n)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = warp * 16 + g + 8 * r;      // within the 64
+        *reinterpret_cast<uint32_t*>(
+            stage + (n >> 3) * FW_Q_BOX + row * 128
+            + (((n & 7) ^ (row & 7)) << 4) + 4 * t) =
+            pack_bf16(acc[4 * n + 2 * r] * l[r],
+                      acc[4 * n + 2 * r + 1] * l[r]);
+      }
+    asm volatile("bar.sync %0, 128;\n" :: "r"(1 + cw) : "memory");
+    for (int e = ct; e < 64 * 32; e += 128) {
+      const int row = e >> 5, c = e & 31;           // 32 chunks a row
+      if (qa + row >= Sq) break;                    // rows ascend with e
+      const uint4 val = *reinterpret_cast<const uint4*>(
+          stage + (c >> 3) * FW_Q_BOX + row * 128
+          + (((c & 7) ^ (row & 7)) << 4));
+      *reinterpret_cast<uint4*>(
+          o + (((int64_t)b * Sq + qa + row) * H + h) * FW_D + c * 8) = val;
+    }
+  }
+}
+
+// ------------------------------------- split body: no mask, Sq <= 16
+#define FS_THREADS 128
+#define FS_RG 16                    // query rows a pass
+#define FS_MAX_SQ 16                // Sq up to which a call may split
+#define FS_MAX_CH 128               // keys a split, at most: one a thread
+#define FS_MAX_H 256                // query heads, at most
+#define FS_V_BYTES 32768            // V rows in shared memory, at most
+
+template <typename T>
+__device__ __forceinline__ float to_f(T x);
+template <>
+__device__ __forceinline__ float to_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+// 8 consecutive values (16-byte aligned) as f32
+__device__ __forceinline__ void load8(const float* p, float* out) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 c = *reinterpret_cast<const float4*>(p + 4);
+  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+  out[4] = c.x; out[5] = c.y; out[6] = c.z; out[7] = c.w;
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
+  const uint4 a = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+// 2 consecutive values (aligned) as f32
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// scores of the pass's first RG query rows (Qs, log2 domain) against keys
+// c0 .. c0 + nk - 1 (nk <= FS_MAX_CH), a thread a key, into Ps
+template <typename T, int D, int RG>
+__device__ __forceinline__ void split_scores(float (*Qs)[D],
+                                             float (*Ps)[FS_MAX_CH + 1],
+                                             const T* kb, int64_t ks, int nk,
+                                             int nr) {
+  const int j = threadIdx.x;
+  if (j < nk) {
+    float s[RG];
+#pragma unroll
+    for (int r = 0; r < RG; ++r) s[r] = 0.f;
+    const T* kr = kb + j * ks;
+#pragma unroll 2
+    for (int d = 0; d < D; d += 8) {
+      float kv[8];
+      load8(kr + d, kv);
+#pragma unroll
+      for (int r = 0; r < RG; ++r)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) s[r] = fmaf(Qs[r][d + e], kv[e], s[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < RG; ++r)
+      if (r < nr) Ps[r][j] = s[r];
+  }
+}
+
+// the keys of one V tile in shared memory: FS_V_BYTES at most
+template <typename T, int DV>
+__host__ __device__ constexpr int split_v_keys() {
+  return FS_V_BYTES / (DV * (int)sizeof(T)) < FS_MAX_CH
+             ? FS_V_BYTES / (DV * (int)sizeof(T)) : FS_MAX_CH;
+}
+
+// keys j0 .. j0 + nv - 1 of the chunk's V rows into Vs [nv][DV], by
+// cp.async (16 bytes a thread), committed as one group
+template <typename T, int DV>
+__device__ __forceinline__ void split_load_v(T* Vs, const T* vb, int64_t vs,
+                                             int j0, int nv) {
+  constexpr int CPR = DV * (int)sizeof(T) / 16;     // 16-byte chunks a row
+  for (int e = threadIdx.x; e < nv * CPR; e += FS_THREADS) {
+    const int j = e / CPR, c = e % CPR;
+    cp_async16(smem_addr(reinterpret_cast<uint4*>(Vs + j * DV) + c),
+               reinterpret_cast<const uint4*>(vb + (j0 + j) * vs) + c, true);
+  }
+  cp_async_commit();
+}
+
+// P.V of the pass's first RG query rows over the split's keys: thread
+// (ks, cp) sums columns 2 cp, 2 cp + 1 over the keys j = ks (mod KS) of
+// each V tile, into Red[ks] (rows past nr are computed from stale P and
+// never read)
+template <typename T, int DV, int RG>
+__device__ __forceinline__ void split_pv(float (*Ps)[FS_MAX_CH + 1],
+                                         float (*Red)[FS_RG][DV], T* Vs,
+                                         const T* vb, int64_t vs, int nk,
+                                         int nr, int rg0) {
+  constexpr int NCP = DV / 2, KS = FS_THREADS / NCP;
+  constexpr int VT = split_v_keys<T, DV>();
+  const int cp = threadIdx.x % NCP, ks = threadIdx.x / NCP;
+  float a[RG][2];
+#pragma unroll
+  for (int r = 0; r < RG; ++r) a[r][0] = a[r][1] = 0.f;
+  for (int j0 = 0; j0 < nk; j0 += VT) {
+    const int nv = min(VT, nk - j0);
+    // the first tile stays loaded for the next pass where it is all
+    if (j0 > 0 || (rg0 > 0 && nk > VT)) {
+      __syncthreads();          // the previous tile is consumed
+      split_load_v<T, DV>(Vs, vb, vs, j0, nv);
+    }
+    cp_async_wait_all();
+    __syncthreads();            // the tile, and P, ms and ls are in place
+    for (int j = ks; j < nv; j += KS) {
+      const float2 vv = load2(Vs + j * DV + 2 * cp);
+#pragma unroll
+      for (int r = 0; r < RG; ++r) {
+        const float p = Ps[r][j0 + j];
+        a[r][0] = fmaf(p, vv.x, a[r][0]);
+        a[r][1] = fmaf(p, vv.y, a[r][1]);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < RG; ++r)
+    if (r < nr)
+      *reinterpret_cast<float2*>(&Red[ks][r][2 * cp]) =
+          make_float2(a[r][0], a[r][1]);
+}
+
+// First pass: block (split, kv head, b) takes keys [c0, c0 + chunk) of
+// its kv head and every query row (i, h) with kv_head[h] == that head, and
+// writes each row's unnormalized partial (m, l, o) of the chunk, in f32:
+// po [B*Sq*H, n_split, DV], pml [B*Sq*H, n_split, 2], row (b*Sq + i)*H + h.
+// The chunk's first V tile loads (cp.async) while the scores are computed;
+// a chunk of more keys than a V tile holds loads its later tiles in turn.
+template <typename T, int D, int DV>
+__global__ void __launch_bounds__(FS_THREADS)
+flash_gqa_split(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, const int* __restrict__ kv_head,
+                float* __restrict__ po, float* __restrict__ pml, int Sq,
+                int Skv, int H, int Hkv, int n_split, int chunk,
+                float scale_log2) {
+  constexpr int VT = split_v_keys<T, DV>();
+  __shared__ __align__(16) float Qs[FS_RG][D];
+  __shared__ float Ps[FS_RG][FS_MAX_CH + 1];
+  __shared__ int heads[FS_MAX_H];
+  __shared__ float ms[FS_RG], ls[FS_RG];
+  __shared__ __align__(16) float Red[FS_THREADS / (DV / 2)][FS_RG][DV];
+  __shared__ int n_heads;
+  extern __shared__ __align__(16) uint8_t fs_dyn[];
+  T* Vs = reinterpret_cast<T*>(fs_dyn);             // [VT][DV]
+  const int sp = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int c0 = sp * chunk, nk = min(Skv, c0 + chunk) - c0;   // >= 1
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int64_t ks = (int64_t)Hkv * D, vs = (int64_t)Hkv * DV;
+  const T* kb = k + ((int64_t)b * Skv + c0) * ks + (int64_t)hk * D;
+  const T* vb = v + ((int64_t)b * Skv + c0) * vs + (int64_t)hk * DV;
+  split_load_v<T, DV>(Vs, vb, vs, 0, min(VT, nk));
+  if (warp == 0) {              // the query heads of kv head hk, in order
+    int n = 0;
+    for (int h0 = 0; h0 < H; h0 += 32) {
+      const bool mine = h0 + lane < H && kv_head[h0 + lane] == hk;
+      const unsigned bits = __ballot_sync(0xffffffffu, mine);
+      if (mine) heads[n + __popc(bits & ((1u << lane) - 1))] = h0 + lane;
+      n += __popc(bits);
+    }
+    if (lane == 0) n_heads = n;
+  }
+  __syncthreads();
+  const int R = n_heads * Sq;
+  for (int rg0 = 0; rg0 < R; rg0 += FS_RG) {
+    const int nr = min(FS_RG, R - rg0);
+    for (int e = tid; e < nr * D; e += FS_THREADS) {
+      const int r = e / D, d = e % D, rho = rg0 + r;
+      const int h = heads[rho / Sq], i = rho % Sq;
+      Qs[r][d] = to_f(q[(((int64_t)b * Sq + i) * H + h) * D + d])
+                 * scale_log2;
+    }
+    __syncthreads();
+    if (nr == 1)
+      split_scores<T, D, 1>(Qs, Ps, kb, ks, nk, nr);
+    else if (nr <= 4)
+      split_scores<T, D, 4>(Qs, Ps, kb, ks, nk, nr);
+    else
+      split_scores<T, D, FS_RG>(Qs, Ps, kb, ks, nk, nr);
+    __syncthreads();
+    for (int r = warp; r < nr; r += FS_THREADS / 32) {
+      float mx = -INFINITY;
+      for (int j = lane; j < nk; j += 32) mx = fmaxf(mx, Ps[r][j]);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      float sum = 0.f;
+      for (int j = lane; j < nk; j += 32) {
+        const float p = exp2f(Ps[r][j] - mx);
+        Ps[r][j] = p;
+        sum += p;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (lane == 0) {
+        ms[r] = mx;
+        ls[r] = sum;
+      }
+    }
+    if (nr == 1)
+      split_pv<T, DV, 1>(Ps, Red, Vs, vb, vs, nk, nr, rg0);
+    else if (nr <= 4)
+      split_pv<T, DV, 4>(Ps, Red, Vs, vb, vs, nk, nr, rg0);
+    else
+      split_pv<T, DV, FS_RG>(Ps, Red, Vs, vb, vs, nk, nr, rg0);
+    __syncthreads();
+    // the KS partial sums of each output, added in order (the same bits
+    // every run), and the row's m and l
+    constexpr int NCP = DV / 2, KS = FS_THREADS / NCP;
+    for (int e = tid; e < nr * NCP; e += FS_THREADS) {
+      const int r = e / NCP, c = e % NCP;
+      float2 sum = make_float2(0.f, 0.f);
+#pragma unroll
+      for (int x = 0; x < KS; ++x) {
+        const float2 part =
+            *reinterpret_cast<const float2*>(&Red[x][r][2 * c]);
+        sum.x += part.x;
+        sum.y += part.y;
+      }
+      const int rho = rg0 + r, h = heads[rho / Sq], i = rho % Sq;
+      const int64_t row = ((int64_t)b * Sq + i) * H + h;
+      *reinterpret_cast<float2*>(po + (row * n_split + sp) * DV + 2 * c) = sum;
+      if (c == 0)
+        *reinterpret_cast<float2*>(pml + (row * n_split + sp) * 2) =
+            make_float2(ms[r], ls[r]);
+    }
+    __syncthreads();            // Qs, Ps, Red, ms and ls are free
+  }
+}
+
+__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+// Second pass: each output element of each row merges the row's n_split
+// partials in split order (no atomics: the same bits every run)
+template <typename T, int DV>
+__global__ void __launch_bounds__(256)
+flash_gqa_merge(const float* __restrict__ po, const float* __restrict__ pml,
+                T* __restrict__ o, int64_t rows, int n_split) {
+  const int64_t e = (int64_t)blockIdx.x * 256 + threadIdx.x;
+  if (e >= rows * DV) return;
+  const int64_t row = e / DV;
+  const int d = (int)(e % DV);
+  const float* ml = pml + row * n_split * 2;
+  float mx = -INFINITY;
+#pragma unroll 4
+  for (int s = 0; s < n_split; ++s) mx = fmaxf(mx, ml[2 * s]);
+  float l = 0.f, acc = 0.f;
+#pragma unroll 4
+  for (int s = 0; s < n_split; ++s) {
+    const float w = ml[2 * s] == -INFINITY ? 0.f : exp2f(ml[2 * s] - mx);
+    l = fmaf(w, ml[2 * s + 1], l);
+    acc = fmaf(w, po[(row * n_split + s) * DV + d], acc);
+  }
+  store1(o + e, acc / fmaxf(l, 1e-30f));
+}
+
 // ---------------------------------------------------------------- launch
 static int set_smem(const void* fn, size_t shm) {
   cudaError_t err = cudaFuncSetAttribute(
@@ -604,11 +1253,120 @@ static int set_smem(const void* fn, size_t shm) {
       (int)cudaSharedmemCarveoutMaxShared);
 }
 
+// [B, S, Hx, 256] bf16 as a 4-D TMA map (column, head, row, batch) with
+// boxes of 64 columns x `rows` rows of one head, 128-byte swizzle, zeros
+// out of bounds (rows past S). cuTensorMapEncodeTiled comes through the
+// runtime's entry-point query, so the library needs no -lcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+static EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult got;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &got);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &got);
+#endif
+    if (err != cudaSuccess || got != cudaDriverEntryPointSuccess)
+      return nullptr;
+    fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+static int tile_map(CUtensorMap* map, const void* ptr, int B, int S, int Hx,
+                    int rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {FW_D, (cuuint64_t)Hx, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {FW_D * 2, (cuuint64_t)Hx * FW_D * 2,
+                                 (cuuint64_t)S * Hx * FW_D * 2};
+  const cuuint32_t box[4] = {FW_BOX, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t one[4] = {1, 1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                         const_cast<void*>(ptr), dims, strides, box, one,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+static int launch_wgmma(const void* q, const void* k, const void* v,
+                        const void* kv_head, void* o, int B, int Sq, int Skv,
+                        int H, int Hkv, int causal, int window, float scale,
+                        cudaStream_t stream) {
+  const int64_t blocks = (int64_t)B * H * ((Sq + FW_BQ - 1) / FW_BQ);
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  int err = tile_map(&tq, q, B, Sq, H, FW_BQ);
+  if (!err) err = tile_map(&tk, k, B, Skv, Hkv, FW_BK);
+  if (!err) err = tile_map(&tv, v, B, Skv, Hkv, FW_BK);
+  if (!err) err = set_smem((const void*)flash_gqa_fwd_wgmma, FW_SMEM);
+  if (err) return err;
+  flash_gqa_fwd_wgmma<<<(unsigned)blocks, FW_THREADS, FW_SMEM, stream>>>(
+      tq, tk, tv, (const int*)kv_head, (__nv_bfloat16*)o, Sq, Skv, H, B * H,
+      causal, window, scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D, int DV>
+static int launch_split_t(const void* q, const void* k, const void* v,
+                          const void* kv_head, void* o, int B, int Sq,
+                          int Skv, int H, int Hkv, float scale,
+                          float* scratch, int n_split, cudaStream_t stream) {
+  const int chunk = (Skv + n_split - 1) / n_split;
+  if (scratch == nullptr || chunk > FS_MAX_CH
+      || (int64_t)(n_split - 1) * chunk >= Skv || Hkv > 65535 || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int64_t rows = (int64_t)B * Sq * H;
+  float* po = scratch;
+  float* pml = scratch + rows * n_split * DV;
+  // V rows in shared memory: a tile, or the whole split where it is less
+  const size_t shm = (size_t)min(split_v_keys<T, DV>(), chunk) * DV
+                     * sizeof(T);
+  int err = set_smem((const void*)flash_gqa_split<T, D, DV>, shm);
+  if (err) return err;
+  flash_gqa_split<T, D, DV><<<dim3(n_split, Hkv, B), FS_THREADS, shm,
+                              stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const int*)kv_head, po, pml, Sq,
+      Skv, H, Hkv, n_split, chunk, scale * 1.4426950408889634f);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  const int64_t blocks = (rows * DV + 255) / 256;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  flash_gqa_merge<T, DV><<<(unsigned)blocks, 256, 0, stream>>>(
+      po, pml, (T*)o, rows, n_split);
+  return (int)cudaGetLastError();
+}
+
 template <int D, int DV>
 static int launch(int dtype, const void* q, const void* k, const void* v,
                   const void* kv_head, void* o, int B, int Sq, int Skv,
                   int H, int Hkv, int causal, int window, float scale,
-                  cudaStream_t stream) {
+                  float* scratch, int n_split, cudaStream_t stream) {
+  if (n_split > 0)
+    return dtype == 0
+        ? launch_split_t<float, D, DV>(q, k, v, kv_head, o, B, Sq, Skv, H,
+                                       Hkv, scale, scratch, n_split, stream)
+        : launch_split_t<__nv_bfloat16, D, DV>(q, k, v, kv_head, o, B, Sq,
+                                               Skv, H, Hkv, scale, scratch,
+                                               n_split, stream);
+  if constexpr (D == FW_D && DV == FW_D) {
+    if (dtype == 1)
+      return launch_wgmma(q, k, v, kv_head, o, B, Sq, Skv, H, Hkv, causal,
+                          window, scale, stream);
+  }
   constexpr int DVB = dv_block<DV>();
   const int64_t blocks =
       (int64_t)B * H * ((Sq + FA_BQ - 1) / FA_BQ) * (DV / DVB);
@@ -621,7 +1379,7 @@ static int launch(int dtype, const void* q, const void* k, const void* v,
         (const float*)q, (const float*)k, (const float*)v,
         (const int*)kv_head, (float*)o, Sq, Skv, H, Hkv, B * H, causal,
         window, scale);
-  } else {
+  } else if constexpr (DV <= FA_DVB) {
     const size_t shm = smem_bytes_mma(D, DVB);
     const int err = set_smem((const void*)flash_gqa_fwd_mma<D, DV>, shm);
     if (err) return err;
@@ -644,19 +1402,26 @@ const char* fa_error_string(int err) {
 // dtype 0: q, k, v, o are f32; 1: bf16. q [B,Sq,H,D], k [B,Skv,Hkv,D],
 // v [B,Skv,Hkv,Dv], o [B,Sq,H,Dv], kv_head [H] int32, all contiguous on
 // one device; scale multiplies q.k; Sq == Skv unless causal == 0 and
-// window == 0. Returns a cudaError_t (0 = launched).
+// window == 0. n_split > 0 asks for the split body, which only a call
+// with no mask, Sq <= FS_MAX_SQ and H <= FS_MAX_H takes, with f32 scratch
+// of B*Sq*H*n_split*(Dv + 2) floats and splits of ceil(Skv / n_split) <=
+// FS_MAX_CH keys, none empty; n_split == 0 picks the tiled bodies by
+// dtype and head dims. Returns a cudaError_t (0 = launched).
 int flash_gqa(int dtype, const void* q, const void* k, const void* v,
               const void* kv_head, void* o, int B, int Sq, int Skv, int H,
               int Hkv, int D, int Dv, int causal, int window, float scale,
-              void* stream) {
+              void* scratch, int n_split, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || H <= 0 || Hkv <= 0 || window < 0 ||
-      (Sq != Skv && (causal || window)) || (dtype != 0 && dtype != 1))
+      (Sq != Skv && (causal || window)) || (dtype != 0 && dtype != 1) ||
+      n_split < 0 ||
+      (n_split > 0 && (causal || window || Sq > FS_MAX_SQ || H > FS_MAX_H)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
 #define FA_CASE(d, dv)                                                      \
   if (D == d && Dv == dv)                                                   \
     return launch<d, dv>(dtype, q, k, v, kv_head, o, B, Sq, Skv, H, Hkv,    \
-                         causal, window, scale, s);
+                         causal, window, scale, (float*)scratch, n_split,   \
+                         s);
   FA_CASE(16, 16)
   FA_CASE(32, 32)
   FA_CASE(64, 64)

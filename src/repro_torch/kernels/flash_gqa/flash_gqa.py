@@ -7,11 +7,22 @@ head layout (k [B,Skv,Hkv,D], v [B,Skv,Hkv,Dv]), with a query-head ->
 kv-head map instead of a repeat of k and v. Dv is D but for MLA's prefill
 (q/k 192, v 128: ``HEAD_DIM_PAIRS``). Sq differs from Skv only in a call
 with no mask (whisper's cross attention); a causal or windowed call has
-Sq == Skv, as the Pallas kernel has no query offset. bf16 runs on the
-tensor cores, f32 on the f32 pipes.
+Sq == Skv, as the Pallas kernel has no query offset.
+
+The source has four bodies, and ``body`` says by shape which one a call
+takes (``BODY_KERNELS`` names their CUDA functions): "split" for a call
+with no mask and Sq <= SPLIT_MAX_SQ in either dtype (whisper's cross
+attention at a decode step: Skv split over about two blocks an SM, then a
+merge in a fixed order), "wgmma" for bf16 at (256, 256)
+(recurrentgemma-9b: wgmma with TMA, S computed once a tile), "mma" for
+bf16 at the other head dims (``mma.sync``) and "fma" for f32 (f32 FMA,
+which the 2e-5 tolerance needs). ``split_plan`` picks the split count
+from the card's SM count, and the wrapper allocates the split body's f32
+scratch (``split_scratch_numel`` floats).
 It checks device, dtype, shape, contiguity, alignment and the map,
 allocates the output, launches on the current stream, checks the error
-code, and counts one launch per call in ``launches``. On the meta device
+code, and counts one launch per call in ``launches`` (the split body's two
+CUDA kernels are one launch). On the meta device
 (the dry run) the launch is shape-only: the checks and the output. Where grad is needed
 the call runs inside an autograd Function (``kernels/_autograd.py``) whose
 backward is ``grads``: the model's own attention algorithm
@@ -42,21 +53,77 @@ routed = 0                        # calls the model sent to the plain path
 # rope, v 128)
 HEAD_DIM_PAIRS = ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128),
                   (256, 256))
+# the bodies of csrc/flash_gqa.cu (its note gives each one's design and
+# bound) and the CUDA functions each launches; ``body`` picks one by shape
+BODY_KERNELS = {
+    "split": ("flash_gqa_split", "flash_gqa_merge"),   # no mask, Sq <= 16
+    "wgmma": ("flash_gqa_fwd_wgmma",),                 # bf16 at (256, 256)
+    "mma": ("flash_gqa_fwd_mma",),                     # bf16, other pairs
+    "fma": ("flash_gqa_fwd",),                         # f32
+}
+# the split body (csrc FS_MAX_SQ, FS_MAX_H, FS_MAX_CH): query rows and
+# heads a call may have, keys a split may hold (one a thread of the first
+# pass), splits a call may have; a call has at most ceil(Skv /
+# SPLIT_MIN_KEYS) splits
+SPLIT_MAX_SQ, SPLIT_MAX_H, SPLIT_MAX_KEYS = 16, 256, 128
+SPLIT_MAX_SPLITS, SPLIT_MIN_KEYS = 128, 32
 _count_lock = threading.Lock()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _maps: dict[tuple, torch.Tensor] = {}     # kv maps already on a device
+_sms: dict[torch.device, int] = {}        # SMs of each card
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_gqa")
     lib.flash_gqa.argtypes = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _I, _I, _I, _I, ctypes.c_float, _P]
+                              _I, _I, _I, _I, ctypes.c_float, _P, _I, _P]
     lib.flash_gqa.restype = _I
     lib.fa_error_string.argtypes = [_I]
     lib.fa_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def body(q_shape, v_shape, dtype, *, causal: bool = True,
+         window: int = 0) -> str:
+    """The body of csrc/flash_gqa.cu that a call of these shapes takes (a
+    key of ``BODY_KERNELS``): "split" with no mask, Sq <= SPLIT_MAX_SQ, H
+    <= SPLIT_MAX_H and Skv within SPLIT_MAX_SPLITS splits of
+    SPLIT_MAX_KEYS, in either dtype (whisper's cross attention at a decode
+    step); else by dtype, "wgmma" for bf16 at (256, 256), "mma" for bf16 at
+    the other head dims and "fma" for f32."""
+    B, Sq, H, D = q_shape
+    if not causal and not window and Sq <= SPLIT_MAX_SQ \
+            and H <= SPLIT_MAX_H \
+            and v_shape[1] <= SPLIT_MAX_KEYS * SPLIT_MAX_SPLITS:
+        return "split"
+    if dtype == torch.bfloat16:
+        return "wgmma" if (D, v_shape[3]) == (256, 256) else "mma"
+    return "fma"
+
+
+def split_plan(B: int, Skv: int, Hkv: int, sms: int) -> tuple[int, int]:
+    """(n_split, keys a split) of the split body: about two first-pass
+    blocks (b, kv head, split) on each of ``sms`` SMs, at most
+    SPLIT_MAX_KEYS keys a split (one a thread), at most ceil(Skv /
+    SPLIT_MIN_KEYS) splits and at most SPLIT_MAX_SPLITS (``body`` sends a
+    longer Skv to the tiled bodies); every split holds ceil(Skv / n_split) keys but the
+    last, which holds at least one. Whisper's decode (B 4, 6 kv heads, Skv
+    1500) on 132 SMs: 12 splits of 125 keys, 288 blocks."""
+    want = -(-2 * sms // (B * Hkv))
+    n = min(max(want, -(-Skv // SPLIT_MAX_KEYS)), -(-Skv // SPLIT_MIN_KEYS),
+            SPLIT_MAX_SPLITS)
+    keys = -(-Skv // n)
+    n = -(-Skv // keys)                 # no split left empty
+    return n, -(-Skv // n)
+
+
+def split_scratch_numel(q_shape, v_shape, n_split: int) -> int:
+    """f32 scratch of the split body: each query row's partial o [Dv], m
+    and l for each split, B*Sq*H*n_split*(Dv + 2) floats."""
+    B, Sq, H, _ = q_shape
+    return B * Sq * H * n_split * (v_shape[3] + 2)
 
 
 def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -191,9 +258,20 @@ def _shape_only(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return q.new_empty((*q.shape[:3], v.shape[3]))
 
 
+def _sm_count(dev: torch.device) -> int:
+    n = _sms.get(dev)
+    if n is None:
+        n = _sms[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return n
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-            causal: bool, window: int, kv_head) -> torch.Tensor:
-    """One launch of the kernel (``flash_gqa`` without autograd)."""
+            causal: bool, window: int, kv_head,
+            tiled: bool = False) -> torch.Tensor:
+    """One launch of the kernel (``flash_gqa`` without autograd): the body
+    ``body`` names, or with ``tiled`` the body the shape would take
+    without the split (to time both at one shape)."""
     global launches
     dev = q.device
     if dev.type != "cuda":
@@ -211,12 +289,20 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lib = _lib()
     kvh = _map_on(m, dev)
     o = q.new_empty((B, S, H, Dv))
+    n_split, scratch = 0, None
+    if not tiled and body(q.shape, v.shape, q.dtype, causal=causal,
+                          window=window) == "split":
+        n_split = split_plan(B, Skv, Hkv, _sm_count(dev))[0]
+        scratch = torch.empty(split_scratch_numel(q.shape, v.shape, n_split),
+                              dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.flash_gqa(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
                             v.data_ptr(), kvh.data_ptr(), o.data_ptr(), B, S,
                             Skv, H, Hkv, D, Dv, int(causal), window,
-                            1.0 / math.sqrt(D), stream)
+                            1.0 / math.sqrt(D),
+                            None if scratch is None else scratch.data_ptr(),
+                            n_split, stream)
     if err:
         raise RuntimeError(f"flash_gqa: CUDA error {err}: "
                            f"{lib.fa_error_string(err).decode()}")

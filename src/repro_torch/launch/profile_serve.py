@@ -14,7 +14,8 @@ kernel intervals on the card), the idle share 1 - busy / wall, the
 kernels launched, the device time and CUDA launches of the port's kernels
 on the serve path (ssd_scan: its four CUDA kernels ssd_cb,
 ssd_chunk_state, ssd_state_pass and ssd_chunk_scan a call; flash_gqa: one
-a call; partition_pack, the MoE dispatch: three a call at B·E = 256 or
+a call, two for a call with no mask and at most 16 query rows, whose split
+body is flash_gqa_split and flash_gqa_merge; partition_pack, the MoE dispatch: three a call at B·E = 256 or
 512 partitions, its multi-pass route) and the ten kernels with the most
 device time. The weights are cast to bf16 in place (``cast_params_``),
 so the card holds one copy. Runs on CUDA only.
@@ -37,7 +38,7 @@ from repro_torch.models.modules import init_params
 
 DECODE_STEPS = 8                                        # traced decode steps
 # the port's kernels on the serve path, by the prefix of their CUDA functions
-KERNELS = {"ssd_scan": "ssd_", "flash_gqa": "flash_gqa_fwd",
+KERNELS = {"ssd_scan": "ssd_", "flash_gqa": "flash_gqa_",
            "partition_pack": "pp_"}
 
 

@@ -74,3 +74,12 @@ def test_count_tensor_core_ops():
         "_Z17flash_gqa_fwd_mmaILi64EEvPK13__nv_bfloat16S2_S2_PKiPS0_iiiiiif":
             2,
         "_Z14ssd_state_passPfPKfS_iii": 0, "_Z3fooi": 1}
+
+
+@pytest.mark.parametrize("kind,counts", [("HGMMA", (0, 0, 1)),
+                                         ("HMMA", (2, 0, 0))])
+def test_count_tensor_core_ops_of_one_kind(kind, counts):
+    """wgmma's HGMMA apart from mma.sync's HMMA, as the card test of the
+    wgmma body asks."""
+    got = _build.count_tensor_core_ops(SASS, kinds=(kind,))
+    assert tuple(got.values()) == counts

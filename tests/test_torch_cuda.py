@@ -468,24 +468,29 @@ def test_ssd_scan_tile_edges(card, B, S, H, P, G, N, chunk, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel,functions", [
+@pytest.mark.parametrize("kernel,functions,kinds", [
     ("flash_gqa", ["flash_gqa_fwd_mma<16, 16>", "flash_gqa_fwd_mma<32, 32>",
                    "flash_gqa_fwd_mma<64, 64>",
                    "flash_gqa_fwd_mma<128, 128>",
-                   "flash_gqa_fwd_mma<192, 128>"]),
+                   "flash_gqa_fwd_mma<192, 128>"], ("HMMA", "HGMMA")),
+    ("flash_gqa", ["flash_gqa_fwd_wgmma"], ("HGMMA",)),
     ("ssd_scan", ["ssd_cb<float>", "ssd_cb<__nv_bfloat16>",
                   "ssd_chunk_state<float>", "ssd_chunk_state<__nv_bfloat16>",
-                  "ssd_chunk_scan<float>", "ssd_chunk_scan<__nv_bfloat16>"]),
-])
-def test_kernels_run_on_the_tensor_cores(card, kernel, functions):
+                  "ssd_chunk_scan<float>", "ssd_chunk_scan<__nv_bfloat16>"],
+     ("HMMA", "HGMMA")),
+], ids=["flash_gqa", "flash_gqa-wgmma", "ssd_scan"])
+def test_kernels_run_on_the_tensor_cores(card, kernel, functions, kinds):
     """The built library's SASS holds HMMA (or HGMMA) instructions in every
-    function that computes a product."""
+    function that computes a product; the (256, 256) body's, wgmma's
+    HGMMA."""
     from repro_torch.kernels import _build
-    ops = _build.tensor_core_ops(kernel)
+    ops = _build.tensor_core_ops(kernel, kinds=kinds)
     if ops is None:
         pytest.skip("cuobjdump not found")
     for f in functions:
-        got = [n for k, n in ops.items() if k.startswith(f"void {f}(")]
+        # a template's demangled name carries its return type
+        got = [n for k, n in ops.items() if k.startswith((f"void {f}(",
+                                                          f"{f}("))]
         assert got and all(n > 0 for n in got), (f, ops)
 
 
@@ -836,6 +841,14 @@ FLASH_256_CASES = [
     (1, 65, 65, 4, 1, 256, True, 0),
     (2, 130, 130, 4, 2, 256, False, 24),
     (1, 200, 200, 16, 1, 256, False, 0),
+    # the wgmma body's edges: S past a multiple of 64 or 128 (its last kv
+    # tile and its second warpgroup's rows ragged), a window that starts
+    # inside a kv tile, a block whose two warpgroups end 64 rows apart
+    (1, 4097, 4097, 2, 1, 256, True, 0),
+    (2, 130, 130, 4, 2, 256, True, 0),
+    (1, 300, 300, 4, 2, 256, True, 100),
+    (1, 1000, 1000, 6, 3, 256, True, 300),
+    (1, 200, 200, 2, 2, 256, True, 0),
 ]
 FLASH_CROSS_CASES = [
     (4, 64, 1500, 6, 6, 64, False, 0),
@@ -844,6 +857,13 @@ FLASH_CROSS_CASES = [
     (2, 100, 33, 4, 2, 128, False, 0),
     (2, 130, 64, 4, 1, 256, False, 0),
     (1, 7, 200, 16, 4, 16, False, 0),
+    # the split body (Sq <= 16) and the tiled one just above it, against
+    # one key, a ragged split, whisper's frames and more keys than 32
+    # splits of 128
+    *[(2, sq, skv, 6, 6, 64, False, 0) for sq in (1, 2, 16, 17)
+      for skv in (1, 33, 1500, 4097)],
+    (1, 2, 4097, 4, 1, 256, False, 0),
+    (2, 16, 1500, 16, 4, 128, False, 0),
 ]
 
 
@@ -854,11 +874,12 @@ FLASH_CROSS_CASES = [
 def test_flash_gqa_head_dim_256_and_cross_attention(card, B, Sq, Skv, H, Hkv,
                                                     D, causal, window,
                                                     dtype):
-    """Both bodies at head dim 256 (two 128-column halves of the output a
-    (b, h, tile), S recomputed for each) and with Sq != Skv and no mask:
-    2e-5 in f32, 2e-2 in bf16 against attention_ref over k/v gathered by
-    the map; rows past Sq are never written and keys past Skv count for
-    nothing."""
+    """Head dim 256 (bf16: the wgmma body, S once a kv tile for each
+    64-row group; f32: two 128-column halves of the output a (b, h, tile),
+    S recomputed for each) and Sq != Skv with no mask (Sq <= 16: the split
+    body; above: the tiled bodies): 2e-5 in f32, 2e-2 in bf16 against
+    attention_ref over k/v gathered by the map; rows past Sq are never
+    written and keys past Skv count for nothing."""
     dt = getattr(torch, dtype)
     rng = np.random.default_rng(Sq + Skv + D)
     q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
@@ -874,6 +895,90 @@ def test_flash_gqa_head_dim_256_and_cross_attention(card, B, Sq, Skv, H, Hkv,
                          causal=causal, window=window)
     tol = FLASH_TOL[dtype]
     torch.testing.assert_close(o.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,D,causal,kv_head", [
+    (2, 200, 200, 4, 2, 256, True, (1, 0, 0, 1)),
+    (1, 130, 130, 3, 2, 256, True, (1, 1, 0)),
+    (2, 5, 1500, 16, 4, 64, False,
+     (0, 0, 0, 1, 1, 1, 2, 2, 2, 0, 0, 0, 0, 0, 0, 0)),
+])
+def test_flash_gqa_irregular_map_in_the_new_bodies(card, B, Sq, Skv, H, Hkv,
+                                                   D, causal, kv_head,
+                                                   dtype):
+    """An irregular head map (no h // rep; smollm-135m's padded heads read
+    kv head 0) in the wgmma body at head dim 256 and in the split body,
+    whose block gathers every query head of its kv head: 2e-5 in f32, 2e-2
+    in bf16 against attention_ref over k/v gathered by the map."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(Sq + Skv + H)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(card).to(dt) for shape in
+        ((B, Sq, H, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D)))
+    o = FK.flash_gqa(q, k, v, causal=causal, kv_head=kv_head)
+    torch.cuda.synchronize()
+    m = torch.tensor(kv_head, device=card)
+    want = attention_ref(q, k.index_select(2, m), v.index_select(2, m),
+                         causal=causal)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(o.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_gqa_split_body_gives_the_same_bits_every_run(card, dtype):
+    """whisper-tiny's decode cross attention (B 4, 6 heads of 64, one
+    query against 1500 frames) takes the split body with at least one
+    first-pass block an SM, and two calls give the same bits: the merge
+    adds the splits in a fixed order, with no atomics."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(card).to(dt) for shape in
+        ((4, 1, 6, 64), (4, 1500, 6, 64), (4, 1500, 6, 64)))
+    assert FK.body(q.shape, v.shape, dt, causal=False) == "split"
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    n_split, _ = FK.split_plan(4, 1500, 6, sms)
+    assert n_split * 4 * 6 >= sms
+    first = FK.flash_gqa(q, k, v, causal=False)
+    again = FK.flash_gqa(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,D,causal,dtype", [
+    (1, 1, 1500, 6, 6, 64, False, "bfloat16"),
+    (1, 1, 1500, 6, 6, 64, False, "float32"),
+    (1, 128, 128, 4, 1, 256, True, "bfloat16"),
+    (1, 128, 128, 4, 1, 256, True, "float32"),
+    (1, 128, 128, 4, 2, 128, True, "bfloat16"),
+])
+def test_flash_gqa_runs_the_body_it_names(card, B, Sq, Skv, H, Hkv, D,
+                                          causal, dtype):
+    """The CUDA functions a call runs (torch.profiler's kernel names) are
+    those of the body ``flash_gqa.body`` names for its shapes."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.zeros(shape, device=card, dtype=dt) for shape in
+               ((B, Sq, H, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D)))
+    FK.flash_gqa(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        FK.flash_gqa(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+    ran = {e.key for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA}
+    which = FK.body(q.shape, v.shape, dt, causal=causal)
+    for fn in FK.BODY_KERNELS[which]:
+        assert any(re.search(rf"(^|\s){fn}[<(]", k) for k in ran), (fn, ran)
+    others = {f for b, fns in FK.BODY_KERNELS.items() if b != which
+              for f in fns}
+    assert not any(re.search(rf"(^|\s){f}[<(]", k) for k in ran
+                   for f in others), ran
 
 
 @pytest.mark.cuda

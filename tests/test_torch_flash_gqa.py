@@ -12,6 +12,8 @@ CUDA kernel is held against that same function on the card
 Tolerances are the reference test's: 2e-5 in f32 (sums in another order),
 2e-2 in bf16 (each side rounds its f32 result to bf16 once)."""
 import math
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -437,10 +439,12 @@ def test_head_dim_256_matches_pallas_kernel(B, S, window, dtype):
 def test_bf16_mma_plan_meets_card_tolerance_at_new_shapes(B, S, H, Hkv, D,
                                                            causal, window,
                                                            Sq):
-    """The bf16 body's precision plan at head dim 256 (whose output the
-    kernel computes in two 128-column halves from one S) and at whisper's
-    cross attention (Sq queries against S = Skv keys, no mask), within the
-    card's bf16 tolerance (2e-2) of attention_ref."""
+    """The bf16 tiled bodies' precision plan (S once a tile of 64 keys, P
+    rounded to bf16 before P.V) at head dim 256, the wgmma body's, and at
+    whisper's cross attention (Sq queries against S = Skv keys, no mask),
+    which the mma body takes at Sq = 64 and would at Sq = 1 without the
+    split body (whose plan ``test_split_plan_meets_card_tolerance``
+    holds), within the card's bf16 tolerance (2e-2) of attention_ref."""
     q, k, v = (torch.from_numpy(a).bfloat16()
                for a in _inputs(B, Sq or S, S, H, Hkv, D, S + H))
     kv_head = tuple(h // (H // Hkv) for h in range(H))
@@ -465,3 +469,144 @@ def _mma_plan_sq(q, k, v, *, causal, window, kv_head):
     qp = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, Skv - Sq))
     return _mma_plan(qp, k, v, causal=False, window=0,
                      kv_head=kv_head)[:, :Sq]
+
+
+# ------------------------------------------- the bodies and the split plan
+BF, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("q_shape,v_shape,dtype,causal,window,want", [
+    # whisper's cross attention at a decode step, and at the prefill
+    ((4, 1, 6, 64), (4, 1500, 6, 64), BF, False, 0, "split"),
+    ((4, 1, 6, 64), (4, 1500, 6, 64), F32, False, 0, "split"),
+    ((4, 16, 6, 64), (4, 1500, 6, 64), BF, False, 0, "split"),
+    ((4, 17, 6, 64), (4, 1500, 6, 64), BF, False, 0, "mma"),
+    ((4, 64, 6, 64), (4, 1500, 6, 64), F32, False, 0, "fma"),
+    # recurrentgemma-9b's prefill, its window, a one-row causal call
+    ((4, 512, 16, 256), (4, 512, 1, 256), BF, True, 0, "wgmma"),
+    ((1, 4096, 16, 256), (1, 4096, 1, 256), BF, True, 2048, "wgmma"),
+    ((4, 512, 16, 256), (4, 512, 1, 256), F32, True, 0, "fma"),
+    ((1, 1, 2, 256), (1, 1, 1, 256), BF, True, 0, "wgmma"),
+    ((1, 1, 2, 256), (1, 1, 1, 256), BF, False, 0, "split"),
+    # a mask keeps the tiled bodies at any Sq; MLA's pair; too many heads
+    # or keys for the split body
+    ((2, 8, 4, 64), (2, 8, 2, 64), BF, False, 4, "mma"),
+    ((2, 8, 4, 192), (2, 8, 4, 128), BF, True, 0, "mma"),
+    ((2, 4, 4, 192), (2, 30, 4, 128), BF, False, 0, "split"),
+    ((1, 1, 257, 64), (1, 100, 1, 64), BF, False, 0, "mma"),
+    ((1, 1, 8, 64), (1, 16385, 1, 64), BF, False, 0, "mma"),
+    ((1, 1, 8, 64), (1, 16384, 1, 64), F32, False, 0, "split"),
+])
+def test_body_by_shape(q_shape, v_shape, dtype, causal, window, want):
+    """The body a call takes (csrc/flash_gqa.cu picks the same): the split
+    body with no mask and at most SPLIT_MAX_SQ query rows, heads and keys
+    within its limits, in either dtype; else wgmma for bf16 at (256, 256),
+    mma for bf16 at the other pairs and fma for f32."""
+    assert K.body(q_shape, v_shape, dtype, causal=causal,
+                  window=window) == want
+    assert want in K.BODY_KERNELS
+
+
+@pytest.mark.parametrize("B,Skv,Hkv,sms,want", [
+    (4, 1500, 6, 132, (12, 125)),      # whisper-tiny's decode: 288 blocks
+    (1, 1, 1, 132, (1, 1)),
+    (2, 33, 2, 132, (2, 17)),          # at most ceil(Skv / 32) splits
+    (4, 4097, 6, 132, (33, 125)),      # at most 128 keys a split
+    (1, 16384, 1, 132, (128, 128)),    # at most 128 splits
+    (64, 1500, 8, 132, (12, 125)),
+    (1, 1500, 1, 8, (16, 94)),
+])
+def test_split_plan(B, Skv, Hkv, sms, want):
+    """The split count and keys a split: about two first-pass blocks an SM
+    where Skv allows, at most 128 keys a split (a key a thread of the first
+    pass), at most ceil(Skv / 32) and at most 128 splits, no split empty;
+    at whisper's decode on an H100's 132 SMs at least 132 blocks."""
+    n, keys = K.split_plan(B, Skv, Hkv, sms)
+    assert (n, keys) == want
+    assert (n - 1) * keys < Skv <= n * keys
+    assert keys <= K.SPLIT_MAX_KEYS and n <= K.SPLIT_MAX_SPLITS
+    assert n <= -(-Skv // K.SPLIT_MIN_KEYS)
+    if (B, Skv, Hkv, sms) == (4, 1500, 6, 132):
+        assert n * B * Hkv >= sms
+
+
+@pytest.mark.parametrize("q_shape,v_shape,n_split,want", [
+    ((4, 1, 6, 64), (4, 1500, 6, 64), 12, 4 * 6 * 12 * 66),
+    ((2, 16, 8, 192), (2, 30, 4, 128), 1, 2 * 16 * 8 * 130),
+])
+def test_split_scratch_numel(q_shape, v_shape, n_split, want):
+    """The split body's f32 scratch: each query row's partial o [Dv], m
+    and l for each split."""
+    assert K.split_scratch_numel(q_shape, v_shape, n_split) == want
+
+
+def test_split_limits_match_the_source():
+    """The wrapper's limits of the split body are the source's: a call
+    the wrapper splits is one the C entry takes."""
+    src = (Path(K.__file__).parent / "csrc" / "flash_gqa.cu").read_text()
+    defines = dict(re.findall(r"#define (FS_\w+) (\d+)", src))
+    assert int(defines["FS_MAX_SQ"]) == K.SPLIT_MAX_SQ
+    assert int(defines["FS_MAX_H"]) == K.SPLIT_MAX_H
+    assert int(defines["FS_MAX_CH"]) == K.SPLIT_MAX_KEYS
+    assert int(defines["FS_THREADS"]) >= K.SPLIT_MAX_KEYS
+
+
+def _split_plan(q, k, v, *, kv_head, sms=132):
+    """The split body's arithmetic (flash_gqa.cu, flash_gqa_split and
+    flash_gqa_merge) in PyTorch on the CPU: every split's f32 scores in
+    the log2 domain, its max m, p = 2^(s - m), l and the unnormalized o =
+    p.v in f32; then each row's splits merged in split order, o = sum(w o)
+    / sum(w l) with w = 2^(m - max m), rounded to q's dtype once. A test
+    helper, not the port's plain version."""
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    n, keys = K.split_plan(B, Skv, Hkv, sms)
+    m_idx = torch.tensor(kv_head)
+    qf = q.float().transpose(1, 2) * (math.log2(math.e) / math.sqrt(D))
+    kf = k.index_select(2, m_idx).float().transpose(1, 2)
+    vf = v.index_select(2, m_idx).float().transpose(1, 2)
+    ms, ls, os_ = [], [], []
+    for c0 in range(0, Skv, keys):
+        s = qf @ kf[:, :, c0:c0 + keys].transpose(-1, -2)
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp2(s - m)
+        ms.append(m)
+        ls.append(p.sum(-1, keepdim=True))
+        os_.append(p @ vf[:, :, c0:c0 + keys])
+    assert len(ms) == n
+    mx = torch.stack(ms).amax(0)
+    l = torch.zeros_like(mx)
+    o = torch.zeros_like(os_[0])
+    for m, ll, oo in zip(ms, ls, os_):
+        w = torch.exp2(m - mx)
+        l = l + w * ll
+        o = o + w * oo
+    return (o / l.clamp_min(1e-30)).transpose(1, 2).to(q.dtype)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,D,kv_head", [
+    (4, 1, 1500, 6, 6, 64, None),       # whisper-tiny's decode
+    (2, 16, 1500, 6, 6, 64, None),
+    (2, 3, 4097, 4, 2, 128, None),
+    (1, 2, 33, 4, 1, 256, None),
+    (1, 1, 1, 2, 1, 256, None),
+    (2, 5, 200, 16, 4, 64, (0, 0, 0, 1, 1, 1, 2, 2, 2, 0, 0, 0, 0, 0, 0, 0)),
+])
+def test_split_plan_meets_card_tolerance(B, Sq, Skv, H, Hkv, D, kv_head,
+                                         dtype):
+    """The split body's plan, repeated on the CPU, within the card's
+    tolerance (2e-5 in f32, 2e-2 in bf16) of attention_ref, at whisper's
+    decode, ragged splits, a single key and smollm-135m's padded map."""
+    _, tdt, tol = DTYPES[dtype]
+    q, k, v = (torch.from_numpy(a).to(tdt)
+               for a in _inputs(B, Sq, Skv, H, Hkv, D, Sq + Skv))
+    kv_head = kv_head or tuple(h // (H // Hkv) for h in range(H))
+    assert K.body(q.shape, v.shape, tdt, causal=False) == "split"
+    got = _split_plan(q, k, v, kv_head=kv_head)
+    m = torch.tensor(kv_head)
+    want = attention_ref(q, k.index_select(2, m), v.index_select(2, m),
+                         causal=False)
+    assert got.dtype == tdt and bool(torch.isfinite(got.float()).all())
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
