@@ -85,9 +85,16 @@ Phases, each printing its own lines and seconds:
      an explicit mask, k and v expanded beforehand under a padded head
      map, timed as a yardstick only, and the kernels it ran, which name
      its backend) and bound times at every main shape; each record names
-     the body that ran (split for the one-query cross attention, wgmma
-     for head dim 256 in bf16, mma for bf16 otherwise, fma for f32; the
-     kernels line lists each body's CUDA functions);
+     the body that ran (wgmma in bf16 at (64, 64), (192, 128) and (256,
+     256), with its kv splits where it has no mask: the encoder's items
+     past its first wave of blocks and the cross attention of 64 queries
+     and of one split; split for the one-query cross attention in f32; mma
+     for bf16 at (16, 16), (32, 32) and (128, 128); fma for f32), held
+     against the CUDA functions a CUDA graph of the call holds, as the
+     driver recorded them, and those the source's dispatch says it
+     launched (the kernels line lists each body's); with no mask q is
+     drawn at 3 times the unit scale, so that the outputs are O(1), and
+     every case checks that its tolerance fails an output 10 % off;
  10a. grad: a dense smoke layer's wq/wk/wv gradients through flash_gqa
      (one launch forward, none backward) against the CPU's, f32;
  11. dense serve phase, after the Mamba weights are released: the serve
@@ -202,6 +209,7 @@ from repro_torch.core.engine import make_engine, oracle, run_query  # noqa
 from repro_torch.core.session import QuerySpec, Session  # noqa: E402
 from repro_torch.faults.journal import Journal  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels._graph import launched_functions  # noqa: E402
 from repro_torch.kernels.flash_gqa import flash_gqa as FK  # noqa: E402
 from repro_torch.kernels.flash_gqa import ops as FLASH_OPS  # noqa: E402
 from repro_torch.kernels.flash_gqa.ref import attention_ref  # noqa: E402
@@ -1468,10 +1476,12 @@ def moe_dispatch_phase(dev) -> list[dict]:
 
 
 # ------------------------------------------------------------ flash kernel
-def flash_inputs(B, S, H, Hkv, D, seed, dev, dtype, Dv=None, Sq=None):
-    """q [B, Sq (default S), H, D], k [B, S, Hkv, D], v [B, S, Hkv, Dv]."""
+def flash_inputs(B, S, H, Hkv, D, seed, dev, dtype, Dv=None, Sq=None,
+                 q_scale=1.0):
+    """q [B, Sq (default S), H, D] at ``q_scale`` times the unit normal,
+    k [B, S, Hkv, D], v [B, S, Hkv, Dv]."""
     rng = np.random.default_rng(seed)
-    arrs = (rng.standard_normal((B, Sq or S, H, D)),
+    arrs = (q_scale * rng.standard_normal((B, Sq or S, H, D)),
             rng.standard_normal((B, S, Hkv, D)),
             rng.standard_normal((B, S, Hkv, Dv or D)))
     return [torch.from_numpy(a.astype(np.float32)).to(dev).to(dtype)
@@ -1482,13 +1492,22 @@ def flash_case(shape, dev, dtype, timed=False, dv=None, sq=None) -> dict:
     """Kernel vs plain on the card: |o - want| <= tol + tol * |want|, tol
     2e-5 in f32, 2e-2 in bf16 (the Pallas kernel test's); ``dv``: v's head
     dim where it is not q's; ``sq``: the queries' length where it is not
-    the keys' (no mask: cross attention). The record names the body that
-    ran (``flash_gqa.body``). Timed, also the library yardstick
+    the keys' (no mask: cross attention; q then at 3 times the unit scale,
+    so that the softmax is sharp and the outputs O(1): at unit scale over
+    1500 keys they are about 0.03, and the tolerance would pass an output
+    10 % off). Each case checks that its tolerance fails an output 10 %
+    off. The record names the body that ran (``flash_gqa.body``), held
+    against the CUDA functions a CUDA graph of the call holds, as the
+    driver recorded them (``kernels/_graph.launched_functions``), and
+    against those the source's dispatch says it launched
+    (``flash_gqa.last_launch``); a wgmma call with no mask, its kv splits.
+    Timed, also the library yardstick
     (``scaled_dot_product_attention`` with ``enable_gqa``, the window as
     an explicit mask) and the kernels it ran (which name its backend)."""
     B, S, H, Hkv, D, causal, window, kv_head = shape
     Sq = sq or S
-    q, k, v = flash_inputs(B, S, H, Hkv, D, S + H, dev, dtype, dv, Sq)
+    q, k, v = flash_inputs(B, S, H, Hkv, D, S + H, dev, dtype, dv, Sq,
+                           1.0 if causal or window else 3.0)
     m = torch.tensor(kv_head if kv_head is not None
                      else [h // (H // Hkv) for h in range(H)], device=dev)
 
@@ -1502,6 +1521,8 @@ def flash_case(shape, dev, dtype, timed=False, dv=None, sq=None) -> dict:
 
     o = kernel()
     torch.cuda.synchronize()
+    ran = FK.last_launch()
+    graph = launched_functions(kernel)
     want = plain()
     tol = FLASH_TOL[dtype]
     label = (f"{shape[:7]}{f' Sq={sq}' if sq else ''}"
@@ -1512,9 +1533,26 @@ def flash_case(shape, dev, dtype, timed=False, dv=None, sq=None) -> dict:
     check(bool(((o.float() - want.float()).abs()
                 <= tol + tol * want.float().abs()).all()),
           f"flash {label}: differs from the plain version by {err}")
+    check(bool((0.1 * want.float().abs()
+                > tol + tol * want.float().abs()).any()),
+          f"flash {label}: the tolerance would pass an output 10 % off")
     rec = {"case": label, "max_abs_err": err,
            "body": FK.body(q.shape, v.shape, dtype, causal=causal,
-                           window=window)}
+                           window=window), "cuda_functions": graph}
+    body_fns = FK.BODY_KERNELS[rec["body"]]
+    check(ran[:1] == body_fns[:1] and set(ran) <= set(body_fns),
+          f"flash {label}: the dispatch launched {ran}, not the "
+          f"{rec['body']} body's {body_fns}")
+    check(sorted(graph) == sorted(ran),
+          f"flash {label}: a CUDA graph of the call holds {graph}, the "
+          f"dispatch says it launched {ran}")
+    if rec["body"] == "wgmma" and not causal and not window:
+        # a wgmma call's kv split: the items run whole and the splits of
+        # the others (those past its last full wave of blocks)
+        whole, n_split, _ = FK.wgmma_split_plan(
+            q.shape, v.shape, torch.cuda.get_device_properties(
+                dev).multi_processor_count)
+        rec.update(whole_items=whole, kv_splits=n_split)
     if timed:
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         if kv_head is not None:

@@ -20,42 +20,55 @@
 // v 128), whose pair the Pallas kernel cannot take (its wrapper pads v
 // with q's padding).
 //
-// Which body a call takes (flash_gqa below picks by shape; the wrapper's
-// flash_gqa.body says the same in Python):
-//   split  no mask, Sq <= FS_MAX_SQ (16) and H <= FS_MAX_H, either dtype,
-//          when the wrapper passes n_split > 0 (it does for Skv up to 128
-//          splits of 128 keys): whisper's cross attention at a decode step;
-//   wgmma  bf16 at (256, 256): recurrentgemma-9b's local attention;
-//   mma    bf16 at the other pairs;
+// Which body a call takes (the wrapper's flash_gqa.body picks by shape,
+// with its split plan, and passes both to flash_gqa below):
+//   wgmma  bf16 at (64, 64), (192, 128) and (256, 256), any mask and Sq:
+//          whisper's encoder and its cross attention, smollm-135m's train
+//          path, MLA's prefill (deepseek-v2-lite), recurrentgemma-9b's
+//          local attention; with no mask it splits Skv for the blocks
+//          past its last full wave (at Sq <= 16 it beat the split body
+//          on an H100: 0.0092-0.0096 ms against 0.0102-0.0206 at
+//          whisper's decode shapes, launch/bench_flash.py);
+//   split  any other call with no mask, Sq <= FS_MAX_SQ (16), H <=
+//          FS_MAX_H and Skv <= FS_MAX_CH * FS_MAX_SPLITS: whisper's cross
+//          attention at a decode step in f32;
+//   mma    bf16 at (16, 16), (32, 32) and (128, 128) (glm4-9b's prefill);
 //   fma    f32 at every pair.
 //
-// Shared by the mma and fma bodies. The TPU grid's sequential kv axis is a
-// loop inside one block of 128 threads per (b, h, 64 query rows, DVB
-// output columns), with m, l and the accumulator in registers for the
-// whole row range. DVB is DV up to 128; at DV = 256 (f32 only now) each
-// block computes one 128-column half of O and recomputes S = Q.K^T in
-// full, so a pair costs 2 * 2 * 256 FLOP of S and 2 * 2 * 128 of P.V:
-// 1.5 times the function's 2 * (256 + 256). (The bf16 body at (256, 256)
-// did the same until the wgmma body replaced it.)
-// Blocks are numbered so that the last query tiles, which see the most
-// keys under the causal mask, start first (with no mask every tile has
-// the same work and the order does not matter), and consecutive blocks
-// share a kv head, whose tiles then come from L2. The head repeat of the
-// reference wrapper is never built: a block reads its kv head through
-// kv_head, which is irregular when heads are padded (padded query heads
-// read kv head 0), so no h / rep is assumed. Only the kv tiles of 64 rows
-// that hold an unmasked key for some row of the block are visited: those
-// wholly above the diagonal or wholly before the window are skipped,
-// which leaves m, l and the accumulator exactly as a fully masked tile
-// would. Masked scores are -inf, and a row whose keys are all masked so
-// far keeps m = -inf, l = 0 and a zero accumulator (the reference's -1e30
-// gives the same output once the row meets an unmasked key, which every
-// row does: its own position, or with no mask any key). Query rows past
-// Sq and keys past Skv are zero-filled on load; keys past Skv are masked,
-// and rows past Sq are never stored.
+// Shared by the tiled bodies (fma, mma, wgmma). The TPU grid's
+// sequential kv axis is a loop inside one block, with m, l and the
+// accumulator in registers for the block's query rows. Blocks are
+// numbered so that the last query tiles, which see the most keys under
+// the causal mask, start first (with no mask every tile has the same work
+// and the order does not matter), and consecutive blocks share a kv head,
+// whose tiles then come from L2. The head repeat of the reference wrapper
+// is never built: a block reads its kv head through kv_head, which is
+// irregular when heads are padded (smollm-135m's padded query heads read
+// kv head 0), so no h / rep is assumed. Only the kv tiles that hold an
+// unmasked key for some row of the block are visited: those wholly above
+// the diagonal or wholly before the window are skipped, which leaves m, l
+// and the accumulator exactly as a fully masked tile would. Masked scores
+// are -inf, and a row whose keys are all masked so far keeps m = -inf, l
+// = 0 and a zero accumulator (the reference's -1e30 gives the same output
+// once the row meets an unmasked key, which every row does: its own
+// position, or with no mask any key). Query rows past Sq and keys past
+// Skv are zero-filled on load; keys past Skv are masked, and rows past Sq
+// are never stored.
 //
-// mma body (flash_gqa_fwd_mma, bf16 up to D = 192): FA2-style on the
-// tensor cores. Each of the 4 warps owns 16 query rows. Per kv tile:
+// fma body (flash_gqa_fwd): f32 FMA from shared memory, as the tests hold
+// f32 to 2e-5, which TF32 (about three digits) cannot meet. A block of 128
+// threads per (b, h, 64 query rows, DVB output columns), DVB = DV up to
+// 128; at DV = 256 each block computes one 128-column half of O and
+// recomputes S = Q.K^T in full, so a pair costs 2 * 2 * 256 FLOP of S and
+// 2 * 2 * 128 of P.V: 1.5 times the function's 2 * (256 + 256). K^T and
+// V by plain loads (K transposed on the way), each thread a 4x8 score
+// tile and a 4 x DVB/8 output tile, P through shared memory; 98 KB, two
+// blocks an SM at D = 128; 134 KB, one block an SM, at (192, 128); 164 KB
+// at (256, 256).
+//
+// mma body (flash_gqa_fwd_mma, bf16 at D <= 128): FA2-style on the tensor
+// cores, a block of 128 threads per (b, h, 64 query rows); each of the 4
+// warps owns 16 query rows. Per kv tile of 64 rows:
 //   1. S = Q.K^T by mma.sync.m16n8k16 bf16 -> f32: Q's A fragments are
 //      loaded once by ldmatrix and kept in registers (D/4 registers), K's
 //      B fragments by ldmatrix from the tile in shared memory;
@@ -66,77 +79,97 @@
 //   3. O += P.V by mma.sync.m16n8k16: the accumulator fragment of S is the
 //      A fragment of P once rounded to bf16 (no trip through shared
 //      memory); V's B fragments by ldmatrix.trans.
-// At D = 192 Q's fragments would take 48 registers a thread on top of the
-// 64 of the [16 x 128] accumulator and the 32 of S (the D = 128 build
-// already uses about 204), so above D = 128 they are not kept: each k-step
-// loads its fragment from the Q tile in shared memory by ldmatrix.
 // K and V tiles come in by cp.async (16 bytes a thread, zero-filled past
 // Skv) into a ring of two stages: tile t+1 loads while tile t is
 // computed, one __syncthreads a tile. Rows of shared memory are D + 8
 // elements, so the 8 rows an ldmatrix reads fall in distinct banks.
-// Shared memory: ((64 + 2 * 64) * (D + 8) + 2 * 64 * (DV + 8)) * 2 bytes:
-// 87,040 at D = DV = 128 and 111,616 at (192, 128), two blocks an SM.
-// fma body (flash_gqa_fwd): f32 FMA from shared memory, as the tests hold
-// f32 to 2e-5, which TF32 (about three digits) cannot meet: K^T and V by
-// plain loads (K transposed on the way), each thread a 4x8 score tile and
-// a 4 x DVB/8 output tile, P through shared memory; 98 KB, two blocks an
-// SM at D = 128; 134 KB, one block an SM, at (192, 128); 164 KB at
-// (256, 256) with the 128-column halves of O.
+// Shared memory: ((64 + 2 * 64) * (D + 8) + 2 * 64 * (DV + 8)) * 2 bytes,
+// 87,040 at D = DV = 128: two blocks an SM.
 //
-// wgmma body (flash_gqa_fwd_wgmma, bf16 at (256, 256)): FA3's shape on
-// wgmma with TMA. A block of 256 threads takes 128 query rows of one
-// (b, h): consumer warpgroup c (4 warps) owns rows q0 + 64 c .. + 63.
-//   - Q [128 x 256] comes once by TMA (a 4-D map (column, head, row,
-//     batch), boxes of 64 columns x 64 rows, 128-byte swizzle, zeros past
-//     Sq); K and V tiles of 64 rows the same way into two-stage rings, K
-//     and V each with a full and an empty mbarrier a stage.
-//   - S = Q.K^T once for each (64-row group, kv tile): 16 wgmma
-//     m64n64k16 with both operands in shared memory (K-major, descriptors
-//     of the 128-byte swizzle), into 32 f32 registers a thread.
+// wgmma body (flash_gqa_fwd_wgmma<D, DV>, bf16 at (64, 64), (192, 128)
+// and (256, 256)): FA3's shape on wgmma with TMA. A block of 256 threads
+// takes an item, 128 query rows of one (b, h): consumer warpgroup c (4
+// warps) owns rows q0 + 64 c .. + 63.
+//   - Q [128 x D] comes once by TMA (a 4-D map (column, head, row, batch),
+//     boxes of 64 columns x 128 rows, 128-byte swizzle, zeros past Sq); K
+//     and V tiles of BK rows the same way into rings of two stages, K and
+//     V each with a full and an empty mbarrier a stage.
+//   - S = Q.K^T once for each (64-row group, kv tile): D / 16 wgmma
+//     m64nBKk16 with both operands in shared memory (K-major, descriptors
+//     of the 128-byte swizzle), into BK / 2 f32 registers a thread.
 //   - Softmax on the accumulator fragments in the log2 domain: p =
 //     2^(s c - m c), c = scale * log2 e, one FFMA and one ex2.approx a
-//     score; masks only on the tiles that need them.
-//   - O += P.V by 4 wgmma m64n256k16: P rounded to bf16 stays in registers
-//     as the A operand (the fragment layout of S's accumulator), V [64 x
-//     256] from shared memory, MN-major through the transpose bit. O
-//     [64 x 256] f32 is 128 registers a thread.
+//     score; masks only on the tiles that need them, as a range of
+//     columns a row (two compares a score).
+//   - O += P.V by BK / 16 wgmma m64nDVk16: P rounded to bf16 stays in
+//     registers as the A operand (the fragment layout of S's
+//     accumulator), V [BK x DV] from shared memory, MN-major through the
+//     transpose bit. O [64 x DV] f32 is DV / 2 registers a thread.
 //   - Per tile i, S of tile i + 1 is issued before P.V of tile i, and the
 //     softmax of tile i + 1 runs while P.V of tile i does (FA3's overlap
-//     within a warpgroup); the two warpgroups overlap each other too.
+//     within a warpgroup); the two warpgroups overlap each other too. O is
+//     rescaled only while no product is in flight, and the last tile's
+//     P.V is peeled off the loop: with a branch or an O update between a
+//     product and its wait, ptxas serialized every wgmma (its C7515 note,
+//     at every pair; PERF.md has the times with and without).
 //   - Each warpgroup has its own diagonal (its rows end 64 apart): the
 //     block loads the union of the two ranges of tiles, and a warpgroup
 //     waits for and releases a tile it does not compute, so the rings
 //     stay in step; the window's first tiles differ the same way.
-//   - Thread 0 issues every TMA load: Q and tiles 0 and 1 first, then
-//     tile j + 2's K (V) into tile j's stage once both warpgroups have
-//     released tile j's K (V). There is no producer warp: with one beside
-//     the consumers (288 or 384 threads) ptxas allocates at most 168
-//     registers a thread whatever setmaxnreg asks, and spills O, S and P,
-//     which together need more (ptxas reports the 256-thread build's
-//     count, printed by chip_smoke.py). The warpgroup index goes through
-//     a shuffle so that ptxas
-//     treats branches on it as warp-uniform and does not serialize the
-//     products (its C7518 note).
+//   - Thread 0 issues every TMA load: Q and the first two tiles first,
+//     then tile j + 2's K (V) into tile j's stage once both warpgroups
+//     have released tile j's K (V). There is no producer warp: with one
+//     beside the consumers (288 or 384 threads) ptxas allocates at most
+//     168 registers a thread at (256, 256), and spills O, S and P; at
+//     (64, 64) two blocks of 288 threads an SM would leave 113 registers
+//     a thread, under the 118 the body uses. The
+//     warpgroup index goes through a shuffle so that ptxas treats
+//     branches on it as warp-uniform and does not serialize the products
+//     (its C7518 note).
 //   - O / l is rounded to bf16 and staged through the warpgroup's own
-//     rows of the Q tile (16-byte chunks XOR-swizzled by row), then
-//     stored 512 contiguous bytes a warp.
-//   Shared memory: 64 KB of Q + 2 x (32 + 32) KB of K and V, mbarriers,
-//   and 1 KB to align to the swizzle: 197,760 bytes, one block an SM.
-//   Tried and not kept: two heads that share a kv head packed into a block
-//   (both warpgroups on the same tiles: barely faster, for one more C
-//   argument), the warpgroups taking turns at the tensor cores by named
-//   barriers (slower), rescaling O only when a row's max moved (no
-//   faster).
+//     rows of the Q tile (16-byte chunks XOR-swizzled by row; D >= DV),
+//     then stored 16 bytes a thread, rows of DV * 2 bytes.
+//   Tile plans (FwTile), shared memory and ptxas registers (no spills):
+//     (64, 64)    BK 64, two blocks an SM: 16 KB of Q + 2 x (8 + 8) KB of
+//                 K and V, 50,248 bytes; 118 registers;
+//     (192, 128)  BK 128, one block an SM: 48 KB of Q + 2 x (48 + 32) KB,
+//                 214,088 bytes; 204 registers;
+//     (256, 256)  BK 64, one block an SM: 64 KB of Q + 2 x (32 + 32) KB,
+//                 197,704 bytes; 224 registers.
+//   Timed and not kept (launch/bench_flash.py, before the loop was
+//   peeled; PERF.md): at (64, 64) four stages, kv tiles of 128 rows (165
+//   registers, one block an SM) and one block an SM were all within 3 %
+//   of the plan above at the encoder; at (192, 128) kv tiles of 64 rows
+//   (150 registers) were 6 % slower. Tried earlier at (256, 256) and
+//   not kept either: the warpgroups taking turns at the tensor cores
+//   by named barriers (slower), two heads that share a kv head packed
+//   into a block (barely faster), rescaling O only when a row's max moved
+//   (no faster).
+//   Items and splits. Blocks run in waves of MINB an SM; whisper's
+//   encoder (B = 4, 1500 rows, 6 heads) has 288 items for 264 places,
+//   and its last 24 items ran alone after the first wave, which made it
+//   half again as slow as the same items at a head count that fills one
+//   wave exactly (PERF.md). In a call with no mask (the only kind whose
+//   items all cost the same), the items past the last full wave, where
+//   they fill at most half a wave, are split over Skv (the wrapper's
+//   wgmma_split_plan decides which items and into how many splits, and
+//   the launch takes both as given): each of their blocks takes a run of
+//   whole kv tiles and writes the run's unnormalized (m, l, o) in f32, and
+//   flash_gqa_merge_tiles adds each row's runs in order, with no atomics.
+//   The encoder runs 264 items whole and 24 in 8 splits of 192 keys;
+//   cross attention at the prefill (Sq = 64: 24 items) all in 8 splits.
 //   Work at recurrentgemma-9b's prefill (B=4, S=512, 16 heads over 1,
 //   causal): each 64-row group g = 0..7 of a head visits g + 1 tiles,
 //   147,456 (query, key) pairs a head, so the body does 2 * (256 + 256) *
 //   147,456 * 64 = 9.66 GFLOP: ops.work's 8.61 GFLOP plus the masked
-//   halves of the 8 diagonal tiles (2,016 pairs each). The two-halves
-//   body before it did 1.5 times as much, 14.5 GFLOP.
+//   halves of the 8 diagonal tiles. At MLA's prefill (BK 128) group g
+//   visits g / 2 + 1 tiles: 163,840 pairs a head, 6.71 GFLOP for ops.work's
+//   5.38.
 //
-// split body (flash_gqa_split + flash_gqa_merge, no mask, Sq <= 16): at
-// whisper's decode a tiled block would compute 64 query rows to use one,
-// and B * H = 24 blocks would hold 132 SMs. Instead:
+// split body (flash_gqa_split + flash_gqa_merge, no mask, Sq <= 16, but
+// bf16 at the wgmma body's pairs): at whisper's decode in f32 a tiled
+// block would compute 64 query rows to use one, and B * H = 24 blocks
+// would hold 132 SMs. Instead:
 //   - first pass, grid (split, kv head, b): a block of 128 threads takes
 //     ceil(Skv / n_split) <= 128 keys of its kv head and every query row
 //     (i, h) whose head maps to it (up to 16 rows a pass), so it reads its
@@ -152,29 +185,36 @@
 //   The wrapper picks n_split for about two first-pass blocks an SM:
 //   whisper's decode (B = 4, 6 heads over 6, Skv = 1500) has 12 splits of
 //   125 keys, 288 blocks. The call is bound by its bytes (k and v read
-//   once, 2.3 MB in bf16 at that shape); its time is mostly the two
+//   once, 18.4 MB in f32 at that shape); its time is mostly the two
 //   launches' fixed cost.
 //
-// Bounds. At the dense serve path's shape (B=4, S=512, H=32, Hkv=2,
-// D=128, causal) the function needs, over the causal triangle (512*513/2
-// = 131,328 pairs a head), 2 products of 2*128 FLOP a pair for 128
-// (b, h): 8.61 GFLOP; it moves q and o (33.6 MB in bf16) and k and v
-// (2.1 MB). In bf16 that is 0.0107 ms of memory at 3.35 TB/s (8.61 GFLOP
-// take 0.0087 ms at 989 TFLOP/s); in f32 0.129 ms of f32 FMA at 67
-// TFLOP/s, above its 0.021 ms of memory. MLA prefill (deepseek-v2-lite:
-// B=4, S=512, H=Hkv=16, D=192, DV=128, causal): 5.38 GFLOP; 41.9 MB in
-// bf16, 0.0125 ms at 3.35 TB/s, against 0.0054 ms for the FLOP.
-// recurrentgemma-9b prefill (B=4, S=512, 16 heads over 1, D = DV = 256,
-// causal): 8.61 GFLOP, 0.0087 ms at 989 TFLOP/s, under its 35.7 MB of q,
-// k, v and o (0.0107 ms); at 4096 tokens with its window of 2048, 103.1
-// GFLOP, 0.1042 ms, bound by operations. whisper-tiny's cross attention
-// (6 heads of 64, no mask, 1500 frames): bound by the k and v it reads.
+// Bounds (ops.work: the pairs the masks leave, each input read once and
+// each output written once). The dense serve path's shape (B=4, S=512,
+// H=32, Hkv=2, D=128, causal) needs, over the causal triangle (512*513/2 =
+// 131,328 pairs a head), 2 products of 2*128 FLOP a pair for 128 (b, h):
+// 8.61 GFLOP; it moves q and o (33.6 MB in bf16) and k and v (2.1 MB). In
+// bf16 that is 0.0107 ms of memory at 3.35 TB/s (8.61 GFLOP take 0.0087 ms
+// at 989 TFLOP/s); in f32 0.129 ms of f32 FMA at 67 TFLOP/s, above its
+// 0.021 ms of memory. MLA prefill (deepseek-v2-lite: B=4, S=512, H=Hkv=16,
+// D=192, DV=128, causal): 5.38 GFLOP; 41.9 MB in bf16, 0.0125 ms at 3.35
+// TB/s, against 0.0054 ms for the FLOP. recurrentgemma-9b prefill (B=4,
+// S=512, 16 heads over 1, D = DV = 256, causal): 8.61 GFLOP, 0.0087 ms at
+// 989 TFLOP/s, under its 35.7 MB of q, k, v and o (0.0107 ms); at 4096
+// tokens with its window of 2048, 103.1 GFLOP, 0.1042 ms, bound by
+// operations. whisper-tiny's encoder (B=4, S=1500, 6 heads of 64, no
+// mask): 13.8 GFLOP, 0.0140 ms at 989 TFLOP/s, over its 18.4 MB (0.0055
+// ms); its cross attention (64 queries against 1500 frames): bound by
+// the 9.2 MB of k and v, 0.0029 ms. smollm-135m's train shape (B=4,
+// S=512, 16 padded heads over 4 of 64, causal): 2.15 GFLOP (0.0022 ms)
+// under its 10.5 MB (0.0031 ms).
 // ptxas (-Xptxas=-v, sm_90a): registers, shared memory and spills of each
 // instantiation are printed by chip_smoke.py. Times: PERF.md.
-// Left to do: the mma body (D <= 192) on wgmma and TMA; a persistent
-// wgmma body whose next tile's loads overlap this one's epilogue; K and V
-// tiles multicast to the blocks of heads that share them; the split
-// body's two passes in one launch.
+// Left to do: glm4-9b's (128, 128) on the wgmma body (the mma body's
+// 0.063 ms is 2x cuDNN's time); a persistent wgmma body whose next item's
+// loads overlap this one's epilogue; K and V tiles multicast to the
+// blocks of heads that share them; the split body's two passes in one
+// launch; at Sq <= 16 a wgmma tile of fewer query rows (its kv split
+// computes 128 rows a block to use one at whisper's decode).
 //
 // Limits: (D, DV) in {(16, 16), (32, 32), (64, 64), (128, 128), (192,
 // 128), (256, 256)}; Sq, Skv >= 1; Sq == Skv unless causal == 0 and
@@ -510,7 +550,7 @@ flash_gqa_fwd_mma(const __nv_bfloat16* __restrict__ q,
   constexpr int KS = D / 16;                    // k-steps of Q.K^T
   constexpr int NO = DVB / 8;                   // n-tiles of O
   constexpr int NS = FA_BK / 8;                 // n-tiles of S
-  constexpr bool QREG = D <= 128;               // Q's fragments in registers
+  static_assert(D <= 128, "Q's fragments stay in registers");
   extern __shared__ __align__(16) __nv_bfloat16 smb[];
   __nv_bfloat16* Qs = smb;                      // [64][LD]
   __nv_bfloat16* Ks = Qs + FA_BQ * LD;          // [2][64][LD]
@@ -543,7 +583,7 @@ flash_gqa_fwd_mma(const __nv_bfloat16* __restrict__ q,
 
   // rows of this thread: r0 (fragment rows 0-7) and r0 + 8
   const int r0 = q0 + warp * 16 + g;
-  uint32_t qf[QREG ? KS : 1][4];
+  uint32_t qf[KS][4];
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   float acc[NO][4];
 #pragma unroll
@@ -560,13 +600,11 @@ flash_gqa_fwd_mma(const __nv_bfloat16* __restrict__ q,
       load_tile<DVB>(Vs + st * FA_BK * LDV, vb, vs, row0, Skv, tid);
     }
     cp_async_commit();
-    if constexpr (QREG) {
-      if (it == 0) {
+    if (it == 0) {
 #pragma unroll
-        for (int kk = 0; kk < KS; ++kk)
-          ldsm_x4(qf[kk], smem_addr(Qs + (warp * 16 + (lane & 15)) * LD
-                                    + kk * 16 + (lane >> 4) * 8));
-      }
+      for (int kk = 0; kk < KS; ++kk)
+        ldsm_x4(qf[kk], smem_addr(Qs + (warp * 16 + (lane & 15)) * LD
+                                  + kk * 16 + (lane >> 4) * 8));
     }
     const __nv_bfloat16* Kt = Ks + (it & 1) * FA_BK * LD;
     const __nv_bfloat16* Vt = Vs + (it & 1) * FA_BK * LDV;
@@ -580,10 +618,7 @@ flash_gqa_fwd_mma(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
-      if constexpr (!QREG)      // this k-step's Q fragment from the tile
-        ldsm_x4(qf[0], smem_addr(Qs + (warp * 16 + (lane & 15)) * LD
-                                 + kk * 16 + (lane >> 4) * 8));
-      const uint32_t* qa = qf[QREG ? kk : 0];
+      const uint32_t* qa = qf[kk];
 #pragma unroll
       for (int n = 0; n < NS; n += 2) {
         uint32_t kf[4];
@@ -668,60 +703,89 @@ flash_gqa_fwd_mma(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// ---------------------------------------------- bf16 body at (256, 256)
+// ------------------------- bf16 wgmma body: (64, 64), (192, 128), (256, 256)
 #define FW_BQ 128                   // query rows a block: 2 consumers x 64
-#define FW_BK 64                    // kv rows a tile
-#define FW_D 256
 #define FW_THREADS 256              // 2 consumer warpgroups
 #define FW_BOX 64                   // columns a TMA box (128 bytes)
 #define FW_Q_BOX (FW_BQ * FW_BOX * 2)         // 16,384 bytes
-#define FW_KV_BOX (FW_BK * FW_BOX * 2)        // 8,192 bytes
-#define FW_Q_BYTES (FW_BQ * FW_D * 2)         // 65,536
-#define FW_KV_BYTES (FW_BK * FW_D * 2)        // 32,768: K or V, one stage
-// Q, two stages of K and V, 9 mbarriers, and slack to align to 1024
-#define FW_SMEM (1024 + FW_Q_BYTES + 4 * FW_KV_BYTES + 128)
+#define FW_ST 2                     // stages of the K and V rings
 
-// the kv tiles [lo, hi] holding an unmasked key for some query row of
-// [qa, qa + 64); empty (hi < lo) where the rows start past Sq
+// Each pair's tile plan: kv rows a tile, blocks an SM (the launch bound:
+// 2 caps ptxas at 128 registers)
+template <int D, int DV>
+struct FwTile;
+template <>
+struct FwTile<64, 64> { static constexpr int BK = 64, MINB = 2; };
+template <>
+struct FwTile<192, 128> { static constexpr int BK = 128, MINB = 1; };
+template <>
+struct FwTile<256, 256> { static constexpr int BK = 64, MINB = 1; };
+
+// shared memory and mbarriers of a pair: Q (D / 64 boxes of [128][64]),
+// then FW_ST stages of K (D / 64 boxes of [BK][64]) and of V (DV / 64),
+// then the mbarriers: Q full, and K full, V full, K empty, V empty a stage
+template <int D, int DV>
+struct Fw : FwTile<D, DV> {
+  using FwTile<D, DV>::BK;
+  static constexpr int KV_BOX = BK * FW_BOX * 2;
+  static constexpr int Q_BYTES = D / FW_BOX * FW_Q_BOX;
+  static constexpr int K_BYTES = D / FW_BOX * KV_BOX;     // one stage
+  static constexpr int V_BYTES = DV / FW_BOX * KV_BOX;
+  static constexpr int BAR_OFF = Q_BYTES + FW_ST * (K_BYTES + V_BYTES);
+  // slack to align to the swizzle's 1024-byte period, the tiles, barriers
+  static constexpr int SMEM = 1024 + BAR_OFF + 8 * (1 + 4 * FW_ST);
+};
+
+// the kv tiles [lo, hi] of BK rows holding an unmasked key for some query
+// row of [qa, qa + 64) and lying in [t_lo, t_hi] (the block's split);
+// empty (hi < lo) where the rows start past Sq
 struct KvTiles {
   int lo, hi;
 };
+template <int BK>
 __device__ __forceinline__ KvTiles kv_tiles(int qa, int Sq, int Skv,
-                                            int causal, int window) {
+                                            int causal, int window, int t_lo,
+                                            int t_hi) {
   if (qa >= Sq) return {0, -1};
   const int qb = min(Sq, qa + 64);
   const int k_lo = window > 0 ? max(0, qa - window + 1) : 0;
   const int k_hi = causal ? qb : Skv;                        // exclusive
-  return {k_lo / FW_BK, (k_hi - 1) / FW_BK};
+  return {max(k_lo / BK, t_lo), min((k_hi - 1) / BK, t_hi)};
 }
 
-// S = Q.K^T of one kv tile for this warpgroup's 64 rows: 16 k-steps of
-// m64n64k16, both operands in shared memory (K-major); issued, not waited
-__device__ __forceinline__ void qk_issue(float (&s)[32], uint32_t qrows,
+// S = Q.K^T of one kv tile of BK rows for this warpgroup's 64 rows: D / 16
+// k-steps of m64nBKk16, both operands in shared memory (K-major); issued,
+// not waited
+template <int D, int BK>
+__device__ __forceinline__ void qk_issue(float (&s)[BK / 2], uint32_t qrows,
                                          uint32_t kb) {
+  constexpr int KV_BOX = BK * FW_BOX * 2;
   fence_regs(s);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < FW_D / 16; ++kk)
-    wgmma_m64n64k16_ss(
-        s, sw128_desc(qrows + (kk >> 2) * FW_Q_BOX + (kk & 3) * 32, 16, 1024),
-        sw128_desc(kb + (kk >> 2) * FW_KV_BOX + (kk & 3) * 32, 16, 1024),
-        kk > 0);
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss(s,
+             sw128_desc(qrows + (kk >> 2) * FW_Q_BOX + (kk & 3) * 32, 16,
+                        1024),
+             sw128_desc(kb + (kk >> 2) * KV_BOX + (kk & 3) * 32, 16, 1024),
+             kk > 0);
   wgmma_commit();
 }
 
-// O += P.V of one kv tile: P (bf16, the A fragments of S's accumulator)
-// from registers, V [64 x 256] from shared memory, MN-major through the
-// transpose bit; issued, not waited
-__device__ __forceinline__ void pv_issue(float (&acc)[128],
-                                         const uint32_t (&pf)[4][4],
+// O += P.V of one kv tile of BK rows: P (bf16, the A fragments of S's
+// accumulator) from registers, V [BK x DV] from shared memory, MN-major
+// through the transpose bit (lbo: the bytes between its 64-column boxes);
+// issued, not waited
+template <int BK, int N>
+__device__ __forceinline__ void pv_issue(float (&acc)[N],
+                                         const uint32_t (&pf)[BK / 16][4],
                                          uint32_t vb) {
   fence_regs(acc);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < FW_BK / 16; ++kk)
-    wgmma_m64n256k16_rs_tb(
-        acc, pf[kk], sw128_desc(vb + kk * 16 * 128, FW_KV_BOX, 1024), 1);
+  for (int kk = 0; kk < BK / 16; ++kk)
+    wgmma_rs_tb(acc, pf[kk],
+                sw128_desc(vb + kk * 16 * 128, BK * FW_BOX * 2, 1024), 1);
   wgmma_commit();
 }
 
@@ -731,34 +795,52 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-__global__ void __launch_bounds__(FW_THREADS, 1)
+// Items are (b, h, query tile): item x has (b, h) = x % BH and query tile
+// n_qt - 1 - x / BH (the last, longest under the causal mask, first;
+// consecutive items share kv heads). Blocks 0 .. whole - 1 take items 0 ..
+// whole - 1 whole and write o in bf16. Above whole (only a call with no
+// mask has any), block whole + n_split j + sp takes kv split sp (kv tiles
+// sp * split_tiles .. + split_tiles - 1) of item whole + j and writes its
+// unnormalized (m, l, o) in f32 to po and pml at slot (j * FW_BQ + row of
+// the tile) * n_split + sp, which flash_gqa_merge_tiles adds up.
+template <int D, int DV>
+__global__ void __launch_bounds__(FW_THREADS, FwTile<D, DV>::MINB)
 flash_gqa_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv,
                     const int* __restrict__ kv_head,
-                    __nv_bfloat16* __restrict__ o, int Sq, int Skv, int H,
-                    int BH, int causal, int window, float scale_log2) {
+                    __nv_bfloat16* __restrict__ o, float* __restrict__ po,
+                    float* __restrict__ pml, int Sq, int Skv, int H, int BH,
+                    int causal, int window, float scale_log2, int whole,
+                    int n_split, int split_tiles) {
+  using C = Fw<D, DV>;
+  constexpr int BK = C::BK, ST = FW_ST;
+  constexpr int NS = BK / 2, NO = DV / 2;          // S and O floats a thread
   extern __shared__ __align__(16) uint8_t fw_raw[];
   const uint32_t raw = smem_u32(fw_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;    // the swizzle's period
   uint8_t* gbase = fw_raw + (base - raw);          // generic address of base
-  const uint32_t sQ = base;                        // 4 boxes [128][64]
-  const uint32_t sK = sQ + FW_Q_BYTES;             // 2 stages x 4 [64][64]
-  const uint32_t sV = sK + 2 * FW_KV_BYTES;
-  // mbarriers: Q, then K full, V full, K empty, V empty, two stages each
-  const uint32_t q_full = sV + 2 * FW_KV_BYTES;
-  const uint32_t k_full = q_full + 8, v_full = q_full + 24;
-  const uint32_t k_empty = q_full + 40, v_empty = q_full + 56;
+  const uint32_t sQ = base;
+  const uint32_t sK = sQ + C::Q_BYTES;             // ST stages of K
+  const uint32_t sV = sK + ST * C::K_BYTES;        // ST stages of V
+  const uint32_t q_full = base + C::BAR_OFF;
+  const uint32_t k_full = q_full + 8, v_full = k_full + 8 * ST;
+  const uint32_t k_empty = v_full + 8 * ST, v_empty = k_empty + 8 * ST;
 
-  // the block's tile: the last query tiles first, consecutive blocks on
-  // consecutive (b, h), so they share kv heads
+  // the block's item and kv split
+  const int x = (int)blockIdx.x;
+  const bool split = x >= whole;
+  const int item = split ? whole + (x - whole) / n_split : x;
+  const int sp = split ? (x - whole) % n_split : 0;
   const int n_qt = (Sq + FW_BQ - 1) / FW_BQ;
-  const int bh = (int)(blockIdx.x % BH);
-  const int b = bh / H, h = bh % H;
-  const int q0 = (n_qt - 1 - (int)(blockIdx.x / BH)) * FW_BQ;
+  const int bh = item % BH, b = bh / H, h = bh % H;
+  const int q0 = (n_qt - 1 - item / BH) * FW_BQ;
   const int hk = kv_head[h];
-  const KvTiles t1 = kv_tiles(q0, Sq, Skv, causal, window);
-  const KvTiles t2 = kv_tiles(q0 + 64, Sq, Skv, causal, window);
+  const int t_lo = sp * split_tiles;
+  const int t_hi = split ? t_lo + split_tiles - 1 : 0x7fffffff;
+  const KvTiles t1 = kv_tiles<BK>(q0, Sq, Skv, causal, window, t_lo, t_hi);
+  const KvTiles t2 = kv_tiles<BK>(q0 + 64, Sq, Skv, causal, window, t_lo,
+                                  t_hi);
   const int lo = t1.lo, hi = max(t1.hi, t2.hi), n_kt = hi - lo + 1;
 
   // the warpgroup index through a shuffle, so that ptxas sees every
@@ -767,7 +849,7 @@ flash_gqa_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
   const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
   if (tid == 0) {
     mbar_init(q_full, 1);
-    for (int s = 0; s < 2; ++s) {
+    for (int s = 0; s < ST; ++s) {
       mbar_init(k_full + 8 * s, 1);
       mbar_init(v_full + 8 * s, 1);
       mbar_init(k_empty + 8 * s, 8);        // every warp arrives
@@ -777,200 +859,236 @@ flash_gqa_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
   }
   __syncthreads();
 
-  {
-    // ---- consumers: warpgroup cw owns query rows qa .. qa + 63
-    const int cw = wg, ct = tid - 128 * wg;
-    const int warp = ct >> 5, lane = ct & 31;
-    const int g = lane >> 2, t = lane & 3;          // fragment row, column pair
-    const int qa = q0 + cw * 64;
-    const KvTiles mine = cw == 0 ? t1 : t2;
-    const int r0 = qa + warp * 16 + g;              // rows r0 and r0 + 8
-    const int q_end = min(Sq, qa + 64);
-    const uint32_t qrows = sQ + cw * (FW_Q_BOX / 2);   // in each Q box
-    // the block's tiles ia .. ib (of 0 .. n_kt - 1) are this warpgroup's
-    const bool any = mine.hi >= mine.lo;
-    const int ia = any ? mine.lo - lo : n_kt, ib = any ? mine.hi - lo : -1;
-    // tile i's stage is i & 1, in its (i >> 1)-th use; a warp releases
-    // a stage once its last product that reads it is done
-    auto wait_k = [&](int i) {
-      mbar_wait(k_full + 8 * (i & 1), (i >> 1) & 1);
-    };
-    auto wait_v = [&](int i) {
-      mbar_wait(v_full + 8 * (i & 1), (i >> 1) & 1);
-    };
-    // Thread 0 loads: Q and tiles 0 and 1 first; tile j + 2's K (V) into
-    // tile j's stage once it has released tile j's K (V) itself and the
-    // other warpgroup has too, which leaves tile j + 2 one and a half
-    // tiles of work to land. (A producer warp beside the consumers would
-    // make ptxas allocate for 384 threads: 168 registers, which O, S and P
-    // in flight together exceed.)
-    const bool loader = tid == 0;
-    auto load = [&](uint32_t ring, uint32_t full, uint32_t empty,
-                    const CUtensorMap* map, int j) {
-      if (j >= n_kt) return;
-      const int st = j & 1;
-      mbar_wait(empty + 8 * st, ((j >> 1) & 1) ^ 1);   // stage read by all
-      mbar_expect_tx(full + 8 * st, FW_KV_BYTES);
-      for (int c = 0; c < FW_D / FW_BOX; ++c)
-        tma_load_4d(ring + st * FW_KV_BYTES + c * FW_KV_BOX, map, full + 8 * st,
-                    c * FW_BOX, hk, (lo + j) * FW_BK, b);
-    };
-    auto free_k = [&](int i) {
-      if (lane == 0) mbar_arrive(k_empty + 8 * (i & 1));
-      if (loader) load(sK, k_full, k_empty, &tk, i + 2);
-    };
-    auto free_v = [&](int i) {
-      if (lane == 0) mbar_arrive(v_empty + 8 * (i & 1));
-      if (loader) load(sV, v_full, v_empty, &tv, i + 2);
-    };
-    if (loader) {
-      mbar_expect_tx(q_full, FW_Q_BYTES);
-      for (int c = 0; c < FW_D / FW_BOX; ++c)
-        tma_load_4d(sQ + c * FW_Q_BOX, &tq, q_full, c * FW_BOX, h, q0, b);
-      for (int j = 0; j < 2; ++j) {
-        load(sK, k_full, k_empty, &tk, j);
-        load(sV, v_full, v_empty, &tv, j);
-      }
+  // ---- consumers: warpgroup cw owns query rows qa .. qa + 63
+  const int cw = wg, ct = tid - 128 * wg;
+  const int warp = ct >> 5, lane = ct & 31;
+  const int g = lane >> 2, t = lane & 3;          // fragment row, column pair
+  const int qa = q0 + cw * 64;
+  const KvTiles mine = cw == 0 ? t1 : t2;
+  const int r0 = qa + warp * 16 + g;              // rows r0 and r0 + 8
+  const int q_end = min(Sq, qa + 64);
+  const uint32_t qrows = sQ + cw * (FW_Q_BOX / 2);   // in each Q box
+  // the block's tiles ia .. ib (of 0 .. n_kt - 1) are this warpgroup's
+  const bool any = mine.hi >= mine.lo;
+  const int ia = any ? mine.lo - lo : n_kt, ib = any ? mine.hi - lo : -1;
+  // tile i's stage is i % ST, in its (i / ST)-th use; a warp releases a
+  // stage once its last product that reads it is done
+  auto wait_k = [&](int i) {
+    mbar_wait(k_full + 8 * (i % ST), (i / ST) & 1);
+  };
+  auto wait_v = [&](int i) {
+    mbar_wait(v_full + 8 * (i % ST), (i / ST) & 1);
+  };
+  // Thread 0 loads: Q and the first ST tiles first; tile j + ST's K (V)
+  // into tile j's stage once it has released tile j's K (V) itself and the
+  // other warpgroup has too (no producer warp: the note above says why)
+  const bool loader = tid == 0;
+  auto load = [&](uint32_t ring, int bytes, int boxes, uint32_t full,
+                  uint32_t empty, const CUtensorMap* map, int j) {
+    if (j >= n_kt) return;
+    const int st = j % ST;
+    mbar_wait(empty + 8 * st, ((j / ST) & 1) ^ 1);     // stage read by all
+    mbar_expect_tx(full + 8 * st, bytes);
+    for (int c = 0; c < boxes; ++c)
+      tma_load_4d(ring + st * bytes + c * C::KV_BOX, map, full + 8 * st,
+                  c * FW_BOX, hk, (lo + j) * BK, b);
+  };
+  auto load_k = [&](int j) {
+    load(sK, C::K_BYTES, D / FW_BOX, k_full, k_empty, &tk, j);
+  };
+  auto load_v = [&](int j) {
+    load(sV, C::V_BYTES, DV / FW_BOX, v_full, v_empty, &tv, j);
+  };
+  auto free_k = [&](int i) {
+    if (lane == 0) mbar_arrive(k_empty + 8 * (i % ST));
+    if (loader) load_k(i + ST);
+  };
+  auto free_v = [&](int i) {
+    if (lane == 0) mbar_arrive(v_empty + 8 * (i % ST));
+    if (loader) load_v(i + ST);
+  };
+  if (loader) {
+    mbar_expect_tx(q_full, C::Q_BYTES);
+    for (int c = 0; c < D / FW_BOX; ++c)
+      tma_load_4d(sQ + c * FW_Q_BOX, &tq, q_full, c * FW_BOX, h, q0, b);
+    for (int j = 0; j < ST; ++j) {
+      load_k(j);
+      load_v(j);
     }
+  }
 
-    float acc[128];                 // O [64 x 256]: 32 n-tiles of 8 x 4
-    float s[32];                    // S [64 x 64]: 8 n-tiles of 8 x 4
-    uint32_t pf[4][4];              // P in bf16: the A fragments of P.V
+  float acc[NO];                  // O [64 x DV]: DV / 8 n-tiles of 8 x 4
+  float s[NS];                    // S [64 x BK]: BK / 8 n-tiles of 8 x 4
+  uint32_t pf[BK / 16][4];        // P in bf16: the A fragments of P.V
 #pragma unroll
-    for (int e = 0; e < 128; ++e) acc[e] = 0.f;
+  for (int e = 0; e < NO; ++e) acc[e] = 0.f;
 #pragma unroll
-    for (int e = 0; e < 32; ++e) s[e] = 0.f;
-    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-    float alpha[2] = {1.f, 1.f};
-    mbar_wait(q_full, 0);
+  for (int e = 0; e < NS; ++e) s[e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float alpha[2] = {1.f, 1.f};
+  mbar_wait(q_full, 0);
 
-    // mask (only where tile i needs it) and online softmax of tile i's S
-    // in the log2 domain: p = 2^(s c - m c), c = scale * log2 e, m the
-    // raw row max; alpha rescales O
-    auto softmax = [&](int i) {
-      const int k0 = (lo + i) * FW_BK;
-      const bool masked = k0 + FW_BK > Skv
-                          || (causal && k0 + FW_BK - 1 > qa)
-                          || (window > 0 && k0 <= q_end - 1 - window);
-      if (masked) {
-#pragma unroll
-        for (int e = 0; e < 32; ++e) {
-          const int qpos = r0 + ((e >> 1) & 1) * 8;
-          const int kpos = k0 + (e >> 2) * 8 + 2 * t + (e & 1);
-          const bool ok = kpos < Skv && (!causal || kpos <= qpos)
-                          && (window <= 0 || kpos > qpos - window);
-          if (!ok) s[e] = -INFINITY;
-        }
-      }
-      float mx[2] = {-INFINITY, -INFINITY}, mc[2];
-#pragma unroll
-      for (int e = 0; e < 32; ++e)
-        mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);
+  // mask (only where tile i needs it) and online softmax of tile i's S in
+  // the log2 domain: p = 2^(s c - m c), c = scale * log2 e, m the raw row
+  // max; alpha rescales O
+  auto softmax = [&](int i) {
+    const int k0 = (lo + i) * BK;
+    const bool masked = k0 + BK > Skv
+                        || (causal && k0 + BK - 1 > qa)
+                        || (window > 0 && k0 <= q_end - 1 - window);
+    if (masked) {
+      // element e holds key k0 + 2t + c, c = 8 (e >> 2) + (e & 1), of row
+      // r0 + 8 ((e >> 1) & 1); the keys that count are c in [c_lo, c_hi)
+      int c_lo[2], c_hi[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        const float m_new = fmaxf(m[r], mx[r]);
-        // no unmasked key for this row yet: nothing changes
-        alpha[r] = m_new == -INFINITY ? 1.f
-                                      : ex2((m[r] - m_new) * scale_log2);
-        mc[r] = m_new == -INFINITY ? 0.f : m_new * scale_log2;
-        m[r] = m_new;
-        l[r] *= alpha[r];
+        const int d = r0 + 8 * r - k0 - 2 * t;       // qpos - (k0 + 2t)
+        c_hi[r] = min(Skv - k0 - 2 * t, causal ? d + 1 : BK);
+        c_lo[r] = window > 0 ? d - window + 1 : 0;
       }
 #pragma unroll
-      for (int e = 0; e < 32; ++e) {
-        const int r = (e >> 1) & 1;
-        s[e] = ex2(fmaf(s[e], scale_log2, -mc[r]));    // masked: 2^-inf = 0
-        l[r] += s[e];
+      for (int e = 0; e < NS; ++e) {
+        const int c = (e >> 2) * 8 + (e & 1), r = (e >> 1) & 1;
+        if (c < c_lo[r] || c >= c_hi[r]) s[e] = -INFINITY;
       }
-    };
-    auto pack_p = [&]() {           // P rounded to bf16
+    }
+    float mx[2] = {-INFINITY, -INFINITY}, mc[2];
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        pf[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
-        pf[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-        pf[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-        pf[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-      }
-    };
-
-    // tiles of the block before this warpgroup's: released unread
-    for (int i = 0; i < min(ia, n_kt); ++i) {
-      wait_k(i); free_k(i); wait_v(i); free_v(i);
-    }
-    if (any) {
-      wait_k(ia);
-      qk_issue(s, qrows, sK + (ia & 1) * FW_KV_BYTES);
-      wgmma_wait<0>();
-      fence_regs(s);
-      free_k(ia);
-      softmax(ia);
-      pack_p();
-    }
-    // Per tile i (P of tile i in registers, nothing in flight): S of tile
-    // i + 1 and then P.V of tile i go to the tensor cores back to back;
-    // the softmax of tile i + 1 runs while P.V of tile i does.
-    for (int i = ia; i <= ib; ++i) {
-      const bool next = i < ib;
-      if (next) {
-        wait_k(i + 1);
-        qk_issue(s, qrows, sK + ((i + 1) & 1) * FW_KV_BYTES);
-      }
-#pragma unroll
-      for (int n = 0; n < 32; ++n) {
-        acc[4 * n] *= alpha[0]; acc[4 * n + 1] *= alpha[0];
-        acc[4 * n + 2] *= alpha[1]; acc[4 * n + 3] *= alpha[1];
-      }
-      wait_v(i);
-      pv_issue(acc, pf, sV + (i & 1) * FW_KV_BYTES);
-      if (next) {
-        wgmma_wait<1>();            // S of tile i + 1 (committed first)
-        fence_regs(s);
-        free_k(i + 1);
-        softmax(i + 1);
-      }
-      wgmma_wait<0>();              // P.V of tile i
-      fence_regs(acc);
-      free_v(i);
-      if (next) pack_p();
-    }
-    // tiles of the block after this warpgroup's: released unread
-    for (int i = max(ib + 1, ia); i < n_kt; ++i) {
-      wait_k(i); free_k(i); wait_v(i); free_v(i);
-    }
-
-    // o = acc / max(l, 1e-30), rounded to bf16 once, staged through this
-    // warpgroup's rows of the Q tile (no longer read): row r of 128 bytes
-    // a box, 16-byte chunk c at c ^ (r & 7), then 16-byte coalesced stores
+    for (int e = 0; e < NS; ++e)
+      mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-      l[r] = 1.f / fmaxf(l[r], 1e-30f);
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      // no unmasked key for this row yet: nothing changes
+      alpha[r] = m_new == -INFINITY ? 1.f
+                                    : ex2((m[r] - m_new) * scale_log2);
+      mc[r] = m_new == -INFINITY ? 0.f : m_new * scale_log2;
+      m[r] = m_new;
+      l[r] *= alpha[r];
     }
-    uint8_t* stage = gbase + (qrows - base);
 #pragma unroll
-    for (int n = 0; n < 32; ++n)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = warp * 16 + g + 8 * r;      // within the 64
-        *reinterpret_cast<uint32_t*>(
-            stage + (n >> 3) * FW_Q_BOX + row * 128
-            + (((n & 7) ^ (row & 7)) << 4) + 4 * t) =
-            pack_bf16(acc[4 * n + 2 * r] * l[r],
-                      acc[4 * n + 2 * r + 1] * l[r]);
-      }
-    asm volatile("bar.sync %0, 128;\n" :: "r"(1 + cw) : "memory");
-    for (int e = ct; e < 64 * 32; e += 128) {
-      const int row = e >> 5, c = e & 31;           // 32 chunks a row
-      if (qa + row >= Sq) break;                    // rows ascend with e
-      const uint4 val = *reinterpret_cast<const uint4*>(
-          stage + (c >> 3) * FW_Q_BOX + row * 128
-          + (((c & 7) ^ (row & 7)) << 4));
-      *reinterpret_cast<uint4*>(
-          o + (((int64_t)b * Sq + qa + row) * H + h) * FW_D + c * 8) = val;
+    for (int e = 0; e < NS; ++e) {
+      const int r = (e >> 1) & 1;
+      s[e] = ex2(fmaf(s[e], scale_log2, -mc[r]));    // masked: 2^-inf = 0
+      l[r] += s[e];
     }
+  };
+  auto pack_p = [&]() {           // P rounded to bf16
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      pf[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+      pf[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pf[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pf[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+  };
+
+  // tiles of the block before this warpgroup's: released unread
+  for (int i = 0; i < min(ia, n_kt); ++i) {
+    wait_k(i); free_k(i); wait_v(i); free_v(i);
+  }
+  // O rescaled by the last softmax's alpha while no product is in flight
+  auto rescale = [&]() {
+#pragma unroll
+    for (int n = 0; n < DV / 8; ++n) {
+      acc[4 * n] *= alpha[0]; acc[4 * n + 1] *= alpha[0];
+      acc[4 * n + 2] *= alpha[1]; acc[4 * n + 3] *= alpha[1];
+    }
+    fence_regs(acc);
+  };
+  if (any) {
+    wait_k(ia);
+    qk_issue<D, BK>(s, qrows, sK + (ia % ST) * C::K_BYTES);
+    wgmma_wait<0>();
+    fence_regs(s);
+    free_k(ia);
+    softmax(ia);
+    rescale();
+    pack_p();
+    // Per tile i < ib (P of tile i in registers, O rescaled, nothing in
+    // flight): S of tile i + 1 and then P.V of tile i go to the tensor
+    // cores back to back; the softmax of tile i + 1 runs while P.V of tile
+    // i does. The last tile's P.V is peeled off, so that no branch lies
+    // between a product and its wait.
+    for (int i = ia; i < ib; ++i) {
+      wait_k(i + 1);
+      qk_issue<D, BK>(s, qrows, sK + ((i + 1) % ST) * C::K_BYTES);
+      wait_v(i);
+      pv_issue<BK>(acc, pf, sV + (i % ST) * C::V_BYTES);
+      wgmma_wait<1>();            // S of tile i + 1 (committed first)
+      fence_regs(s);
+      free_k(i + 1);
+      softmax(i + 1);
+      wgmma_wait<0>();            // P.V of tile i
+      fence_regs(acc);
+      free_v(i);
+      rescale();
+      pack_p();
+    }
+    wait_v(ib);
+    pv_issue<BK>(acc, pf, sV + (ib % ST) * C::V_BYTES);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    free_v(ib);
+  }
+  // tiles of the block after this warpgroup's: released unread
+  for (int i = max(ib + 1, ia); i < n_kt; ++i) {
+    wait_k(i); free_k(i); wait_v(i); free_v(i);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  if (split) {
+    // the split's partials: o unnormalized, m in the log2 domain, l
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 8 * r;
+      if (row >= Sq) continue;
+      const int64_t slot =
+          ((int64_t)(item - whole) * FW_BQ + row - q0) * n_split + sp;
+#pragma unroll
+      for (int n = 0; n < DV / 8; ++n)
+        *reinterpret_cast<float2*>(po + slot * DV + 8 * n + 2 * t) =
+            make_float2(acc[4 * n + 2 * r], acc[4 * n + 2 * r + 1]);
+      if (t == 0)
+        *reinterpret_cast<float2*>(pml + slot * 2) = make_float2(
+            m[r] == -INFINITY ? -INFINITY : m[r] * scale_log2, l[r]);
+    }
+    return;
+  }
+  // o = acc / max(l, 1e-30), rounded to bf16 once, staged through this
+  // warpgroup's rows of the Q tile (no longer read; D >= DV): row r of 128
+  // bytes a box, 16-byte chunk c at c ^ (r & 7), then 16-byte coalesced
+  // stores
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = 1.f / fmaxf(l[r], 1e-30f);
+  uint8_t* stage = gbase + (qrows - base);
+#pragma unroll
+  for (int n = 0; n < DV / 8; ++n)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = warp * 16 + g + 8 * r;        // within the 64
+      *reinterpret_cast<uint32_t*>(
+          stage + (n >> 3) * FW_Q_BOX + row * 128
+          + (((n & 7) ^ (row & 7)) << 4) + 4 * t) =
+          pack_bf16(acc[4 * n + 2 * r] * l[r],
+                    acc[4 * n + 2 * r + 1] * l[r]);
+    }
+  asm volatile("bar.sync %0, 128;\n" :: "r"(1 + cw) : "memory");
+  constexpr int CH = DV / 8;                        // 16-byte chunks a row
+  for (int e = ct; e < 64 * CH; e += 128) {
+    const int row = e / CH, c = e % CH;
+    if (qa + row >= Sq) break;                      // rows ascend with e
+    const uint4 val = *reinterpret_cast<const uint4*>(
+        stage + (c >> 3) * FW_Q_BOX + row * 128
+        + (((c & 7) ^ (row & 7)) << 4));
+    *reinterpret_cast<uint4*>(
+        o + (((int64_t)b * Sq + qa + row) * H + h) * DV + c * 8) = val;
   }
 }
 
@@ -979,6 +1097,7 @@ flash_gqa_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
 #define FS_RG 16                    // query rows a pass
 #define FS_MAX_SQ 16                // Sq up to which a call may split
 #define FS_MAX_CH 128               // keys a split, at most: one a thread
+#define FS_MAX_SPLITS 128           // splits a call, at most
 #define FS_MAX_H 256                // query heads, at most
 #define FS_V_BYTES 32768            // V rows in shared memory, at most
 
@@ -1219,16 +1338,13 @@ __device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-// Second pass: each output element of each row merges the row's n_split
-// partials in split order (no atomics: the same bits every run)
-template <typename T, int DV>
-__global__ void __launch_bounds__(256)
-flash_gqa_merge(const float* __restrict__ po, const float* __restrict__ pml,
-                T* __restrict__ o, int64_t rows, int n_split) {
-  const int64_t e = (int64_t)blockIdx.x * 256 + threadIdx.x;
-  if (e >= rows * DV) return;
-  const int64_t row = e / DV;
-  const int d = (int)(e % DV);
+// Column d of partial row `row`'s n_split splits (po [rows, n_split, DV],
+// pml [rows, n_split, 2]: unnormalized o, m in the log2 domain, l) merged
+// in split order (no atomics: the same bits every run)
+template <int DV>
+__device__ __forceinline__ float merge_splits(const float* po,
+                                              const float* pml, int64_t row,
+                                              int d, int n_split) {
   const float* ml = pml + row * n_split * 2;
   float mx = -INFINITY;
 #pragma unroll 4
@@ -1240,10 +1356,53 @@ flash_gqa_merge(const float* __restrict__ po, const float* __restrict__ pml,
     l = fmaf(w, ml[2 * s + 1], l);
     acc = fmaf(w, po[(row * n_split + s) * DV + d], acc);
   }
-  store1(o + e, acc / fmaxf(l, 1e-30f));
+  return acc / fmaxf(l, 1e-30f);
+}
+
+// Second pass: each output element merges its row's n_split partials
+// (row (b*Sq + i)*H + h)
+template <typename T, int DV>
+__global__ void __launch_bounds__(256)
+flash_gqa_merge(const float* __restrict__ po, const float* __restrict__ pml,
+                T* __restrict__ o, int64_t rows, int n_split) {
+  const int64_t e = (int64_t)blockIdx.x * 256 + threadIdx.x;
+  if (e >= rows * DV) return;
+  store1(o + e, merge_splits<DV>(po, pml, e / DV, (int)(e % DV), n_split));
+}
+
+// The wgmma body's second pass: each output element of a split item
+// merges its partials (row j * FW_BQ + r: item whole + j, row r of the
+// item's query tile; rows past Sq have none)
+template <int DV>
+__global__ void __launch_bounds__(256)
+flash_gqa_merge_tiles(const float* __restrict__ po,
+                      const float* __restrict__ pml,
+                      __nv_bfloat16* __restrict__ o, int Sq, int H, int BH,
+                      int whole, int n_split, int64_t n_el) {
+  const int64_t e = (int64_t)blockIdx.x * 256 + threadIdx.x;
+  if (e >= n_el) return;
+  const int64_t row = e / DV;
+  const int item = whole + (int)(row / FW_BQ);
+  const int n_qt = (Sq + FW_BQ - 1) / FW_BQ;
+  const int q = (n_qt - 1 - item / BH) * FW_BQ + (int)(row % FW_BQ);
+  if (q >= Sq) return;
+  const int bh = item % BH, d = (int)(e % DV);
+  o[(((int64_t)(bh / H) * Sq + q) * H + bh % H) * DV + d] =
+      __float2bfloat16(merge_splits<DV>(po, pml, row, d, n_split));
 }
 
 // ---------------------------------------------------------------- launch
+// the CUDA functions the last flash_gqa call on this thread launched
+// ("" after a refusal), which fa_last_launch returns
+static thread_local const char* last_launch = "";
+
+// the launch error, if any; else records fns as the call's launches
+static int record(const char* fns) {
+  const int err = (int)cudaGetLastError();
+  if (!err) last_launch = fns;
+  return err;
+}
+
 static int set_smem(const void* fn, size_t shm) {
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
@@ -1253,7 +1412,7 @@ static int set_smem(const void* fn, size_t shm) {
       (int)cudaSharedmemCarveoutMaxShared);
 }
 
-// [B, S, Hx, 256] bf16 as a 4-D TMA map (column, head, row, batch) with
+// [B, S, Hx, cols] bf16 as a 4-D TMA map (column, head, row, batch) with
 // boxes of 64 columns x `rows` rows of one head, 128-byte swizzle, zeros
 // out of bounds (rows past S). cuTensorMapEncodeTiled comes through the
 // runtime's entry-point query, so the library needs no -lcuda.
@@ -1284,13 +1443,14 @@ static EncodeTiled encode_tiled() {
 }
 
 static int tile_map(CUtensorMap* map, const void* ptr, int B, int S, int Hx,
-                    int rows) {
+                    int cols, int rows) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {FW_D, (cuuint64_t)Hx, (cuuint64_t)S,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {FW_D * 2, (cuuint64_t)Hx * FW_D * 2,
-                                 (cuuint64_t)S * Hx * FW_D * 2};
+  const cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)Hx,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)cols * 2,
+                                 (cuuint64_t)Hx * cols * 2,
+                                 (cuuint64_t)S * Hx * cols * 2};
   const cuuint32_t box[4] = {FW_BOX, 1, (cuuint32_t)rows, 1};
   const cuuint32_t one[4] = {1, 1, 1, 1};
   const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
@@ -1302,22 +1462,56 @@ static int tile_map(CUtensorMap* map, const void* ptr, int B, int S, int Hx,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// The wgmma body. n_split > 1 (a call with no mask) splits Skv for the
+// items from `whole` on (the wrapper's wgmma_split_plan decides both) into
+// n_split runs of ceil(kv tiles / n_split) whole kv tiles, none empty;
+// flash_gqa_merge_tiles adds their partials in order, from the f32 scratch
+// of (items - whole) * FW_BQ * n_split * (DV + 2) floats that the caller
+// allocates. n_split 0 runs every item whole.
+template <int D, int DV>
 static int launch_wgmma(const void* q, const void* k, const void* v,
                         const void* kv_head, void* o, int B, int Sq, int Skv,
                         int H, int Hkv, int causal, int window, float scale,
+                        float* scratch, int n_split, int whole,
                         cudaStream_t stream) {
-  const int64_t blocks = (int64_t)B * H * ((Sq + FW_BQ - 1) / FW_BQ);
-  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  using C = Fw<D, DV>;
+  const int kv_t = (Skv + C::BK - 1) / C::BK;
+  const int64_t items = (int64_t)B * H * ((Sq + FW_BQ - 1) / FW_BQ);
+  if (items > 0x7fffffff / FW_BQ) return (int)cudaErrorInvalidValue;
+  int tiles = kv_t, ns = 1;             // kv tiles a split, splits
+  if (n_split > 1) {
+    tiles = (kv_t + n_split - 1) / n_split;
+    ns = n_split;
+    if (causal || window || scratch == nullptr || whole < 0
+        || whole >= items || (int64_t)(ns - 1) * tiles >= kv_t)
+      return (int)cudaErrorInvalidValue;
+  } else {
+    whole = (int)items;
+  }
+  const int64_t blocks = whole + (items - whole) * ns;
+  const int64_t rows = (items - whole) * FW_BQ;  // partial rows
+  if (blocks > 0x7fffffff || rows * DV > 0x7fffffffLL * 256)
+    return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
-  int err = tile_map(&tq, q, B, Sq, H, FW_BQ);
-  if (!err) err = tile_map(&tk, k, B, Skv, Hkv, FW_BK);
-  if (!err) err = tile_map(&tv, v, B, Skv, Hkv, FW_BK);
-  if (!err) err = set_smem((const void*)flash_gqa_fwd_wgmma, FW_SMEM);
+  int err = tile_map(&tq, q, B, Sq, H, D, FW_BQ);
+  if (!err) err = tile_map(&tk, k, B, Skv, Hkv, D, C::BK);
+  if (!err) err = tile_map(&tv, v, B, Skv, Hkv, DV, C::BK);
+  if (!err) err = set_smem((const void*)flash_gqa_fwd_wgmma<D, DV>, C::SMEM);
   if (err) return err;
-  flash_gqa_fwd_wgmma<<<(unsigned)blocks, FW_THREADS, FW_SMEM, stream>>>(
-      tq, tk, tv, (const int*)kv_head, (__nv_bfloat16*)o, Sq, Skv, H, B * H,
-      causal, window, scale * 1.4426950408889634f);
-  return (int)cudaGetLastError();
+  float* po = scratch;
+  float* pml = rows > 0 ? scratch + rows * ns * DV : nullptr;
+  flash_gqa_fwd_wgmma<D, DV><<<(unsigned)blocks, FW_THREADS, C::SMEM,
+                               stream>>>(
+      tq, tk, tv, (const int*)kv_head, (__nv_bfloat16*)o, po, pml, Sq, Skv,
+      H, B * H, causal, window, scale * 1.4426950408889634f, whole, ns,
+      tiles);
+  if (rows == 0) return record("flash_gqa_fwd_wgmma");
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  flash_gqa_merge_tiles<DV><<<(unsigned)((rows * DV + 255) / 256), 256, 0,
+                              stream>>>(po, pml, (__nv_bfloat16*)o, Sq, H,
+                                        B * H, whole, ns, rows * DV);
+  return record("flash_gqa_fwd_wgmma flash_gqa_merge_tiles");
 }
 
 template <typename T, int D, int DV>
@@ -1347,26 +1541,38 @@ static int launch_split_t(const void* q, const void* k, const void* v,
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
   flash_gqa_merge<T, DV><<<(unsigned)blocks, 256, 0, stream>>>(
       po, pml, (T*)o, rows, n_split);
-  return (int)cudaGetLastError();
+  return record("flash_gqa_split flash_gqa_merge");
 }
 
+// The body the wrapper picked (flash_gqa.body): n_split > 0 with whole <
+// 0 the split body, n_split > 1 with whole >= 0 the wgmma body split from
+// item `whole` on, n_split 0 the tiled body of the dtype and head dims
+// (wgmma, mma or fma) unsplit.
 template <int D, int DV>
 static int launch(int dtype, const void* q, const void* k, const void* v,
                   const void* kv_head, void* o, int B, int Sq, int Skv,
                   int H, int Hkv, int causal, int window, float scale,
-                  float* scratch, int n_split, cudaStream_t stream) {
-  if (n_split > 0)
+                  float* scratch, int n_split, int whole,
+                  cudaStream_t stream) {
+  if (n_split > 0 && whole < 0) {
+    if (Sq > FS_MAX_SQ || H > FS_MAX_H || Skv > FS_MAX_CH * FS_MAX_SPLITS)
+      return (int)cudaErrorInvalidValue;
     return dtype == 0
         ? launch_split_t<float, D, DV>(q, k, v, kv_head, o, B, Sq, Skv, H,
                                        Hkv, scale, scratch, n_split, stream)
         : launch_split_t<__nv_bfloat16, D, DV>(q, k, v, kv_head, o, B, Sq,
                                                Skv, H, Hkv, scale, scratch,
                                                n_split, stream);
-  if constexpr (D == FW_D && DV == FW_D) {
-    if (dtype == 1)
-      return launch_wgmma(q, k, v, kv_head, o, B, Sq, Skv, H, Hkv, causal,
-                          window, scale, stream);
   }
+  constexpr bool WGMMA = (D == 64 && DV == 64) || (D == 192 && DV == 128)
+                        || (D == 256 && DV == 256);
+  if constexpr (WGMMA) {
+    if (dtype == 1)
+      return launch_wgmma<D, DV>(q, k, v, kv_head, o, B, Sq, Skv, H, Hkv,
+                                 causal, window, scale, scratch, n_split,
+                                 whole, stream);
+  }
+  if (n_split > 0) return (int)cudaErrorInvalidValue;
   constexpr int DVB = dv_block<DV>();
   const int64_t blocks =
       (int64_t)B * H * ((Sq + FA_BQ - 1) / FA_BQ) * (DV / DVB);
@@ -1379,7 +1585,7 @@ static int launch(int dtype, const void* q, const void* k, const void* v,
         (const float*)q, (const float*)k, (const float*)v,
         (const int*)kv_head, (float*)o, Sq, Skv, H, Hkv, B * H, causal,
         window, scale);
-  } else if constexpr (DV <= FA_DVB) {
+  } else if constexpr (!WGMMA) {
     const size_t shm = smem_bytes_mma(D, DVB);
     const int err = set_smem((const void*)flash_gqa_fwd_mma<D, DV>, shm);
     if (err) return err;
@@ -1388,7 +1594,7 @@ static int launch(int dtype, const void* q, const void* k, const void* v,
         (const __nv_bfloat16*)v, (const int*)kv_head, (__nv_bfloat16*)o, Sq,
         Skv, H, Hkv, B * H, causal, window, scale * 1.4426950408889634f);
   }
-  return (int)cudaGetLastError();
+  return record(dtype == 0 ? "flash_gqa_fwd" : "flash_gqa_fwd_mma");
 }
 
 extern "C" {
@@ -1399,29 +1605,37 @@ const char* fa_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
+// the CUDA functions (names without template arguments, space-separated)
+// that the last flash_gqa call on this thread launched; "" if it launched
+// none
+const char* fa_last_launch() { return last_launch; }
+
 // dtype 0: q, k, v, o are f32; 1: bf16. q [B,Sq,H,D], k [B,Skv,Hkv,D],
 // v [B,Skv,Hkv,Dv], o [B,Sq,H,Dv], kv_head [H] int32, all contiguous on
 // one device; scale multiplies q.k; Sq == Skv unless causal == 0 and
-// window == 0. n_split > 0 asks for the split body, which only a call
-// with no mask, Sq <= FS_MAX_SQ and H <= FS_MAX_H takes, with f32 scratch
-// of B*Sq*H*n_split*(Dv + 2) floats and splits of ceil(Skv / n_split) <=
-// FS_MAX_CH keys, none empty; n_split == 0 picks the tiled bodies by
-// dtype and head dims. Returns a cudaError_t (0 = launched).
+// window == 0. n_split and whole name the body (launch above), which the
+// wrapper picks: n_split > 0 with whole < 0 the split body (no mask, Sq
+// <= FS_MAX_SQ, H <= FS_MAX_H), with f32 scratch of B*Sq*H*n_split*(Dv +
+// 2) floats and splits of ceil(Skv / n_split) <= FS_MAX_CH keys, none
+// empty; n_split > 1 with whole >= 0 the wgmma body (bf16 at its pairs, no
+// mask) with the items from `whole` on split over Skv, with the scratch
+// launch_wgmma names; n_split == 0 the tiled body of the dtype and head
+// dims. Returns a cudaError_t (0 = launched).
 int flash_gqa(int dtype, const void* q, const void* k, const void* v,
               const void* kv_head, void* o, int B, int Sq, int Skv, int H,
               int Hkv, int D, int Dv, int causal, int window, float scale,
-              void* scratch, int n_split, void* stream) {
+              void* scratch, int n_split, int whole, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || H <= 0 || Hkv <= 0 || window < 0 ||
       (Sq != Skv && (causal || window)) || (dtype != 0 && dtype != 1) ||
-      n_split < 0 ||
-      (n_split > 0 && (causal || window || Sq > FS_MAX_SQ || H > FS_MAX_H)))
+      n_split < 0 || (n_split > 0 && (causal || window)))
     return (int)cudaErrorInvalidValue;
+  last_launch = "";
   cudaStream_t s = (cudaStream_t)stream;
 #define FA_CASE(d, dv)                                                      \
   if (D == d && Dv == dv)                                                   \
     return launch<d, dv>(dtype, q, k, v, kv_head, o, B, Sq, Skv, H, Hkv,    \
                          causal, window, scale, (float*)scratch, n_split,   \
-                         s);
+                         whole, s);
   FA_CASE(16, 16)
   FA_CASE(32, 32)
   FA_CASE(64, 64)

@@ -10,18 +10,24 @@ with no mask (whisper's cross attention); a causal or windowed call has
 Sq == Skv, as the Pallas kernel has no query offset.
 
 The source has four bodies, and ``body`` says by shape which one a call
-takes (``BODY_KERNELS`` names their CUDA functions): "split" for a call
-with no mask and Sq <= SPLIT_MAX_SQ in either dtype (whisper's cross
-attention at a decode step: Skv split over about two blocks an SM, then a
-merge in a fixed order), "wgmma" for bf16 at (256, 256)
-(recurrentgemma-9b: wgmma with TMA, S computed once a tile), "mma" for
-bf16 at the other head dims (``mma.sync``) and "fma" for f32 (f32 FMA,
-which the 2e-5 tolerance needs). ``split_plan`` picks the split count
-from the card's SM count, and the wrapper allocates the split body's f32
-scratch (``split_scratch_numel`` floats).
+takes (``BODY_KERNELS`` names their CUDA functions): "wgmma" for bf16 at
+``WGMMA_PAIRS`` (64, 64), (192, 128) and (256, 256) with any mask and Sq
+(whisper's encoder and its cross attention, smollm-135m, MLA's prefill,
+recurrentgemma-9b: wgmma with TMA, S computed once a tile), "split" for
+any other call with no mask and Sq <= SPLIT_MAX_SQ (whisper's cross
+attention at a decode step in f32: Skv split over about two blocks an
+SM, then a merge in a fixed order), "mma" for bf16 at (16, 16), (32, 32)
+and (128, 128) (``mma.sync``) and "fma" for f32 (f32 FMA, which the
+2e-5 tolerance needs). ``split_plan`` picks the split body's split count
+from the card's SM count, and ``wgmma_split_plan`` splits Skv in a wgmma
+call with no mask for the blocks past its last full wave, where they
+would leave most of the card idle (whisper's encoder, and its cross
+attention, whose 24 blocks would hold 132 SMs); the wrapper decides
+either plan, passes it to the source and allocates its f32 scratch
+(``split_scratch_numel``, ``wgmma_scratch_numel``).
 It checks device, dtype, shape, contiguity, alignment and the map,
 allocates the output, launches on the current stream, checks the error
-code, and counts one launch per call in ``launches`` (the split body's two
+code, and counts one launch per call in ``launches`` (a split call's two
 CUDA kernels are one launch). On the meta device
 (the dry run) the launch is shape-only: the checks and the output. Where grad is needed
 the call runs inside an autograd Function (``kernels/_autograd.py``) whose
@@ -56,11 +62,23 @@ HEAD_DIM_PAIRS = ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128),
 # the bodies of csrc/flash_gqa.cu (its note gives each one's design and
 # bound) and the CUDA functions each launches; ``body`` picks one by shape
 BODY_KERNELS = {
-    "split": ("flash_gqa_split", "flash_gqa_merge"),   # no mask, Sq <= 16
-    "wgmma": ("flash_gqa_fwd_wgmma",),                 # bf16 at (256, 256)
+    # no mask, Sq <= 16, but bf16 at WGMMA_PAIRS
+    "split": ("flash_gqa_split", "flash_gqa_merge"),
+    # bf16 at WGMMA_PAIRS; the merge only where Skv is split
+    "wgmma": ("flash_gqa_fwd_wgmma", "flash_gqa_merge_tiles"),
     "mma": ("flash_gqa_fwd_mma",),                     # bf16, other pairs
     "fma": ("flash_gqa_fwd",),                         # f32
 }
+# the head dims the wgmma body takes in bf16 (csrc launch<D, DV>) with the
+# keys of its kv tiles (FwTile::BK) and its blocks an SM (FwTile::MINB, the
+# launch bound) at each, and its query rows a block (FW_BQ). In a wgmma
+# call with no mask the items past the last full wave of blocks are split
+# over Skv where they fill at most half a wave, and flash_gqa_merge_tiles
+# adds the splits (``wgmma_split_plan``)
+WGMMA_KEYS = {(64, 64): 64, (192, 128): 128, (256, 256): 64}
+WGMMA_BLOCKS_PER_SM = {(64, 64): 2, (192, 128): 1, (256, 256): 1}
+WGMMA_PAIRS = tuple(WGMMA_KEYS)
+WGMMA_ROWS = 128
 # the split body (csrc FS_MAX_SQ, FS_MAX_H, FS_MAX_CH): query rows and
 # heads a call may have, keys a split may hold (one a thread of the first
 # pass), splits a call may have; a call has at most ceil(Skv /
@@ -78,29 +96,41 @@ _sms: dict[torch.device, int] = {}        # SMs of each card
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_gqa")
     lib.flash_gqa.argtypes = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _I, _I, _I, _I, ctypes.c_float, _P, _I, _P]
+                              _I, _I, _I, _I, ctypes.c_float, _P, _I, _I,
+                              _P]
     lib.flash_gqa.restype = _I
     lib.fa_error_string.argtypes = [_I]
     lib.fa_error_string.restype = ctypes.c_char_p
+    lib.fa_last_launch.argtypes = []
+    lib.fa_last_launch.restype = ctypes.c_char_p
     return lib
+
+
+def last_launch() -> tuple[str, ...]:
+    """The CUDA functions (without template arguments) that the source's
+    dispatch launched for the last kernel call on this thread: one body's
+    functions of ``BODY_KERNELS``."""
+    return tuple(_lib().fa_last_launch().decode().split())
 
 
 def body(q_shape, v_shape, dtype, *, causal: bool = True,
          window: int = 0) -> str:
     """The body of csrc/flash_gqa.cu that a call of these shapes takes (a
-    key of ``BODY_KERNELS``): "split" with no mask, Sq <= SPLIT_MAX_SQ, H
-    <= SPLIT_MAX_H and Skv within SPLIT_MAX_SPLITS splits of
-    SPLIT_MAX_KEYS, in either dtype (whisper's cross attention at a decode
-    step); else by dtype, "wgmma" for bf16 at (256, 256), "mma" for bf16 at
-    the other head dims and "fma" for f32."""
+    key of ``BODY_KERNELS``): "wgmma" for bf16 at WGMMA_PAIRS with any
+    mask and Sq (with no mask, its kv split: on an H100 it beat the split
+    body at every Sq <= 16, ``launch/bench_flash.py``); else "split" with
+    no mask, Sq <= SPLIT_MAX_SQ, H <= SPLIT_MAX_H and Skv within
+    SPLIT_MAX_SPLITS splits of SPLIT_MAX_KEYS (whisper's cross attention
+    at a decode step in f32); else by dtype, "mma" for bf16 at the other
+    head dims and "fma" for f32."""
     B, Sq, H, D = q_shape
+    if dtype == torch.bfloat16 and (D, v_shape[3]) in WGMMA_PAIRS:
+        return "wgmma"
     if not causal and not window and Sq <= SPLIT_MAX_SQ \
             and H <= SPLIT_MAX_H \
             and v_shape[1] <= SPLIT_MAX_KEYS * SPLIT_MAX_SPLITS:
         return "split"
-    if dtype == torch.bfloat16:
-        return "wgmma" if (D, v_shape[3]) == (256, 256) else "mma"
-    return "fma"
+    return "mma" if dtype == torch.bfloat16 else "fma"
 
 
 def split_plan(B: int, Skv: int, Hkv: int, sms: int) -> tuple[int, int]:
@@ -117,6 +147,42 @@ def split_plan(B: int, Skv: int, Hkv: int, sms: int) -> tuple[int, int]:
     keys = -(-Skv // n)
     n = -(-Skv // keys)                 # no split left empty
     return n, -(-Skv // n)
+
+
+def wgmma_split_plan(q_shape, v_shape, sms: int) -> tuple[int, int, int]:
+    """(whole, n_split, keys a split) of the wgmma body in a call with no
+    mask. Its items (b, h, query tile of WGMMA_ROWS rows) run in waves of
+    WGMMA_BLOCKS_PER_SM blocks on each of ``sms`` SMs. Where the items
+    past the last full wave fill at most half a wave, the first ``whole``
+    items run whole and each of the others is split over Skv into
+    n_split runs of whole kv tiles (WGMMA_KEYS at the call's head dims),
+    about as many as fill one wave, none empty; else nothing is split
+    (n_split 1). The source takes ``whole`` and n_split as given and
+    splits the kv tiles as here, ceil(tiles / n_split) a split. On 132
+    SMs: whisper's encoder (B 4, 1500 rows, 6 heads of 64) has 288 items,
+    264 whole and 24 in 8 splits of 192 keys; its cross attention at the
+    prefill (Sq 64) 24 items, all in 8 splits."""
+    B, Sq, H, D = q_shape
+    Skv, pair = v_shape[1], (D, v_shape[3])
+    keys = WGMMA_KEYS[pair]
+    items = B * H * -(-Sq // WGMMA_ROWS)
+    slots = WGMMA_BLOCKS_PER_SM[pair] * sms
+    tiles = -(-Skv // keys)
+    rest = items % slots
+    if not rest or 2 * rest > slots or tiles == 1:
+        return items, 1, tiles * keys
+    n = -(-tiles // -(-tiles // min(slots // rest, tiles)))
+    return items - rest, n, -(-tiles // n) * keys
+
+
+def wgmma_scratch_numel(q_shape, v_shape, sms: int) -> int:
+    """f32 scratch of a wgmma call split by ``wgmma_split_plan``: each
+    split item's WGMMA_ROWS rows' partial o [Dv], m and l for each
+    split."""
+    B, Sq, H, _ = q_shape
+    whole, n_split, _ = wgmma_split_plan(q_shape, v_shape, sms)
+    items = B * H * -(-Sq // WGMMA_ROWS)
+    return (items - whole) * WGMMA_ROWS * n_split * (v_shape[3] + 2)
 
 
 def split_scratch_numel(q_shape, v_shape, n_split: int) -> int:
@@ -268,10 +334,11 @@ def _sm_count(dev: torch.device) -> int:
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             causal: bool, window: int, kv_head,
-            tiled: bool = False) -> torch.Tensor:
+            which: str | None = None) -> torch.Tensor:
     """One launch of the kernel (``flash_gqa`` without autograd): the body
-    ``body`` names, or with ``tiled`` the body the shape would take
-    without the split (to time both at one shape)."""
+    ``body`` names, or ``which`` (to time two bodies at one shape: "split"
+    or the tiled body of the dtype and head dims, the wgmma body with its
+    kv split)."""
     global launches
     dev = q.device
     if dev.type != "cuda":
@@ -289,12 +356,22 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lib = _lib()
     kvh = _map_on(m, dev)
     o = q.new_empty((B, S, H, Dv))
-    n_split, scratch = 0, None
-    if not tiled and body(q.shape, v.shape, q.dtype, causal=causal,
-                          window=window) == "split":
-        n_split = split_plan(B, Skv, Hkv, _sm_count(dev))[0]
-        scratch = torch.empty(split_scratch_numel(q.shape, v.shape, n_split),
-                              dtype=torch.float32, device=dev)
+    # the body for the source (its launch): n_split > 0 with whole < 0
+    # the split body, n_split > 1 with whole >= 0 the wgmma body split
+    # from item ``whole`` on, n_split 0 the tiled body unsplit
+    n_split, whole, numel = 0, 0, 0
+    which = which or body(q.shape, v.shape, q.dtype, causal=causal,
+                          window=window)
+    if which == "split":
+        n_split, whole = split_plan(B, Skv, Hkv, _sm_count(dev))[0], -1
+        numel = split_scratch_numel(q.shape, v.shape, n_split)
+    elif which == "wgmma" and not causal and not window:
+        w, n, _ = wgmma_split_plan(q.shape, v.shape, _sm_count(dev))
+        if n > 1:
+            n_split, whole = n, w
+            numel = wgmma_scratch_numel(q.shape, v.shape, _sm_count(dev))
+    scratch = torch.empty(numel, dtype=torch.float32,
+                          device=dev) if numel else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.flash_gqa(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
@@ -302,7 +379,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                             Skv, H, Hkv, D, Dv, int(causal), window,
                             1.0 / math.sqrt(D),
                             None if scratch is None else scratch.data_ptr(),
-                            n_split, stream)
+                            n_split, whole, stream)
     if err:
         raise RuntimeError(f"flash_gqa: CUDA error {err}: "
                            f"{lib.fa_error_string(err).decode()}")
