@@ -19,6 +19,7 @@ from torch.distributed.tensor import DTensor
 from repro_torch.models.model import ModelBundle, _llama4_subkinds
 from repro_torch.models.modules import (ParamSpec, init_params, tree_leaves,
                                         tree_map)
+from repro_torch.obs.spans import span
 from repro_torch.runtime.optimizer import Optimizer, make_optimizer
 
 
@@ -169,7 +170,8 @@ def train_launches(cfg) -> dict:
 def make_prefill_step(bundle: ModelBundle):
     @torch.inference_mode()
     def prefill_step(params, batch):
-        return bundle.prefill_fn(params, batch)
+        with span("model.prefill"):
+            return bundle.prefill_fn(params, batch)
     return prefill_step
 
 

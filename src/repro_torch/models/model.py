@@ -44,6 +44,7 @@ from repro_torch.models.modules import (ParamSpec, Sharder, apply_norm,
                                         softmax_cross_entropy, stack_specs,
                                         token_nll, tree_map)
 from repro_torch.models.moe import moe_apply
+from repro_torch.obs.spans import span
 
 AUX_WEIGHT = 0.01
 
@@ -240,7 +241,8 @@ def _decoder_lm(cfg: ModelConfig, rules=None, mesh=None) -> ModelBundle:
             x, c, a = body(pl, x, positions, cl, cache_len, mpos)
             kvs.append(c)
             aux = aux + a
-        x = apply_norm(cfg.norm_kind, p["final_ln"], x, cfg.norm_eps)
+        with span("model.norm"):
+            x = apply_norm(cfg.norm_kind, p["final_ln"], x, cfg.norm_eps)
         return x, aux, kvs
 
     def embed(p, batch):
@@ -266,8 +268,10 @@ def _decoder_lm(cfg: ModelConfig, rules=None, mesh=None) -> ModelBundle:
         # full-attention archs: the cache is the full-seq kv, stacked
         x, _, kvs = fwd(p, x, _positions(B, S, x.device), "prefill",
                         mpos=batch.get("mrope_positions"))
-        logits = _logits(cfg, p, x[:, -1:], sh)
-        return logits, {"kv": _stack(kvs), "len": _len(S, x.device)}
+        with span("model.head"):
+            logits = _logits(cfg, p, x[:, -1:], sh)
+        with span("model.cache"):
+            return logits, {"kv": _stack(kvs), "len": _len(S, x.device)}
 
     def decode_fn(p, cache, batch):
         """One token at ``cache["len"]``; writes the token's k/v into
@@ -390,7 +394,8 @@ def _deepseek(cfg: ModelConfig, rules=None, mesh=None) -> ModelBundle:
             x, c, a = body(pl, x, positions, cl, cache_len)
             aux = aux + a
             cs.append(c)
-        x = apply_norm(cfg.norm_kind, p["final_ln"], x, cfg.norm_eps)
+        with span("model.norm"):
+            x = apply_norm(cfg.norm_kind, p["final_ln"], x, cfg.norm_eps)
         return x, aux, c0n, cs
 
     def loss_fn(p, batch):
@@ -406,9 +411,11 @@ def _deepseek(cfg: ModelConfig, rules=None, mesh=None) -> ModelBundle:
         B, S = batch["tokens"].shape
         x = _embed(cfg, p, batch["tokens"], sh)
         x, _, c0, cs = fwd(p, x, _positions(B, S, x.device), "prefill")
-        logits = _logits(cfg, p, x[:, -1:], sh)
-        return logits, {"l0": c0, "ls": _stack(cs),
-                        "len": _len(S, x.device)}
+        with span("model.head"):
+            logits = _logits(cfg, p, x[:, -1:], sh)
+        with span("model.cache"):
+            return logits, {"l0": c0, "ls": _stack(cs),
+                            "len": _len(S, x.device)}
 
     def decode_fn(p, cache, batch):
         """One token at ``cache["len"]``; writes the token's compressed kv

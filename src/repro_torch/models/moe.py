@@ -41,6 +41,7 @@ from repro_torch.kernels._autograd import index_select
 from repro_torch.kernels.partition_pack import ops as pp_ops
 from repro_torch.models.modules import (ParamSpec, apply_norm, norm_defs,
                                         swiglu)
+from repro_torch.obs.spans import count, recording, span, spanned
 
 
 def moe_defs(cfg) -> dict:
@@ -118,6 +119,7 @@ def dispatch_indices(experts: torch.Tensor, num_experts: int,
     return sort_idx.to(i32), dest.to(i32), keep, offsets.to(i32)
 
 
+@spanned("model.ffn.dispatch")
 def dispatch(h: torch.Tensor, experts: torch.Tensor, num_experts: int,
              capacity: int, sh=None):
     """Pack the entries of h [B,S,d] by expert, per batch row, in one
@@ -215,37 +217,50 @@ def _combine_on_mesh(eout: DTensor, ids, slots, weights, S: int, k: int
         (B, S, d))
 
 
+@spanned("model.ffn")
 def moe_apply(cfg, p, x, sh):
-    """Returns (x + moe_out, aux_loss)."""
+    """Returns (x + moe_out, aux_loss). While a profiler records, counts
+    the entries that got a slot (``moe.kept``) and the slots computed
+    (``moe.slots``, B·E·C)."""
     m = cfg.moe
     B, S, d = x.shape
     k = m.top_k
-    h = apply_norm(cfg.norm_kind, p["ln"], x, cfg.norm_eps)
+    with span("model.ffn.norm"):
+        h = apply_norm(cfg.norm_kind, p["ln"], x, cfg.norm_eps)
     weights, experts, aux = route(cfg, p, h)                     # [T,k]
     C = expert_capacity(S, m.num_experts, k, m.capacity_factor)
 
     ebuf, ids, slots = dispatch(h, experts, m.num_experts, C, sh)
+    if recording():
+        count("moe.kept", (slots < C).sum())
+        count("moe.slots", B * m.num_experts * C)
     ebuf = sh(ebuf, "batch", "act_experts", None, None)
     g = sh.einsum("becd,edf->becf", ebuf, p["w_gate"].to(h.dtype))
     u = sh.einsum("becd,edf->becf", ebuf, p["w_up"].to(h.dtype))
-    z = sh(swiglu(g, u), "batch", "act_experts", None, None)
+    with span("model.ffn.act"):
+        z = swiglu(g, u)
+    z = sh(z, "batch", "act_experts", None, None)
     eout = sh.einsum("becf,efd->becd", z, p["w_down"].to(h.dtype))
     # combine: each entry's row back from its slot (zero where dropped),
     # weighted, then a token's k entries summed in order
-    if isinstance(eout, DTensor):
-        out = _combine_on_mesh(eout, ids, slots, weights.to(h.dtype), S, k)
-    else:
-        back = pp_ops.partition_unpack(
-            eout.reshape(B * m.num_experts, C, d), ids, slots,
-            C)                                                   # [B*S*k,d]
-        back = back * weights.reshape(-1, 1).to(h.dtype)
-        out = back.view(B, S, k, d).sum(dim=2)
+    with span("model.ffn.combine"):
+        if isinstance(eout, DTensor):
+            out = _combine_on_mesh(eout, ids, slots, weights.to(h.dtype), S,
+                                   k)
+        else:
+            back = pp_ops.partition_unpack(
+                eout.reshape(B * m.num_experts, C, d), ids, slots,
+                C)                                               # [B*S*k,d]
+            back = back * weights.reshape(-1, 1).to(h.dtype)
+            out = back.view(B, S, k, d).sum(dim=2)
 
     if m.num_shared:
         sp = p["shared"]
         g = sh.dot(h, sp["w_gate"].to(h.dtype))
         u = sh.dot(h, sp["w_up"].to(h.dtype))
-        z = sh(swiglu(g, u), "batch", None, "act_mlp")
+        with span("model.ffn.act"):
+            z = swiglu(g, u)
+        z = sh(z, "batch", None, "act_mlp")
         out = out + sh.dot(z, sp["w_down"].to(h.dtype))
 
     return x + sh(out, "batch", "seq", "act_embed"), aux

@@ -45,6 +45,7 @@ from repro_torch.models import attention as A
 from repro_torch.models.moe import moe_apply, moe_defs
 from repro_torch.models.modules import (ParamSpec, apply_norm, gelu,
                                         norm_defs, swiglu)
+from repro_torch.obs.spans import span, spanned
 
 
 # ---------------------------------------------------------------------------
@@ -143,14 +144,17 @@ def _qkv(cfg, p, x, sh, positions, mrope_positions=None):
     k = sh(k, "batch", None, None, None)
     v = sh(v, "batch", None, None, None)
     if cfg.rope_theta > 0:
-        if cfg.mrope and mrope_positions is not None:
-            q = A.apply_mrope(q, mrope_positions, cfg.rope_theta,
-                              cfg.mrope_sections)
-            k = A.apply_mrope(k, mrope_positions, cfg.rope_theta,
-                              cfg.mrope_sections)
-        else:
-            q = A.apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
-            k = A.apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
+        with span("model.attn.rope"):
+            if cfg.mrope and mrope_positions is not None:
+                q = A.apply_mrope(q, mrope_positions, cfg.rope_theta,
+                                  cfg.mrope_sections)
+                k = A.apply_mrope(k, mrope_positions, cfg.rope_theta,
+                                  cfg.mrope_sections)
+            else:
+                q = A.apply_rope(q, positions, cfg.rope_theta,
+                                 cfg.rope_fraction)
+                k = A.apply_rope(k, positions, cfg.rope_theta,
+                                 cfg.rope_fraction)
     return q, k, v
 
 
@@ -193,6 +197,7 @@ def _attention_on_mesh(cfg, q, k, v, *, causal: bool, window: int):
     return kernels.from_local(o, mesh, lay, (*q.shape[:3], v.shape[3]))
 
 
+@spanned("model.attn")
 def attn_apply(cfg, p, x, sh, *, positions, layer_kind: str = "full",
                cache: dict | None = None, cache_len=None,
                mrope_positions=None, kv_override=None):
@@ -208,7 +213,8 @@ def attn_apply(cfg, p, x, sh, *, positions, layer_kind: str = "full",
     (the encoder output [B,Senc,d]) with no mask and no rope, and returns
     ``cache`` as it was given."""
     B, S, d = x.shape
-    h = apply_norm(cfg.norm_kind, p["ln"], x, cfg.norm_eps)
+    with span("model.attn.norm"):
+        h = apply_norm(cfg.norm_kind, p["ln"], x, cfg.norm_eps)
 
     if layer_kind == "cross":
         hd = cfg.resolved_head_dim
@@ -315,13 +321,18 @@ def _mla_qc(cfg, p, h, sh, positions):
     r = cfg.kv_lora_rank
     q = sh.dot(h, p["wq"].to(h.dtype)).reshape(B, S, H, nope + rope_d)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
-    q_rope = A.apply_rope(q_rope, positions, cfg.rope_theta)
+    with span("model.attn.rope"):
+        q_rope = A.apply_rope(q_rope, positions, cfg.rope_theta)
     c = sh.dot(h, p["w_dkv"].to(h.dtype))                     # [B,S,r+rope]
-    ckv = apply_norm("rms", p["kv_ln"], c[..., :r], cfg.norm_eps)
-    krope = A.apply_rope(c[..., None, r:], positions, cfg.rope_theta)[:, :, 0]
+    with span("model.attn.norm"):
+        ckv = apply_norm("rms", p["kv_ln"], c[..., :r], cfg.norm_eps)
+    with span("model.attn.rope"):
+        krope = A.apply_rope(c[..., None, r:], positions,
+                             cfg.rope_theta)[:, :, 0]
     return q_nope, q_rope, ckv, krope
 
 
+@spanned("model.attn")
 def mla_apply(cfg, p, x, sh, *, positions, cache: dict | None = None,
               cache_len=None, **_):
     """Returns (out, cache). Full-sequence mode when ``cache`` is None: k
@@ -337,7 +348,8 @@ def mla_apply(cfg, p, x, sh, *, positions, cache: dict | None = None,
     nope, rope_d = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     vd = cfg.v_head_dim
     r = cfg.kv_lora_rank
-    h = apply_norm(cfg.norm_kind, p["ln"], x, cfg.norm_eps)
+    with span("model.attn.norm"):
+        h = apply_norm(cfg.norm_kind, p["ln"], x, cfg.norm_eps)
     q_nope, q_rope, ckv, krope = _mla_qc(cfg, p, h, sh, positions)
 
     if cache is None:
@@ -345,9 +357,10 @@ def mla_apply(cfg, p, x, sh, *, positions, cache: dict | None = None,
         # softmax scale is 1/sqrt(nope + rope), q's head dim.
         k_nope = sh.dot(ckv, p["w_uk"].to(h.dtype)).reshape(B, S, H, nope)
         v = sh.dot(ckv, p["w_uv"].to(h.dtype)).reshape(B, S, H, vd)
-        k = torch.cat([k_nope, krope[:, :, None].expand(B, S, H, rope_d)],
-                      -1)
-        q = torch.cat([q_nope, q_rope], -1)
+        with span("model.attn.rope"):
+            k = torch.cat([k_nope,
+                           krope[:, :, None].expand(B, S, H, rope_d)], -1)
+            q = torch.cat([q_nope, q_rope], -1)
         q = sh(q, "batch", "act_seq_q", "act_heads", None)
         o = _attend(cfg, q, k, v, causal=True, window=0)
         out = sh.dot(o.reshape(B, S, -1), p["wo"].to(h.dtype))
@@ -397,15 +410,21 @@ def mlp_defs(cfg, d_ff: int | None = None) -> dict:
             "b_down": ParamSpec((d,), ("embed",), init="zeros")}
 
 
+@spanned("model.ffn")
 def mlp_apply(cfg, p, x, sh):
-    h = apply_norm(cfg.norm_kind, p["ln"], x, cfg.norm_eps)
+    with span("model.ffn.norm"):
+        h = apply_norm(cfg.norm_kind, p["ln"], x, cfg.norm_eps)
     if cfg.mlp_kind == "swiglu":
         g = sh.dot(h, p["w_gate"].to(h.dtype))
         u = sh.dot(h, p["w_up"].to(h.dtype))
-        z = sh(swiglu(g, u), "batch", None, "act_mlp")
+        with span("model.ffn.act"):
+            z = swiglu(g, u)
+        z = sh(z, "batch", None, "act_mlp")
         out = sh.dot(z, p["w_down"].to(h.dtype))
     else:
-        u = gelu(sh.dot(h, p["w_up"].to(h.dtype)) + p["b_up"].to(h.dtype))
+        u = sh.dot(h, p["w_up"].to(h.dtype)) + p["b_up"].to(h.dtype)
+        with span("model.ffn.act"):
+            u = gelu(u)
         u = sh(u, "batch", None, "act_mlp")
         out = sh.dot(u, p["w_down"].to(h.dtype)) + p["b_down"].to(h.dtype)
     return x + sh(out, "batch", "seq", "act_embed")
