@@ -4,30 +4,35 @@ of ``repro.models.moe``).
 The token->expert shuffle is the paper's §3.2 partition-major pack in
 tensor form. Each batch row is a dispatch group (GShard grouping): its
 S·k entries (token-major, choice-minor) are packed stably by destination
-expert into a contiguous [E, C, d] buffer whose offsets are implicit in
-the fixed capacity C, and entries past C are dropped (bounded buffers, as
-the paper bounds worker memory by tasks per stage).
+expert into C slots an expert, offsets implicit in the fixed capacity C,
+and entries past C are dropped (bounded buffers, as the paper bounds
+worker memory by tasks per stage).
 
 The pack is ``kernels/partition_pack`` (the hand-written CUDA kernel on a
-CUDA device, its plain version on the CPU): one call for the B groups,
-with ids b·E + e over B·E partitions. A stable pack of the groups laid end
-to end ranks each entry among the entries of its own group and expert
-only, so its slots are those of the reference's ``dispatch_indices`` (the
-kernel's jnp oracle, ported here as the plain ``dispatch_indices``), drops
-included. C follows from the shapes, so nothing is read back to the host.
-The pack moves each entry's token number (one int32), not its d_model
-row (2048 bf16 values at deepseek-v2-lite's width): the kernel spreads its
-work over tiles of 2048 rows, so whole rows would leave the prefill's
-12,288 entries to 6 tiles, each copied by one SM. The rows then move once,
-in a gather by the packed token numbers, as the reference gathers by
-``dispatch_indices``.
+CUDA device, its plain version on the CPU): one call for the B groups over
+B·E partitions, an entry's partition its (group, expert) pair. A stable
+pack ranks each entry among the entries of its own partition only, so
+whatever the partitions' order, its slots are those of the reference's
+``dispatch_indices`` (the kernel's jnp oracle, ported here as the plain
+``dispatch_indices``), drops included. C follows from the shapes, so
+nothing is read back to the host. The pack moves each entry's token
+number (one int32), not its d_model row (2048 bf16 values at
+deepseek-v2-lite's width): the kernel spreads its work over tiles of 2048
+rows, so whole rows would leave the prefill's 12,288 entries to 6 tiles,
+each copied by one SM. The rows then move once, in a gather by the packed
+token numbers, as the reference gathers by ``dispatch_indices``.
 
-The expert FFN is torch einsum, as the reference leaves it to XLA. The
-combine reads each entry's expert output back at its slot
-(``ops.partition_unpack``: a gather; a dropped entry reads zero, as the
-reference's overflow row C does) and sums a token's k weighted entries in
-a fixed order. It uses no ``index_add_``, whose float atomics add in no
-fixed order on CUDA (fault F3). The shared experts are plain torch.
+On one device the partition of expert e and group b is e·B + b, so the
+packed buffer is expert-major, [E, B, C, d], and nothing permutes it from
+the pack to the combine: the gather writes it as [E, B·C, d], the experts
+are ``torch.bmm`` of it by [E, d, f] weights, and the combine gathers each
+entry's row from the flat [E·B·C, d] output (a dropped entry's row set to
+zero by a select), weights it and sums a token's k entries in a fixed
+order. It uses no ``index_add_``, whose float atomics add in no fixed
+order on CUDA (fault F3). On a mesh the buffer stays batch-major, [B, E,
+C, d] with partitions b·E + e, laid out by ``sh``'s rules (batch and
+experts split); its experts are ``sh.einsum`` and its combine
+``_combine_on_mesh``. The shared experts are plain torch.
 """
 from __future__ import annotations
 
@@ -124,28 +129,48 @@ def dispatch(h: torch.Tensor, experts: torch.Tensor, num_experts: int,
              capacity: int, sh=None):
     """Pack the entries of h [B,S,d] by expert, per batch row, in one
     ``partition_pack`` call: entry j of row b (token j // k, experts
-    [B*S, k]) has id b·E + e. The pack places each entry's token number
+    [B*S, k]) goes to expert e's partition of group b, id e·B + b on one
+    device, b·E + e on a mesh. The pack places each entry's token number
     (1-based: the kernel zero-fills empty slots, and row 0 of the gather
     is zeros); the token rows follow in one gather (on a mesh,
     ``_gather_on_mesh`` with ``sh``'s rules).
-    -> (buf [B, E, C, d] with empty slots zero, ids [B*S*k] int32, slots
-    [B*S*k] int32: an entry's slot within its expert, at or past C where
-    it was dropped)."""
+    -> (buf with empty slots zero: [E, B*C, d] on one device, entry (e,
+    b, slot) at row b·C + slot of expert e, [B, E, C, d] on a mesh; ids
+    [B*S*k] int32; slots [B*S*k] int32: an entry's slot within its
+    expert, at or past C where it was dropped)."""
     B, S, d = h.shape
     k = experts.shape[-1]
     dev = h.device
+    on_mesh = isinstance(h, DTensor)
     group = torch.arange(B, dtype=torch.int32, device=dev)[:, None]
-    ids = (experts.reshape(B, S * k) + num_experts * group).reshape(-1)
+    e = experts.reshape(B, S * k)
+    ids = (e + num_experts * group if on_mesh else e * B + group).reshape(-1)
     token = torch.arange(1, B * S + 1, dtype=torch.int32,
                          device=dev).repeat_interleave(k)[:, None]
     (packed,), _, slots = pp_ops.partition_pack_groups(
         [token], ids, n_parts=B * num_experts, capacity=capacity)
-    if isinstance(h, DTensor):
+    if on_mesh:
         return _gather_on_mesh(h, packed, num_experts, capacity, sh), ids, \
             slots
     rows = torch.cat([h.new_zeros(1, d), h.reshape(B * S, d)])
     buf = index_select(rows, 0, packed.reshape(-1))
-    return buf.view(B, num_experts, capacity, d), ids, slots
+    return buf.view(num_experts, B * capacity, d), ids, slots
+
+
+def combine(eout: torch.Tensor, ids: torch.Tensor, slots: torch.Tensor,
+            weights: torch.Tensor, C: int, S: int, k: int) -> torch.Tensor:
+    """The combine on one device: entry i reads row ids[i]·C + slot of
+    the expert outputs eout [E, B*C, d] seen flat (ids e·B + b), by a
+    gather whose backward adds in a fixed order; a dropped entry (slot at
+    or past C) reads its partition's last row and is set to zero by a
+    select, not a multiply, so that no non-finite value there passes.
+    -> [B, S, d]: each entry's row times its router weight (weights
+    [B*S, k] in eout's dtype), a token's k entries summed in order."""
+    d = eout.shape[-1]
+    rows = index_select(eout.view(-1, d), 0,
+                        ids.long() * C + slots.clamp(max=C - 1))
+    rows = torch.where((slots < C)[:, None], rows, 0)
+    return (rows * weights.reshape(-1, 1)).view(-1, S, k, d).sum(dim=2)
 
 
 def _whole(t, grad=None):
@@ -220,10 +245,11 @@ def _combine_on_mesh(eout: DTensor, ids, slots, weights, S: int, k: int
 @spanned("model.ffn")
 def moe_apply(cfg, p, x, sh):
     """Returns (x + moe_out, aux_loss). While a profiler records, counts
-    the entries that got a slot (``moe.kept``) and the slots computed
-    (``moe.slots``, B·E·C)."""
+    the entries that got a slot (``moe.kept``), the slots computed
+    (``moe.slots``, B·E·C) and, on one device, the calls that ran the
+    expert-major buffer (``moe.expert_major``)."""
     m = cfg.moe
-    B, S, d = x.shape
+    B, S, _ = x.shape
     k = m.top_k
     with span("model.ffn.norm"):
         h = apply_norm(cfg.norm_kind, p["ln"], x, cfg.norm_eps)
@@ -231,28 +257,34 @@ def moe_apply(cfg, p, x, sh):
     C = expert_capacity(S, m.num_experts, k, m.capacity_factor)
 
     ebuf, ids, slots = dispatch(h, experts, m.num_experts, C, sh)
+    on_mesh = isinstance(h, DTensor)
     if recording():
         count("moe.kept", (slots < C).sum())
         count("moe.slots", B * m.num_experts * C)
-    ebuf = sh(ebuf, "batch", "act_experts", None, None)
-    g = sh.einsum("becd,edf->becf", ebuf, p["w_gate"].to(h.dtype))
-    u = sh.einsum("becd,edf->becf", ebuf, p["w_up"].to(h.dtype))
-    with span("model.ffn.act"):
-        z = swiglu(g, u)
-    z = sh(z, "batch", "act_experts", None, None)
-    eout = sh.einsum("becf,efd->becd", z, p["w_down"].to(h.dtype))
-    # combine: each entry's row back from its slot (zero where dropped),
-    # weighted, then a token's k entries summed in order
-    with span("model.ffn.combine"):
-        if isinstance(eout, DTensor):
+        if not on_mesh:
+            count("moe.expert_major", 1)
+    # the experts on the buffer as dispatch laid it out; the combine: each
+    # entry's row back from its slot (zero where dropped), weighted, then a
+    # token's k entries summed in order
+    if on_mesh:
+        ebuf = sh(ebuf, "batch", "act_experts", None, None)
+        g = sh.einsum("becd,edf->becf", ebuf, p["w_gate"].to(h.dtype))
+        u = sh.einsum("becd,edf->becf", ebuf, p["w_up"].to(h.dtype))
+        with span("model.ffn.act"):
+            z = swiglu(g, u)
+        z = sh(z, "batch", "act_experts", None, None)
+        eout = sh.einsum("becf,efd->becd", z, p["w_down"].to(h.dtype))
+        with span("model.ffn.combine"):
             out = _combine_on_mesh(eout, ids, slots, weights.to(h.dtype), S,
                                    k)
-        else:
-            back = pp_ops.partition_unpack(
-                eout.reshape(B * m.num_experts, C, d), ids, slots,
-                C)                                               # [B*S*k,d]
-            back = back * weights.reshape(-1, 1).to(h.dtype)
-            out = back.view(B, S, k, d).sum(dim=2)
+    else:
+        g = torch.bmm(ebuf, p["w_gate"].to(h.dtype))             # [E,B*C,f]
+        u = torch.bmm(ebuf, p["w_up"].to(h.dtype))
+        with span("model.ffn.act"):
+            z = swiglu(g, u)
+        eout = torch.bmm(z, p["w_down"].to(h.dtype))             # [E,B*C,d]
+        with span("model.ffn.combine"):
+            out = combine(eout, ids, slots, weights.to(h.dtype), C, S, k)
 
     if m.num_shared:
         sp = p["shared"]

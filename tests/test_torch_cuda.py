@@ -838,7 +838,9 @@ def test_moe_dispatch_through_pack_equals_dispatch_indices(
         card, B, S, E, k, capacity_factor, hot):
     """One ``pack`` call over B·E ids places every entry where the plain
     per-group ``dispatch_indices`` does, bit for bit, dropped entries
-    included; the buffer equals the CPU's plain pack exactly."""
+    included; the expert-major buffer [E, B·C, d] equals the CPU's plain
+    pack exactly and holds each kept entry's token row at expert e's row
+    b·C + slot."""
     from repro_torch.models import moe as TM
     C = TM.expert_capacity(S, E, k, capacity_factor)
     rng = np.random.default_rng(S + E)
@@ -856,7 +858,15 @@ def test_moe_dispatch_through_pack_equals_dispatch_indices(
                                                  C)
     assert torch.equal(ids.cpu(), want_ids)
     assert torch.equal(slots.cpu(), want_slots)
+    assert buf.shape == (E, B * C, 2048)
     assert torch.equal(buf.cpu(), want_buf)
+    flat = slots.cpu().long()
+    kept = flat < C
+    entry_b = torch.arange(B * S * k) // (S * k)
+    entry_e = torch.from_numpy(e.reshape(-1)).long()
+    assert torch.equal(
+        want_buf[entry_e[kept], entry_b[kept] * C + flat[kept]],
+        h.reshape(B * S, -1)[torch.arange(B * S * k)[kept] // k])
     slots = slots.cpu().view(B, S * k)
     dropped = 0
     for b in range(B):

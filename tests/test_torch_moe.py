@@ -119,7 +119,8 @@ def test_dispatch_indices_match_reference(case):
 def test_dispatch_slots_equal_dispatch_indices(capacity_factor):
     """The port's one pack over B·E ids puts every entry of every group
     where the reference's per-group ``dispatch_indices`` does, dropped
-    entries included, and packs each kept entry's token row there."""
+    entries included, and packs each kept entry's token row there, in the
+    expert-major buffer: expert e's row b·C + slot."""
     _, tcfg = _cfgs(capacity_factor)
     m = tcfg.moe
     B, S, d = 3, 16, 8
@@ -129,7 +130,7 @@ def test_dispatch_slots_equal_dispatch_indices(capacity_factor):
     h = torch.from_numpy(_x(B, S, d, 4))
     buf, ids, slots = TM.dispatch(h, torch.from_numpy(e).view(
         B * S, m.top_k), m.num_experts, C)
-    assert buf.shape == (B, m.num_experts, C, d)
+    assert buf.shape == (m.num_experts, B * C, d)
     slots = slots.view(B, -1)
     dropped = 0
     for b in range(B):
@@ -143,12 +144,68 @@ def test_dispatch_slots_equal_dispatch_indices(capacity_factor):
         np.testing.assert_array_equal(slots[b].numpy()[sort_idx] < C, keep)
         dropped += int((~keep).sum())
         for j in np.flatnonzero(slots[b].numpy() < C):
-            assert torch.equal(buf[b, e[b, j], slots[b, j]],
+            assert torch.equal(buf[e[b, j], b * C + slots[b, j]],
                                h[b, j // m.top_k])
     if capacity_factor == 0.25:
         assert dropped > 0
     if capacity_factor == 100.0:
         assert dropped == 0
+
+
+def _batch_major_combine(eout, ids, slots, weights, C, S, k):
+    """The combine as it read a batch-major buffer: eout [E, B*C, d]
+    relaid [B*E, C, d], each entry unpacked at (b·E + e, slot) by
+    ``ops.partition_unpack`` (zero where dropped), weighted, a token's k
+    entries summed."""
+    from repro_torch.kernels.partition_pack import ops
+    E, BC, d = eout.shape
+    B = BC // C
+    e, b = ids // B, ids % B
+    back = ops.partition_unpack(
+        eout.view(E, B, C, d).transpose(0, 1).reshape(B * E, C, d),
+        b * E + e, slots, C)
+    return (back * weights.reshape(-1, 1)).view(B, S, k, d).sum(dim=2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("capacity_factor", [0.25, 1.5, 100.0],
+                         ids=["drops", "serve", "no-drops"])
+def test_combine_equals_the_batch_major_unpack(capacity_factor, dtype):
+    """The one-device combine, a gather from the expert-major output seen
+    flat, gives the bits of the unpack of the same values laid out batch
+    major, weighted and summed over k, drops included; and a non-finite
+    value in a row that only dropped entries read stays out of the
+    output."""
+    _, tcfg = _cfgs(capacity_factor)
+    m = tcfg.moe
+    E, k = m.num_experts, m.top_k
+    B, S, d = 3, 16, 8
+    C = TM.expert_capacity(S, E, k, capacity_factor)
+    e = np.stack([_experts(S * k, E, b, hot=b == 1) for b in range(B)])
+    _, ids, slots = TM.dispatch(torch.zeros(B, S, d), torch.from_numpy(
+        e).view(B * S, k), E, C)
+    gen = torch.Generator().manual_seed(11)
+    eout = torch.randn(E, B * C, d, generator=gen).to(dtype)
+    w = torch.rand(B * S, k, generator=gen).to(dtype)
+    got = TM.combine(eout, ids, slots, w, C, S, k)
+    assert got.shape == (B, S, d) and got.dtype == dtype
+    assert torch.equal(got, _batch_major_combine(eout, ids, slots, w, C, S,
+                                                 k))
+    if capacity_factor != 0.25:
+        return
+    # drop the kept entry in a full partition's last slot: only dropped
+    # entries read that row now
+    last = int(np.flatnonzero(slots.numpy() == C - 1)[0])
+    slots = slots.clone()
+    slots[last] = C
+    flat = eout.view(-1, d)
+    flat[int(ids[last]) * C + C - 1] = float("nan")
+    flat[int(ids[last]) * C + C - 1, 0] = float("inf")
+    got = TM.combine(eout, ids, slots, w, C, S, k)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, _batch_major_combine(eout, ids, slots, w, C, S,
+                                                 k))
 
 
 @pytest.mark.parametrize("capacity_factor", [0.25, 1.5, 100.0],

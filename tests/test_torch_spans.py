@@ -3,7 +3,9 @@ under a CPU profiler marks each span of the model code once where it
 should, inside its parent on one thread; outside a profiler ``span`` is
 the shared null context and calls nothing of torch's profiler, and no
 counter moves; the results are the same bits with the profiler on or
-off; and ``moe.kept`` counts what the plain ``dispatch_indices`` keeps."""
+off; ``moe.kept`` counts what the plain ``dispatch_indices`` keeps; and
+``moe.expert_major`` counts each MoE layer of a one-device prefill
+once."""
 import dataclasses
 import unittest.mock
 
@@ -112,6 +114,19 @@ def test_results_are_the_same_bits_traced_or_not(model):
     assert len(flat(cache)) == len(flat(want_cache))
 
 
+def test_a_prefill_counts_the_expert_major_path_once_a_moe_layer(model):
+    """On one device every MoE layer runs the expert-major buffer: the
+    counter reads the number of MoE layers (none in the dense model)."""
+    _, cfg, bundle, params, batch = model
+    step = steps.make_prefill_step(bundle)
+    spans.counters()
+    traced(lambda: step(params, batch))
+    got = spans.counters()
+    n_moe = cfg.num_layers - cfg.moe.first_dense if cfg.moe else 0
+    assert got.get("moe.expert_major", 0) == n_moe
+    assert cfg.moe is None or n_moe == 2
+
+
 def test_kept_counts_the_plain_dispatch_keep():
     """At capacity factor 0.5 (8 slots an expert for 16 entries on
     average) entries drop; the counter equals the plain bookkeeping's
@@ -134,5 +149,6 @@ def test_kept_counts_the_plain_dispatch_keep():
                                         C)[2].sum())
                for row in experts.view(B, S * m.top_k))
     assert kept < B * S * m.top_k                     # entries dropped
-    assert got == {"moe.kept": kept, "moe.slots": B * m.num_experts * C}
+    assert got == {"moe.kept": kept, "moe.slots": B * m.num_experts * C,
+                   "moe.expert_major": 1}
 
