@@ -50,7 +50,11 @@ Phases, each printing its own lines and seconds:
      path's main shape, y and state within rtol = atol = 2e-4 in f32 (and,
      at the main shape in bf16, y within one bf16 step), with kernel,
      plain and bound times at the main shape (the bound at the f32 pipes'
-     rate and, beside it, at the 3xTF32 rate the kernels compute at);
+     rate and, beside it, at the 3xTF32 rate the kernels compute at); then
+     granite-4.0-h-small's prefill cell in bf16 (128 heads of 64, state
+     128, chunk 128, 2 x 16,384 and 8 x 4096) with dt drawn small, so that
+     the state carries across chunks (checked: y without the inter-chunk
+     pass lies outside the tolerance);
   8. serve phase: the serve cell of launch/serve (mamba2-2.7b at full
      width and depth, 64 layers, random weights and prompts from
      serve.random_request, drawn in f32). While only the f32 tree is on
@@ -80,7 +84,9 @@ Phases, each printing its own lines and seconds:
      shapes (6 heads of 64, no mask: cross attention of 64 and of 1 query
      against 1500 frames, the encoder's 1500 x 1500) and smollm-135m's
      train shape (B=4, S=512, 16 padded q heads over 4 kv heads of 64,
-     causal), within 2e-5 in f32 and 2e-2 in bf16, with kernel, plain,
+     causal) and granite-4.0-h-small's NoPE prefill (B=2, S=4096, 32 q
+     heads over 8 kv heads of 128, causal) at its softmax scale of 1/128,
+     within 2e-5 in f32 and 2e-2 in bf16, with kernel, plain,
      library (scaled_dot_product_attention with enable_gqa, a window as
      an explicit mask, k and v expanded beforehand under a padded head
      map, timed as a yardstick only, and the kernels it ran, which name
@@ -114,7 +120,11 @@ Phases, each printing its own lines and seconds:
      shapes against the plain per-group dispatch_indices, every slot and
      drop bit for bit, the buffer against the plain pack exactly, and no
      host sync; its time against B calls of 64 partitions, the plain
-     version, a stable sort and gather, and the memory bound;
+     version, a stable sort and gather, and the memory bound; then the
+     expert share of granite-4.0-h-small's cell (top 10 of 72, experts
+     0-35 held): ids of -1 for the entries not held over B x 36
+     partitions at 8 x 4096 and 2 x 16,384, kernel vs plain exactly, and
+     the dispatch's slots (an entry not held dropped);
  14. moe serve phase: the serve cell deepseek-v2-lite-16b at full width
      and depth (27 layers, 15.7 B parameters drawn in f32 and cast in
      place to bf16), as in phase 8: flash_gqa must launch
@@ -191,6 +201,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import resource
 import subprocess
 import sys
@@ -266,6 +277,15 @@ SSD_CASES = [                      # B, S, H, P, G, N, chunk
     (2, 16, 8, 16, 1, 16, 8),                                 # smoke chunk
     (1, 24, 2, 16, 1, 16, 128)]                               # S < chunk
 SSD_MAIN = (4, 512, 80, 64, 1, 128, 128)   # the serve phase's prefill
+# granite-4.0-h-small's prefill cell in bf16 (bench/, prefill_longdoc):
+# 128 heads of 64, one group of state 128, chunk 128, at its longest
+# (2 x 16,384: 128 chunks) and shortest (8 x 4096) batch. dt is drawn
+# small (softplus(N - 4), about 0.02 a step), so that a chunk decays by
+# about e^-2.6 and the state carries across chunks: the inter-chunk pass
+# moves y by O(1) and a scan that dropped it fails
+SSD_CELL = [(2, 16384, 128, 64, 1, 128, 128),
+            (8, 4096, 128, 64, 1, 128, 128)]
+SSD_CELL_DT_SHIFT = -4.0
 # bf16 keeps 8 significant bits. Prefill (chunked SSD, one GEMM over 2048
 # rows) and decode (recurrence, one row at a time) round at other places in
 # each of 64 layers, and through random layers the rounding grows with
@@ -316,6 +336,12 @@ FLASH_NEW = {
     "encoder": ((4, 1500, 6, 6, 64, False, 0, None), None),
     "smollm_train": ((4, 512, 16, 4, 64, True, 0, SMOLLM_MAP), None),
 }
+# granite-4.0-h-small's NoPE attention (32 query heads over 8 kv heads of
+# 128) at its softmax scale, attention_multiplier 1/128 (the launch's
+# argument, not 1/sqrt(128)), on the cell's 4096-token requests; the batch
+# is cut to 2 of 8, since the plain version holds f32 scores [B, H, S, S]
+# (4.3 GB at 2)
+FLASH_GRANITE, GRANITE_SCALE = (2, 4096, 32, 8, 128, True, 0, None), 1 / 128
 # f32: sums in another order; bf16: each side rounds its f32 output once
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 DENSE_ARCH, SMOLLM_ARCH = "glm4-9b", "smollm-135m"
@@ -329,6 +355,11 @@ MOE_PARITY_LAYERS, MOE_PARITY_PROMPT = 3, 128
 # the MoE dispatch at the serve cell's prefill and decode step: 4 groups
 # of S tokens, top 6 of 64 experts, d_model 2048 in bf16
 MOE_DISPATCH = {"prefill": 512, "decode": 1}
+# the expert share of granite-4.0-h-small's prefill cell (bench/,
+# prefill_longdoc): top 10 of 72 experts routed, the first 36 held, at the
+# cell's batches (B, S): its shortest and longest requests
+SHARE_ARCH, SHARE_HELD = "granite-4.0-h-small", 36
+SHARE_BATCHES = ((8, 4096), (2, 16384))
 # this slice's serve cells (launch/serve.CELLS). recurrentgemma-9b and
 # whisper-tiny draw f32 weights and take the f32 answer, as the earlier
 # cells do; llama4 draws bf16 (4 of 48 layers, 70.7 GB) and has no f32
@@ -526,11 +557,17 @@ def pack_case(label: str, groups: list[torch.Tensor], ids: torch.Tensor,
     one call."""
     before = K.launches
     err = check_pack(label, groups, ids, n_parts, capacity)
+    # ids outside [0, n_parts) (an expert share's entries not held) take
+    # the plain version that selects the others first
+    valid_ids = bool(((ids >= 0) & (ids < n_parts)).all())
 
     def plain():
-        slot, _, keep = pp_ref.pack_indices(ids, n_parts, capacity)
-        for g in groups:
-            pp_ref.pack_rows(g, ids, slot, keep, n_parts, capacity)
+        if valid_ids:
+            slot, _, keep = pp_ref.pack_indices(ids, n_parts, capacity)
+            for g in groups:
+                pp_ref.pack_rows(g, ids, slot, keep, n_parts, capacity)
+        else:
+            K.plain_pack(groups, ids, n_parts, capacity)
 
     def library():
         order = torch.sort(ids, stable=True).indices
@@ -999,13 +1036,14 @@ def grad_phase(dev):
 
 
 # -------------------------------------------------------------- ssd kernel
-def ssd_inputs(B, S, H, P, G, N, seed, dev, dtype=torch.float32):
-    """x, dt (post-softplus), A, Bm, Cm from numpy, as the Pallas kernel
-    test draws them."""
+def ssd_inputs(B, S, H, P, G, N, seed, dev, dtype=torch.float32,
+               dt_shift=-1.0):
+    """x, dt (post-softplus, softplus(N(0, 1) + ``dt_shift``)), A, Bm, Cm
+    from numpy, as the Pallas kernel test draws them."""
     rng = np.random.default_rng(seed)
     f = np.float32
     x = rng.standard_normal((B, S, H, P)).astype(f)
-    dt = np.logaddexp(rng.standard_normal((B, S, H)) - 1.0, 0).astype(f)
+    dt = np.logaddexp(rng.standard_normal((B, S, H)) + dt_shift, 0).astype(f)
     A = (-np.exp(rng.standard_normal(H) * 0.3)).astype(f)
     Bm = (rng.standard_normal((B, S, G, N)) * 0.3).astype(f)
     Cm = (rng.standard_normal((B, S, G, N)) * 0.3).astype(f)
@@ -1013,12 +1051,14 @@ def ssd_inputs(B, S, H, P, G, N, seed, dev, dtype=torch.float32):
     return (t(x).to(dtype), t(dt), t(A), t(Bm).to(dtype), t(Cm).to(dtype))
 
 
-def ssd_case(label, shape, dev, dtype=torch.float32, timed=False) -> dict:
+def ssd_case(label, shape, dev, dtype=torch.float32, timed=False,
+             dt_shift=-1.0) -> dict:
     """Kernel vs plain on the card: y and state within rtol = atol = 2e-4
     in f32; in bf16 the state so too and y within one bf16 step (2^-7
-    relative: each side rounds its own f32 sum once)."""
+    relative: each side rounds its own f32 sum once). ``dt_shift``: see
+    ``ssd_inputs``."""
     B, S, H, P, G, N, chunk = shape
-    args = ssd_inputs(B, S, H, P, G, N, S + P, dev, dtype)
+    args = ssd_inputs(B, S, H, P, G, N, S + P, dev, dtype, dt_shift)
     y, st = SK.ssd_scan(*args, chunk=chunk)
     torch.cuda.synchronize()
     y_r, st_r = ssd_chunked(*args, chunk)
@@ -1064,7 +1104,42 @@ def ssd_phase(dev) -> tuple[dict, float]:
     err = max(err, r["max_abs_err_y"], r["max_abs_err_state"])
     main_rec = ssd_case(f"main {SSD_MAIN} bf16", SSD_MAIN, dev,
                         torch.bfloat16, timed=True)
+    err = max(err, ssd_cell_cases(dev))
     return main_rec, err
+
+
+def ssd_cell_cases(dev) -> float:
+    """``SSD_CELL`` in bf16 with dt drawn small, first with the state
+    carried: y without the inter-chunk pass (each chunk from a zero state,
+    one call a chunk of the plain version) must differ from the plain
+    version by more than the check's tolerance, else the case could not
+    see a scan that dropped it. -> the largest error."""
+    err = 0.0
+    for shape in SSD_CELL:
+        B, S, H, P, G, N, chunk = shape
+        x, dt, A, Bm, Cm = ssd_inputs(B, S, H, P, G, N, S + P, dev,
+                                      torch.bfloat16, SSD_CELL_DT_SHIFT)
+        y_r, _ = ssd_chunked(x, dt, A, Bm, Cm, chunk)
+        y_r = y_r.float()
+        c = S // chunk
+        fold = lambda t: t.reshape(B, c, chunk, *t.shape[2:]).flatten(0, 1)
+        y_cut, _ = ssd_chunked(fold(x), fold(dt), A, fold(Bm), fold(Cm),
+                               chunk)
+        moved = (y_cut.float().reshape(y_r.shape) - y_r).abs()
+        carried = bool((moved > 2e-4 + 2 ** -7 * y_r.abs()).any())
+        del x, dt, Bm, Cm, y_r, y_cut
+        check(carried, f"ssd cell {shape}: the inter-chunk pass moves y by "
+              f"at most {float(moved.max())}, inside the tolerance")
+        print("[ssd] " + json.dumps({
+            "case": f"cell {shape}", "inter_chunk_max_abs": float(
+                moved.max()), "inter_chunk_mean_abs": float(moved.mean())}),
+              flush=True)
+        del moved
+        r = ssd_case(f"cell {shape} bf16", shape, dev, torch.bfloat16,
+                     dt_shift=SSD_CELL_DT_SHIFT)
+        err = max(err, r["max_abs_err_y"], r["max_abs_err_state"])
+        torch.cuda.empty_cache()
+    return err
 
 
 # ------------------------------------------------------------------- serve
@@ -1475,6 +1550,43 @@ def moe_dispatch_phase(dev) -> list[dict]:
     return recs
 
 
+def share_pack_phase(dev) -> list[dict]:
+    """partition_pack on the expert share of ``SHARE_ARCH``'s cell, with
+    ids as ``models/moe.dispatch`` lays them out: e·B + b for an entry of
+    a held expert (0 .. SHARE_HELD - 1), -1 for the others (no partition),
+    over B·SHARE_HELD partitions at the capacity of all the experts
+    routed, experts picked as the router picks them (10 distinct of 72):
+    kernel vs plain exactly, with times and the memory bound
+    (``pack_case``); then the dispatch's slots equal the plain pack's,
+    an entry not held at slot C (a drop)."""
+    m = get_config(SHARE_ARCH).moe
+    E, k = m.num_experts, m.top_k
+    recs = []
+    for B, S in SHARE_BATCHES:
+        C = MOE.expert_capacity(S, E, k, m.capacity_factor)
+        rng = np.random.default_rng(B * S)
+        experts = torch.topk(torch.from_numpy(rng.standard_normal(
+            (B * S, E)).astype(np.float32)), k).indices.to(torch.int32)
+        experts = experts.to(dev)
+        group = torch.arange(B, dtype=torch.int32, device=dev)[:, None]
+        e = experts.view(B, S * k)
+        ids = torch.where(e < SHARE_HELD, e * B + group, -1).reshape(-1)
+        token = torch.arange(1, B * S + 1, dtype=torch.int32,
+                             device=dev).repeat_interleave(k)[:, None]
+        label = f"share B={B} S={S} held {SHARE_HELD} of {E}"
+        rec = pack_case(label, [token], ids, B * SHARE_HELD, C)
+        h = torch.zeros(B, S, 8, dtype=torch.bfloat16, device=dev)
+        _, _, slots = MOE.dispatch(h, experts, E, C, first=0,
+                                   n_held=SHARE_HELD)
+        _, _, want = K.plain_pack([token], ids, B * SHARE_HELD, C)
+        check(torch.equal(slots, torch.where(want < 0, C, want)),
+              f"{label}: the dispatch's slots differ from the plain pack")
+        rec["entries_not_held"] = int((ids < 0).sum())
+        print("[share-pack] " + json.dumps(rec), flush=True)
+        recs.append(rec)
+    return recs
+
+
 # ------------------------------------------------------------ flash kernel
 def flash_inputs(B, S, H, Hkv, D, seed, dev, dtype, Dv=None, Sq=None,
                  q_scale=1.0):
@@ -1488,14 +1600,18 @@ def flash_inputs(B, S, H, Hkv, D, seed, dev, dtype, Dv=None, Sq=None,
             for a in arrs]
 
 
-def flash_case(shape, dev, dtype, timed=False, dv=None, sq=None) -> dict:
+def flash_case(shape, dev, dtype, timed=False, dv=None, sq=None,
+               scale=None) -> dict:
     """Kernel vs plain on the card: |o - want| <= tol + tol * |want|, tol
     2e-5 in f32, 2e-2 in bf16 (the Pallas kernel test's); ``dv``: v's head
     dim where it is not q's; ``sq``: the queries' length where it is not
     the keys' (no mask: cross attention; q then at 3 times the unit scale,
     so that the softmax is sharp and the outputs O(1): at unit scale over
     1500 keys they are about 0.03, and the tolerance would pass an output
-    10 % off). Each case checks that its tolerance fails an output 10 %
+    10 % off); ``scale``: the softmax scale where it is not 1/sqrt(D) (q
+    then at 1/(scale·sqrt(D)) times its scale, so that the scores spread
+    as at the default; a launch that left the scale out would put them
+    sqrt(D) times wider). Each case checks that its tolerance fails an output 10 %
     off. The record names the body that ran (``flash_gqa.body``), held
     against the CUDA functions a CUDA graph of the call holds, as the
     driver recorded them (``kernels/_graph.launched_functions``), and
@@ -1506,18 +1622,21 @@ def flash_case(shape, dev, dtype, timed=False, dv=None, sq=None) -> dict:
     an explicit mask) and the kernels it ran (which name its backend)."""
     B, S, H, Hkv, D, causal, window, kv_head = shape
     Sq = sq or S
+    q_scale = 1.0 if causal or window else 3.0
+    if scale is not None:
+        q_scale /= scale * math.sqrt(D)
     q, k, v = flash_inputs(B, S, H, Hkv, D, S + H, dev, dtype, dv, Sq,
-                           1.0 if causal or window else 3.0)
+                           q_scale)
     m = torch.tensor(kv_head if kv_head is not None
                      else [h // (H // Hkv) for h in range(H)], device=dev)
 
     def plain():
         return attention_ref(q, k.index_select(2, m), v.index_select(2, m),
-                             causal=causal, window=window)
+                             causal=causal, window=window, scale=scale)
 
     def kernel():
         return FK.flash_gqa(q, k, v, causal=causal, window=window,
-                            kv_head=kv_head)
+                            kv_head=kv_head, scale=scale)
 
     o = kernel()
     torch.cuda.synchronize()
@@ -1527,7 +1646,8 @@ def flash_case(shape, dev, dtype, timed=False, dv=None, sq=None) -> dict:
     tol = FLASH_TOL[dtype]
     label = (f"{shape[:7]}{f' Sq={sq}' if sq else ''}"
              f"{f' Dv={dv}' if dv else ''}"
-             f"{' padded map' if kv_head else ''} {dtype}")
+             f"{' padded map' if kv_head else ''}"
+             f"{f' scale={scale}' if scale else ''} {dtype}")
     err = float((o.float() - want.float()).abs().max())
     check(bool(torch.isfinite(o).all()), f"flash {label}: not finite")
     check(bool(((o.float() - want.float()).abs()
@@ -1569,7 +1689,7 @@ def flash_case(shape, dev, dtype, timed=False, dv=None, sq=None) -> dict:
         def library():
             return torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, is_causal=causal and not window,
-                enable_gqa=True)
+                enable_gqa=True, scale=scale)
 
         lib_err = float((library().transpose(1, 2).float()
                          - want.float()).abs().max())
@@ -1614,7 +1734,8 @@ def flash_phase(dev) -> tuple[dict, dict, dict, float]:
     """-> (the main shape's record in the serve path's bf16, MLA's prefill
     shape's in bf16, the records of this slice's shapes in bf16 by name
     (head dim 256 causal and windowed, whisper's cross attention at the
-    prefill and a decode step, its encoder, smollm-135m's train shape),
+    prefill and a decode step, its encoder, smollm-135m's train shape,
+    granite's prefill at its softmax scale),
     the largest error of any case in either dtype)."""
     torch.backends.cuda.matmul.allow_tf32 = False     # the plain version in
     torch.backends.cudnn.allow_tf32 = False           # full f32
@@ -1640,6 +1761,13 @@ def flash_phase(dev) -> tuple[dict, dict, dict, float]:
             "body", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by", "max_abs_err")}
         err = max(err, f32["max_abs_err"], new[name]["max_abs_err"])
+    f32 = flash_case(FLASH_GRANITE, dev, torch.float32, scale=GRANITE_SCALE)
+    new["granite_prefill"] = flash_case(FLASH_GRANITE, dev, torch.bfloat16,
+                                        timed=True, scale=GRANITE_SCALE)
+    new["granite_prefill"]["f32"] = {key: f32[key] for key in (
+        "body", "max_abs_err")}
+    err = max(err, f32["max_abs_err"],
+              new["granite_prefill"]["max_abs_err"])
     return main_rec, mla_rec, new, max(err, main_rec["max_abs_err"],
                                        mla_rec["max_abs_err"])
 
@@ -2117,13 +2245,14 @@ def hold_glm4_train_4k(rec: dict) -> None:
 
 
 def start_mesh_workers() -> list:
-    """One ``--mesh-worker`` process an arch (each starts its own fake
-    process group), all at once: -> [(arch, Popen)]."""
+    """One ``--mesh-worker`` process an arch that the reference has (each
+    starts its own fake process group), all at once: -> [(arch, Popen)]."""
+    import _torch_mesh as TM
     from repro_torch.configs.base import registry
     return [(arch, subprocess.Popen(
         [sys.executable, str(Path(__file__).resolve()), "--mesh-worker",
          arch], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-        for arch in sorted(registry())]
+        for arch in sorted(registry()) if arch not in TM.NO_REFERENCE]
 
 
 def mesh_worker(arch: str) -> None:
@@ -2324,6 +2453,7 @@ def main() -> int:
     t0 = time.perf_counter()
     release()
     dispatch_recs = moe_dispatch_phase(dev)
+    share_pack_phase(dev)
     phase("moe dispatch", t0)
 
     t0 = time.perf_counter()

@@ -34,12 +34,20 @@ class MoEConfig:
     first_dense: int = 0            # leading dense layers (deepseek: 1)
     dense_d_ff: int = 0             # d_ff used by the dense layers in MoE nets
     router_impl: str = "topk"       # topk | sinkhorn (future)
+    shared_d_ff: int = 0            # the shared experts' width; 0 ->
+                                    # num_shared * expert_d_ff
+    # the chip's expert share: the experts first_held .. first_held +
+    # held_experts - 1 of the num_experts routed over live here (their
+    # weights, their part of each layer's result); 0 -> all of them
+    held_experts: int = 0
+    first_held: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # dense | moe | ssm | hybrid | audio | vlm
+    family: str                     # dense | moe | ssm | hybrid | hybrid_moe
+                                    # | audio | vlm
     num_layers: int
     d_model: int
     num_heads: int
@@ -83,6 +91,15 @@ class ModelConfig:
     # --- hybrid (recurrentgemma): repeating block pattern ---
     block_pattern: tuple[str, ...] = ()   # e.g. ("rec","rec","attn")
     lru_width: int = 0
+    # --- hybrid_moe (granite-4.0-h): each layer's mixer, "mamba" or
+    # "attention", as published; a cut in depth keeps the first num_layers
+    layer_types: tuple[str, ...] = ()
+    # --- muP multipliers (granite-4.0-h); at their defaults nothing runs
+    embedding_multiplier: float = 1.0   # the embedding's output x this
+    residual_multiplier: float = 1.0    # each sublayer's output x this
+                                        # before its residual add
+    logits_scaling: float = 1.0         # the logits / this
+    attention_multiplier: float = 0.0   # softmax scale; 0 -> 1/sqrt(head_dim)
     # --- enc-dec (whisper) ---
     encoder_layers: int = 0
     encoder_seq: int = 1500         # precomputed frame embeddings (stub frontend)
@@ -158,6 +175,7 @@ def registry() -> dict[str, Any]:
     # import side-effect registration
     from repro_torch.configs import deepseek_v2_lite  # noqa: F401
     from repro_torch.configs import glm4_9b  # noqa: F401
+    from repro_torch.configs import granite4_h_small  # noqa: F401
     from repro_torch.configs import granite_20b  # noqa: F401
     from repro_torch.configs import llama4_maverick_400b  # noqa: F401
     from repro_torch.configs import mamba2_2p7b  # noqa: F401

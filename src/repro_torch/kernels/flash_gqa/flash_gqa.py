@@ -257,14 +257,15 @@ def count_routed():
         routed += 1
 
 
-def plain(q, k, v, *, causal: bool = True, window: int = 0, kv_head=None):
+def plain(q, k, v, *, causal: bool = True, window: int = 0, kv_head=None,
+          scale: float | None = None):
     """The plain version on any device: ``attention_ref`` over k and v
     gathered to the query heads by the map (refusing what ``check_args``
     refuses)."""
     m = torch.tensor(check_args(q, k, v, window, kv_head, causal),
                      device=q.device)
     return attention_ref(q, index_select(k, 2, m), index_select(v, 2, m),
-                         causal=causal, window=window)
+                         causal=causal, window=window, scale=scale)
 
 
 def _map_on(m: tuple[int, ...], dev: torch.device) -> torch.Tensor:
@@ -278,18 +279,19 @@ def _map_on(m: tuple[int, ...], dev: torch.device) -> torch.Tensor:
 
 def flash_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int = 0, kv_head=None,
-              impl: str = "chunked", chunk: int | None = None
-              ) -> torch.Tensor:
+              impl: str = "chunked", chunk: int | None = None,
+              scale: float | None = None) -> torch.Tensor:
     """q [B,Sq,H,D], k [B,Skv,Hkv,D], v [B,Skv,Hkv,Dv], contiguous on one
     CUDA device, f32 or bf16 alike (Sq == Skv unless neither ``causal``
     nor ``window``); ``kv_head``: query head -> kv head (host ints, default
-    h // (H / Hkv)). -> o [B,Sq,H,Dv] in q's dtype: softmax(q.k / sqrt(D))
-    v over the keys at or before each query (``causal``) and within the
-    last ``window`` positions (``window`` > 0). Differentiable in q, k and
-    v through ``grads`` at ``impl`` and ``chunk`` (the model's
-    ``attn_impl`` and ``attn_chunk``; ``chunk`` None: one chunk of Sq
-    queries)."""
-    kw = {"causal": causal, "window": window, "kv_head": kv_head}
+    h // (H / Hkv)). -> o [B,Sq,H,Dv] in q's dtype: softmax(q.k * scale)
+    v (``scale`` None: 1/sqrt(D)) over the keys at or before each query
+    (``causal``) and within the last ``window`` positions (``window`` >
+    0). Differentiable in q, k and v through ``grads`` at ``impl`` and
+    ``chunk`` (the model's ``attn_impl`` and ``attn_chunk``; ``chunk``
+    None: one chunk of Sq queries)."""
+    kw = {"causal": causal, "window": window, "kv_head": kv_head,
+          "scale": scale}
     launch = _shape_only if q.device.type == "meta" else _launch
 
     def vjp(saved, gouts, need):
@@ -299,7 +301,8 @@ def flash_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def grads(q, k, v, go, *, causal: bool = True, window: int = 0,
-          kv_head=None, impl: str = "chunked", chunk: int | None = None):
+          kv_head=None, impl: str = "chunked", chunk: int | None = None,
+          scale: float | None = None):
     """The backward of a ``flash_gqa`` call under the cotangent ``go``
     [B,Sq,H,Dv] (None: no gradient) -> (dq, dk, dv): ``attention_vjp`` of
     the model's algorithm at ``impl`` and ``chunk`` over k and v gathered
@@ -311,13 +314,15 @@ def grads(q, k, v, go, *, causal: bool = True, window: int = 0,
     idx = torch.tensor(m, device=q.device)
     dq, dk, dv = attention_vjp(
         q, k.index_select(2, idx), v.index_select(2, idx), go, impl=impl,
-        causal=causal, window=window, chunk=chunk or q.shape[1])
+        causal=causal, window=window, chunk=chunk or q.shape[1],
+        scale=scale)
     Hkv = k.shape[2]
     return dq, add_rows(dk, 2, idx, Hkv), add_rows(dv, 2, idx, Hkv)
 
 
 def _shape_only(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                causal: bool, window: int, kv_head) -> torch.Tensor:
+                causal: bool, window: int, kv_head, scale=None
+                ) -> torch.Tensor:
     """The launch on the meta device: the checks and the output a launch
     allocates, nothing computed and nothing counted."""
     check_args(q, k, v, window, kv_head, causal)
@@ -333,9 +338,10 @@ def _sm_count(dev: torch.device) -> int:
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-            causal: bool, window: int, kv_head,
+            causal: bool, window: int, kv_head, scale: float | None = None,
             which: str | None = None) -> torch.Tensor:
-    """One launch of the kernel (``flash_gqa`` without autograd): the body
+    """One launch of the kernel (``flash_gqa`` without autograd), softmax
+    scale ``scale`` (None: 1/sqrt(D)): the body
     ``body`` names, or ``which`` (to time two bodies at one shape: "split"
     or the tiled body of the dtype and head dims, the wgmma body with its
     kv split)."""
@@ -377,7 +383,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         err = lib.flash_gqa(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
                             v.data_ptr(), kvh.data_ptr(), o.data_ptr(), B, S,
                             Skv, H, Hkv, D, Dv, int(causal), window,
-                            1.0 / math.sqrt(D),
+                            1.0 / math.sqrt(D) if scale is None else scale,
                             None if scratch is None else scratch.data_ptr(),
                             n_split, whole, stream)
     if err:

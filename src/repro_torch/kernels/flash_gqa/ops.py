@@ -60,15 +60,16 @@ def model_work(q_shape, k_shape, v_shape, *, causal: bool = True,
 
 
 def flash_gqa(q, k, v, *, causal: bool = True, window: int = 0,
-              kv_head=None, impl: str = "chunked", chunk: int | None = None):
+              kv_head=None, impl: str = "chunked", chunk: int | None = None,
+              scale: float | None = None):
     """q [B,Sq,H,D]; k [B,Skv,Hkv,D]; v [B,Skv,Hkv,Dv] (Sq == Skv unless
     neither ``causal`` nor ``window``); ``kv_head`` maps query head h to
     its kv head (host ints; default h // (H / Hkv)); ``impl`` and
     ``chunk``: the model's attention algorithm, which the backward
-    differentiates and a step analysis counts (``model_work``). -> o
-    [B,Sq,H,Dv] in q's dtype."""
+    differentiates and a step analysis counts (``model_work``); ``scale``:
+    the softmax scale (None: 1/sqrt(D)). -> o [B,Sq,H,Dv] in q's dtype."""
     kw = {"causal": causal, "window": window, "kv_head": kv_head,
-          "impl": impl, "chunk": chunk}
+          "impl": impl, "chunk": chunk, "scale": scale}
     if isinstance(q, DTensor):
         return _on_mesh(q, k, v, **kw)
     if kernels.kernel_route(q):
@@ -79,10 +80,11 @@ def flash_gqa(q, k, v, *, causal: bool = True, window: int = 0,
             return K.flash_gqa(q, k, v, **kw)
     if q.device.type != "cpu":
         raise ValueError(f"flash_gqa has no path for {q.device}")
-    return K.plain(q, k, v, causal=causal, window=window, kv_head=kv_head)
+    return K.plain(q, k, v, causal=causal, window=window, kv_head=kv_head,
+                   scale=scale)
 
 
-def _on_mesh(q, k, v, *, causal, window, kv_head, impl, chunk):
+def _on_mesh(q, k, v, *, causal, window, kv_head, impl, chunk, scale):
     """The call on DTensors: on each mesh dim, q, k and v keep a batch
     split where q has one (k and v take it too), q keeps a head split (k
     and v are gathered whole, and each device maps its own q heads, so
@@ -111,5 +113,6 @@ def _on_mesh(q, k, v, *, causal, window, kv_head, impl, chunk):
     kg = [Partial() if p == Shard(2) else r for p, r in zip(qp, kp)]
     o = flash_gqa(q.to_local(), k.to_local(grad_placements=kg),
                   v.to_local(grad_placements=kg), causal=causal,
-                  window=window, kv_head=heads, impl=impl, chunk=chunk)
+                  window=window, kv_head=heads, impl=impl, chunk=chunk,
+                  scale=scale)
     return kernels.from_local(o, mesh, qp, (*q.shape[:3], v.shape[3]))

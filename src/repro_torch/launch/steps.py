@@ -16,7 +16,8 @@ from __future__ import annotations
 import torch
 from torch.distributed.tensor import DTensor
 
-from repro_torch.models.model import ModelBundle, _llama4_subkinds
+from repro_torch.models.model import (ModelBundle, _llama4_subkinds,
+                                      layer_kinds)
 from repro_torch.models.modules import (ParamSpec, init_params, tree_leaves,
                                         tree_map)
 from repro_torch.obs.spans import span
@@ -116,9 +117,12 @@ def attention_layers(cfg) -> int:
     """flash_gqa calls of one prefill of ``cfg``: one an attention layer
     (llama4's chunked-local layers make one call over B·S/C chunks),
     griffin's attention layers only (one of each (rec, rec, attn) triple),
-    and whisper's encoder, decoder self and cross attention layers."""
+    granite-4.0-h's attention layers, and whisper's encoder, decoder self
+    and cross attention layers."""
     if cfg.family == "ssm":
         return 0
+    if cfg.family == "hybrid_moe":
+        return layer_kinds(cfg).count("attention")
     if cfg.family == "hybrid":
         pat = cfg.block_pattern
         return cfg.num_layers // len(pat) * pat.count("attn")
@@ -130,7 +134,10 @@ def attention_layers(cfg) -> int:
 def moe_layers(cfg) -> int:
     """partition_pack calls of one prefill or decode step of ``cfg``: one
     a MoE layer (deepseek-v2: every layer after ``first_dense``; llama4:
-    the MoE sub-layers of each super-block, every second one)."""
+    the MoE sub-layers of each super-block, every second one;
+    granite-4.0-h: every layer)."""
+    if cfg.family == "hybrid_moe":
+        return cfg.num_layers
     if cfg.family != "moe":
         return 0
     if cfg.attn_kind == "mla":
@@ -139,13 +146,22 @@ def moe_layers(cfg) -> int:
     return cfg.num_layers // len(kinds) * sum(m == "moe" for _, m in kinds)
 
 
+def mamba_layers(cfg) -> int:
+    """ssd_scan calls of one prefill of ``cfg``: one a Mamba layer."""
+    if cfg.family == "ssm":
+        return cfg.num_layers
+    if cfg.family == "hybrid_moe":
+        return layer_kinds(cfg).count("mamba")
+    return 0
+
+
 def prefill_launches(cfg) -> dict:
     """The launches of each kernel that one prefill of ``cfg`` makes:
-    ssd_scan once a Mamba layer, flash_gqa once an attention layer
-    (``attention_layers``), partition_pack once a MoE layer (the
-    dispatch, ``moe_layers``)."""
+    ssd_scan once a Mamba layer (``mamba_layers``), flash_gqa once an
+    attention layer (``attention_layers``), partition_pack once a MoE
+    layer (the dispatch, ``moe_layers``)."""
     return {"partition_pack": moe_layers(cfg),
-            "ssd_scan": cfg.num_layers if cfg.family == "ssm" else 0,
+            "ssd_scan": mamba_layers(cfg),
             "flash_gqa": attention_layers(cfg)}
 
 
@@ -158,7 +174,8 @@ def train_launches(cfg) -> dict:
     (kernels/_autograd.py) and launches nothing. Outside such a body it
     launches once: deepseek's dense layer 0 runs outside, as in the
     reference. Bodies: a Mamba or decoder layer, deepseek's MoE layers,
-    llama4's super-blocks, griffin's triples, whisper's layers."""
+    llama4's super-blocks, griffin's triples, whisper's layers,
+    granite-4.0-h's layers."""
     n = prefill_launches(cfg)
     if cfg.remat != "none":
         n = {k: 2 * v for k, v in n.items()}

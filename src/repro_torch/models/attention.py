@@ -98,6 +98,11 @@ def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
     return torch.repeat_interleave(k, n_rep, dim=2)
 
 
+def _scale(scale: float | None, D: int) -> float:
+    """The softmax scale: ``scale``, or 1/sqrt(D) where it is None."""
+    return 1.0 / math.sqrt(D) if scale is None else scale
+
+
 def _scores(q, k, scale):
     """f32 scores [B,H,q,k] of q [B,q,H,D] against k [B,k,H,D]."""
     return torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
@@ -106,17 +111,19 @@ def _scores(q, k, scale):
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: int = 0,
                       chunk: int = 1024, q_offset=0,
-                      kv_valid_len=None) -> torch.Tensor:
+                      kv_valid_len=None, scale: float | None = None
+                      ) -> torch.Tensor:
     """Memory-bounded attention: a loop over query chunks.
 
     q [B,Sq,H,D], k/v [B,Skv,H,D(v)] (kv already head-repeated).
     window > 0 limits attention to the last ``window`` positions (inclusive
     of self). q_offset: global position of q[0] relative to k[0].
     kv_valid_len [B]: keys at or past it are masked per batch row.
+    scale: the softmax scale (None: 1/sqrt(D)).
     """
     B, Sq, H, D = q.shape
     Skv = k.shape[1]
-    scale = 1.0 / math.sqrt(D)
+    scale = _scale(scale, D)
     chunk = min(chunk, Sq)
     pad = (-Sq) % chunk
     if pad:
@@ -208,7 +215,7 @@ SPLIT_DEPTH = 3                   # causal_split_attention's recursion
 
 
 def causal_split_attention(q, k, v, *, chunk=512, q_offset=0,
-                           depth=SPLIT_DEPTH):
+                           depth=SPLIT_DEPTH, scale=None):
     """Recursive causal decomposition (the triangular skip in plain
     PyTorch): the lower query half attends only to the lower KV half
     (recurse); the upper half attends to everything (plain masked chunked
@@ -218,23 +225,23 @@ def causal_split_attention(q, k, v, *, chunk=512, q_offset=0,
     if depth <= 0 or S < 2 * chunk or S % 2 or q_offset != 0 \
             or k.shape[1] != S:
         return chunked_attention(q, k, v, causal=True, chunk=chunk,
-                                 q_offset=q_offset)
+                                 q_offset=q_offset, scale=scale)
     half = S // 2
     lo = causal_split_attention(q[:, :half], k[:, :half], v[:, :half],
-                                chunk=chunk, depth=depth - 1)
+                                chunk=chunk, depth=depth - 1, scale=scale)
     hi = chunked_attention(q[:, half:], k, v, causal=True, chunk=chunk,
-                           q_offset=half)
+                           q_offset=half, scale=scale)
     return torch.cat([lo, hi], dim=1)
 
 
 def attention(q, k, v, *, impl="chunked", causal=True, window=0, chunk=1024,
-              q_offset=0, kv_valid_len=None):
+              q_offset=0, kv_valid_len=None, scale=None):
     if impl == "block_tri" and causal and kv_valid_len is None \
             and window == 0 and q_offset == 0 and k.shape[1] == q.shape[1]:
-        return causal_split_attention(q, k, v, chunk=chunk)
+        return causal_split_attention(q, k, v, chunk=chunk, scale=scale)
     return chunked_attention(q, k, v, causal=causal, window=window,
                              chunk=chunk, q_offset=q_offset,
-                             kv_valid_len=kv_valid_len)
+                             kv_valid_len=kv_valid_len, scale=scale)
 
 
 def attention_chunks(Sq: int, Skv: int, *, impl="chunked", causal=True,
@@ -262,7 +269,7 @@ def attention_chunks(Sq: int, Skv: int, *, impl="chunked", causal=True,
 
 
 def attention_vjp(q, k, v, go, *, impl="chunked", causal=True, window=0,
-                  chunk=1024):
+                  chunk=1024, scale=None):
     """The gradients (dq, dk, dv) of ``attention(q, k, v, impl=, causal=,
     window=, chunk=)`` under the cotangent ``go`` [B,Sq,H,Dv], k and v at
     q's heads, in the dtypes of q, k and v. It takes the chunks of
@@ -272,9 +279,10 @@ def attention_vjp(q, k, v, go, *, impl="chunked", causal=True, window=0,
     matrix outlives its chunk: five products a chunk (the scores, then
     dv = p^T.go, dp = go.v^T, dq = ds.k and dk = ds^T.q with ds = p *
     (dp - rowsum(dp * p))), in the dtypes the forward's products have;
-    dq, dk and dv are summed in f32."""
+    dq, dk and dv are summed in f32. ``scale``: the forward's softmax scale
+    (None: 1/sqrt(D))."""
     B, Sq, H, D = q.shape
-    scale = 1.0 / math.sqrt(D)
+    scale = _scale(scale, D)
     f32 = torch.float32
     dq = torch.zeros(q.shape, dtype=f32, device=q.device)
     dk = torch.zeros(k.shape, dtype=f32, device=k.device)
@@ -297,16 +305,18 @@ def attention_vjp(q, k, v, go, *, impl="chunked", causal=True, window=0,
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, cache_len) -> torch.Tensor:
+                     v_cache: torch.Tensor, cache_len,
+                     scale: float | None = None) -> torch.Tensor:
     """One-token attention against a cache.
 
     q [B,1,H,D], caches [B,Sc,H,D(v)] (head-repeated), cache_len [] or [B]
     (an int or a tensor; a tensor on the device stays there, no host sync).
     The new token's k/v must already be written into the cache at position
-    cache_len - 1 (ring-indexed for windowed caches).
+    cache_len - 1 (ring-indexed for windowed caches). ``scale``: the
+    softmax scale (None: 1/sqrt(D)).
     """
     B, Sc = k_cache.shape[0], k_cache.shape[1]
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    scale = _scale(scale, q.shape[-1])
     if isinstance(k_cache, DTensor) and any(
             p.is_shard(1) for p in k_cache.placements):
         return _split_decode_attention(q, k_cache, v_cache, cache_len, scale)

@@ -13,7 +13,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.modules import ParamSpec, apply_norm, norm_defs
+from repro_torch.models.modules import (ParamSpec, apply_norm, norm_defs,
+                                        residual)
+from repro_torch.obs.spans import span, spanned
 
 
 def dims(cfg):
@@ -141,12 +143,18 @@ def _causal_conv(seq, w, b, state=None, act: bool = True):
     return (F.silu(out) if act else out), full[:, -(K - 1):]
 
 
+@spanned("model.mixer")
 def mamba_apply(cfg, p, x, sh, *, cache=None, **_):
-    """Full-seq when cache is None; single-token recurrence otherwise."""
+    """Full-seq when cache is None; single-token recurrence otherwise.
+    -> (x + out, the cache a decode step continues from, {"conv", "ssm"}):
+    in full-seq mode the conv's last ssm_conv - 1 inputs (a view of the
+    conv's whole input) and SSD's final state; in decode the updated
+    ones. The residual add is ``modules.residual``."""
     B, S, d = x.shape
     d_in, nheads, conv_dim = dims(cfg)
     G, N = cfg.ssm_ngroups, cfg.ssm_state
-    h = apply_norm(cfg.norm_kind, p["ln"], x, cfg.norm_eps)
+    with span("model.mixer.norm"):
+        h = apply_norm(cfg.norm_kind, p["ln"], x, cfg.norm_eps)
     zxbcdt = sh.dot(h, p["in_proj"].to(h.dtype))
     z = zxbcdt[..., :d_in]
     xBC = zxbcdt[..., d_in:d_in + conv_dim]
@@ -155,17 +163,19 @@ def mamba_apply(cfg, p, x, sh, *, cache=None, **_):
     A = -torch.exp(p["A_log"].float())
 
     if cache is None:
-        xBC, _ = _causal_conv(xBC, p["conv_w"].to(h.dtype),
-                              p["conv_b"].to(h.dtype))
+        with span("model.mixer.conv"):
+            xBC, conv_tail = _causal_conv(xBC, p["conv_w"].to(h.dtype),
+                                          p["conv_b"].to(h.dtype))
         xs = xBC[..., :d_in].reshape(B, S, nheads, cfg.ssm_head_dim)
         Bm = xBC[..., d_in:d_in + G * N].reshape(B, S, G, N)
         Cm = xBC[..., d_in + G * N:].reshape(B, S, G, N)
         xs = sh(xs, "batch", None, "act_heads", None)
         dt = sh(dt, "batch", None, "act_heads")
         from repro_torch.kernels.ssd_scan.ops import ssd
-        y, _ = ssd(xs, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
-        y = y + xs * p["D"].to(xs.dtype)[None, None, :, None]
-        new_cache = None
+        with span("model.mixer.ssd"):
+            y, state = ssd(xs, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
+            y = y + xs * p["D"].to(xs.dtype)[None, None, :, None]
+        new_cache = {"conv": conv_tail, "ssm": state}
     else:
         # decode: conv ring + linear state update
         conv_in = torch.cat([cache["conv"].to(h.dtype), xBC],
@@ -191,6 +201,7 @@ def mamba_apply(cfg, p, x, sh, *, cache=None, **_):
                      "ssm": new_ssm}
 
     y = y.reshape(B, S, d_in)
-    y = apply_norm("rms", p["out_ln"], y * F.silu(z), cfg.norm_eps)
+    with span("model.mixer.gate"):
+        y = apply_norm("rms", p["out_ln"], y * F.silu(z), cfg.norm_eps)
     out = sh.dot(y, p["out_proj"].to(h.dtype))
-    return x + sh(out, "batch", "seq", "act_embed"), new_cache
+    return residual(cfg, x, sh(out, "batch", "seq", "act_embed")), new_cache

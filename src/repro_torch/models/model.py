@@ -18,7 +18,9 @@ reference serves: the ``ssm`` family (Mamba-2), the homogeneous decoder
 LMs (``dense`` and ``vlm``: glm4, granite, smollm, starcoder2, qwen2-vl),
 the ``moe`` family (deepseek-v2 with MLA attention, llama4 with GQA), the
 ``hybrid`` griffin (recurrentgemma) and the ``audio`` encoder-decoder
-(whisper). Every family trains: ``loss_fn`` is the reference's (f32 cross
+(whisper); the ``hybrid_moe`` family (granite-4.0-h: Mamba-2 and NoPE
+attention mixers by ``layer_types``, a MoE after each) is the port's
+own. Every family trains: ``loss_fn`` is the reference's (f32 cross
 entropy over the unpadded vocabulary, chunked along the sequence when
 ``cfg.logit_chunk`` says so, plus ``AUX_WEIGHT`` x the MoE aux loss over
 the layers), and the layer bodies the reference rematerializes run under
@@ -43,8 +45,8 @@ from repro_torch.models.modules import (ParamSpec, Sharder, apply_norm,
                                         norm_defs, recomputed,
                                         softmax_cross_entropy, stack_specs,
                                         token_nll, tree_map)
-from repro_torch.models.moe import moe_apply
-from repro_torch.obs.spans import span
+from repro_torch.models.moe import moe_apply, moe_defs
+from repro_torch.obs.spans import count, recording, span
 
 AUX_WEIGHT = 0.01
 
@@ -326,7 +328,8 @@ def _mamba(cfg: ModelConfig, rules=None, mesh=None) -> ModelBundle:
         for i, pl in enumerate(_unstack(p["layers"], cfg.num_layers)):
             cl = _layer(cache, i) if cache is not None else None
             x, nc = body(pl, x, cl)
-            ncs.append(nc)
+            if cache is not None:
+                ncs.append(nc)
         x = apply_norm(cfg.norm_kind, p["final_ln"], x, cfg.norm_eps)
         return x, (_stack(ncs) if cache is not None else None)
 
@@ -629,6 +632,149 @@ def _griffin(cfg: ModelConfig, rules=None, mesh=None) -> ModelBundle:
 
 
 # ---------------------------------------------------------------------------
+# family: granite-4.0-h (hybrid_moe: Mamba-2 / NoPE GQA mixers, MoE each)
+# ---------------------------------------------------------------------------
+
+MIXERS = ("mamba", "attention")
+
+
+def layer_kinds(cfg) -> tuple[str, ...]:
+    """Each layer's mixer, "mamba" or "attention": the first
+    ``num_layers`` of ``cfg.layer_types`` (a cut in depth keeps the first
+    layers, as a pipeline's first stage holds them)."""
+    kinds = tuple(cfg.layer_types[:cfg.num_layers])
+    if len(kinds) < cfg.num_layers or set(kinds) - set(MIXERS):
+        raise ValueError(f"{cfg.name}: want {cfg.num_layers} layer types "
+                         f"among {MIXERS}; got {cfg.layer_types}")
+    return kinds
+
+
+def _granite(cfg: ModelConfig, rules=None, mesh=None) -> ModelBundle:
+    """Each layer: x + r·mixer(rms(x)), the mixer Mamba-2 or attention as
+    ``layer_kinds`` says, then x + r·(moe(rms(x)) + shared(rms(x))), r
+    the ``residual_multiplier`` (``moe_apply`` adds the shared expert).
+    The embedding's output is multiplied by ``embedding_multiplier``, the
+    logits divided by ``logits_scaling``; attention has no positional
+    embedding (``rope_theta`` 0) and its softmax scale is
+    ``attention_multiplier``. Parameters are stacked by kind: "mamba" and
+    "attn" over the layers of each mixer, "moe" over every layer, in
+    layer order. The prefill hands off each layer's cache, in layer order:
+    a Mamba layer's {"conv", "ssm"} (the conv's last inputs, SSD's final
+    state, f32) and an attention layer's {"k", "v"} [B, S, Hkv, hd]."""
+    sh = Sharder(mesh, rules)
+    kinds = layer_kinds(cfg)
+    n_kind = {k: kinds.count(k) for k in MIXERS}
+    defs = {**_embed_defs(cfg),
+            "moe": stack_specs(moe_defs(cfg), cfg.num_layers)}
+    if n_kind["mamba"]:
+        defs["mamba"] = stack_specs(M.mamba_defs(cfg), n_kind["mamba"])
+    if n_kind["attention"]:
+        defs["attn"] = stack_specs(T.attn_defs(cfg), n_kind["attention"])
+
+    def mamba_layer(pm, pe, x, cl):
+        x, c = M.mamba_apply(cfg, pm, x, sh, cache=cl)
+        x, aux = moe_apply(cfg, pe, x, sh)
+        return x, c, aux
+
+    def attn_layer(pa, pe, x, cl, cache_len):
+        x, c = T.attn_apply(cfg, pa, x, sh, positions=None, cache=cl,
+                            cache_len=cache_len)
+        x, aux = moe_apply(cfg, pe, x, sh)
+        return x, c, aux
+
+    def embed(p, tokens):
+        x = _embed(cfg, p, tokens, sh)
+        if cfg.embedding_multiplier != 1:
+            x = x * cfg.embedding_multiplier
+        return x
+
+    def head_input(x):
+        return x if cfg.logits_scaling == 1 else x / cfg.logits_scaling
+
+    def fwd(p, x, mode, cache=None, cache_len=None):
+        """-> (final-normed x, the layers' summed aux loss, each layer's
+        cache: the prefill's handoff or, in decode, the updated caches,
+        an attention layer's written in place). In training each layer
+        runs under ``_maybe_remat``."""
+        mixers = {"mamba": _unstack(p["mamba"], n_kind["mamba"])
+                  if n_kind["mamba"] else [],
+                  "attention": _unstack(p["attn"], n_kind["attention"])
+                  if n_kind["attention"] else []}
+        bodies = {"mamba": _maybe_remat(mamba_layer, cfg, mode),
+                  "attention": _maybe_remat(attn_layer, cfg, mode)}
+        seen = {k: 0 for k in MIXERS}
+        caches, aux = [], 0.0
+        for i, pe in enumerate(_unstack(p["moe"], cfg.num_layers)):
+            kind = kinds[i]
+            pm = mixers[kind][seen[kind]]
+            seen[kind] += 1
+            cl = cache[i] if cache is not None else None
+            if kind == "mamba":
+                x, c, a = bodies[kind](pm, pe, x, cl)
+                if cl is None:
+                    # the conv tail is a view of the conv's whole input: a
+                    # copy keeps only it, for the prefill's handoff
+                    c = {"conv": c["conv"].clone(), "ssm": c["ssm"]} \
+                        if mode == "prefill" else None
+            else:
+                x, c, a = bodies[kind](pm, pe, x, cl, cache_len)
+            caches.append(c)
+            aux = aux + a
+        with span("model.norm"):
+            x = apply_norm(cfg.norm_kind, p["final_ln"], x, cfg.norm_eps)
+        return x, aux, caches
+
+    def loss_fn(p, batch):
+        x = embed(p, batch["tokens"])
+        x, aux, _ = fwd(p, x, "train")
+        ce = _lm_loss(cfg, p, head_input(x), batch["targets"],
+                      batch["mask"], sh)
+        aux = _aux(aux, ce)
+        loss = ce + AUX_WEIGHT * aux / cfg.num_layers
+        return loss, {"loss": loss, "ce": ce, "aux": aux}
+
+    def prefill_fn(p, batch):
+        """-> (the last position's logits, the handoff): {"layers": each
+        layer's cache, "len"}. While a profiler records, counts the bytes
+        handed off of each kind (``ssm.state_bytes``, ``attn.kv_bytes``)."""
+        S = batch["tokens"].shape[1]
+        x = embed(p, batch["tokens"])
+        x, _, caches = fwd(p, x, "prefill")
+        with span("model.head"):
+            logits = _logits(cfg, p, head_input(x[:, -1:]), sh)
+        with span("model.cache"):
+            if recording():
+                for kind, name in (("mamba", "ssm.state_bytes"),
+                                   ("attention", "attn.kv_bytes")):
+                    count(name, sum(t.numel() * t.element_size()
+                                    for k, c in zip(kinds, caches)
+                                    if k == kind for t in c.values()))
+            return logits, {"layers": caches, "len": _len(S, x.device)}
+
+    def decode_fn(p, cache, batch):
+        """One token at ``cache["len"]``: each Mamba layer's state
+        advanced (new tensors), each attention layer's k/v written in
+        place at slot ``len``, so an attention cache holds more slots
+        than ``len`` (the decode tier places the prefill's handoff in the
+        first S of its own). -> (logits, the caches with ``len`` + 1)."""
+        pos = cache["len"]
+        x = embed(p, batch["token"])
+        x, _, caches = fwd(p, x, "decode", cache=cache["layers"],
+                           cache_len=pos)
+        logits = _logits(cfg, p, head_input(x), sh)
+        return logits, {"layers": caches, "len": pos + 1}
+
+    def cache_defs(batch, cache_len, long=False):
+        return {"layers": [M.mamba_cache_defs(cfg, batch) if k == "mamba"
+                           else T.attn_cache_defs(cfg, batch, cache_len,
+                                                  long) for k in kinds],
+                "len": _len_def()}
+
+    return ModelBundle(cfg, defs, loss_fn, prefill_fn, decode_fn,
+                       cache_defs, functools.partial(_base_batch_defs, cfg))
+
+
+# ---------------------------------------------------------------------------
 # family: whisper (enc-dec; frame embeddings provided by the stub frontend)
 # ---------------------------------------------------------------------------
 
@@ -764,7 +910,8 @@ def _apply_param_dtype(defs, dtype):
 
 # the builder of each family; the rest are homogeneous decoder LMs, as in
 # the reference
-_FAMILIES = {"ssm": _mamba, "hybrid": _griffin, "audio": _whisper}
+_FAMILIES = {"ssm": _mamba, "hybrid": _griffin, "hybrid_moe": _granite,
+             "audio": _whisper}
 
 
 def build_model(cfg: ModelConfig, mesh=None, rules=None) -> ModelBundle:

@@ -660,6 +660,13 @@ def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return F.silu(gate) * up
 
 
+def residual(cfg, x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """A sublayer's residual add: x + out, with out times
+    ``cfg.residual_multiplier`` in the same add where that is not 1."""
+    r = cfg.residual_multiplier
+    return x + out if r == 1 else torch.add(x, out, alpha=r)
+
+
 def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """-log softmax(logits)[label] for each row: logsumexp less the label's
     logit. logits [..., V] f32; labels int [...]. Logits that are a

@@ -33,6 +33,16 @@ order on CUDA (fault F3). On a mesh the buffer stays batch-major, [B, E,
 C, d] with partitions b·E + e, laid out by ``sh``'s rules (batch and
 experts split); its experts are ``sh.einsum`` and its combine
 ``_combine_on_mesh``. The shared experts are plain torch.
+
+The chip's expert share (one device, ``MoEConfig.held_experts``): the
+router keeps all ``num_experts`` outputs and its top k, and the capacity
+stays the deployment's (``expert_capacity`` over ``num_experts``); only
+the entries whose expert is held here are packed, over B x held
+partitions (an absent expert's entry gets no slot and is read as a drop),
+and only the held experts' weights are here and computed. What goes on to
+the next layer is this chip's part of the result, with the shared
+experts whole. When every expert is held the path is the one above,
+kernel for kernel.
 """
 from __future__ import annotations
 
@@ -45,25 +55,32 @@ from repro_torch import kernels
 from repro_torch.kernels._autograd import index_select
 from repro_torch.kernels.partition_pack import ops as pp_ops
 from repro_torch.models.modules import (ParamSpec, apply_norm, norm_defs,
-                                        swiglu)
+                                        residual, swiglu)
 from repro_torch.obs.spans import count, recording, span, spanned
+
+
+def experts_held(m) -> int:
+    """The experts whose weights are held here (``MoEConfig.held_experts``,
+    0: all ``num_experts``)."""
+    return m.held_experts or m.num_experts
 
 
 def moe_defs(cfg) -> dict:
     m = cfg.moe
     d = cfg.d_model
+    E = experts_held(m)
     defs = {
         "ln": norm_defs(cfg.norm_kind, d),
         "router": ParamSpec((d, m.num_experts), ("embed", None), init="small"),
-        "w_gate": ParamSpec((m.num_experts, d, m.expert_d_ff),
+        "w_gate": ParamSpec((E, d, m.expert_d_ff),
                             ("moe_e", "moe_d", "moe_f")),
-        "w_up": ParamSpec((m.num_experts, d, m.expert_d_ff),
+        "w_up": ParamSpec((E, d, m.expert_d_ff),
                           ("moe_e", "moe_d", "moe_f")),
-        "w_down": ParamSpec((m.num_experts, m.expert_d_ff, d),
+        "w_down": ParamSpec((E, m.expert_d_ff, d),
                             ("moe_e", "moe_f", "moe_d")),
     }
     if m.num_shared:
-        f = m.num_shared * m.expert_d_ff
+        f = m.shared_d_ff or m.num_shared * m.expert_d_ff
         defs["shared"] = {
             "w_gate": ParamSpec((d, f), ("embed", "mlp")),
             "w_up": ParamSpec((d, f), ("embed", "mlp")),
@@ -126,35 +143,53 @@ def dispatch_indices(experts: torch.Tensor, num_experts: int,
 
 @spanned("model.ffn.dispatch")
 def dispatch(h: torch.Tensor, experts: torch.Tensor, num_experts: int,
-             capacity: int, sh=None):
+             capacity: int, sh=None, first: int = 0,
+             n_held: int | None = None):
     """Pack the entries of h [B,S,d] by expert, per batch row, in one
     ``partition_pack`` call: entry j of row b (token j // k, experts
     [B*S, k]) goes to expert e's partition of group b, id e·B + b on one
     device, b·E + e on a mesh. The pack places each entry's token number
     (1-based: the kernel zero-fills empty slots, and row 0 of the gather
     is zeros); the token rows follow in one gather (on a mesh,
-    ``_gather_on_mesh`` with ``sh``'s rules).
-    -> (buf with empty slots zero: [E, B*C, d] on one device, entry (e,
-    b, slot) at row b·C + slot of expert e, [B, E, C, d] on a mesh; ids
-    [B*S*k] int32; slots [B*S*k] int32: an entry's slot within its
-    expert, at or past C where it was dropped)."""
+    ``_gather_on_mesh`` with ``sh``'s rules). With ``n_held`` below
+    ``num_experts`` (one device only) only the experts first .. first +
+    n_held - 1 are here: e is counted from ``first``, an entry of another
+    expert is not packed, and it comes back with id 0 and slot C, as a
+    drop.
+    -> (buf with empty slots zero: [E, B*C, d] on one device (E the
+    experts held), entry (e, b, slot) at row b·C + slot of expert e, [B,
+    E, C, d] on a mesh; ids [B*S*k] int32; slots [B*S*k] int32: an
+    entry's slot within its expert, at or past C where it was dropped)."""
     B, S, d = h.shape
     k = experts.shape[-1]
     dev = h.device
     on_mesh = isinstance(h, DTensor)
+    n_held = num_experts if n_held is None else n_held
+    share = n_held < num_experts
+    if share and on_mesh:
+        raise ValueError("the expert share runs on one device")
     group = torch.arange(B, dtype=torch.int32, device=dev)[:, None]
     e = experts.reshape(B, S * k)
-    ids = (e + num_experts * group if on_mesh else e * B + group).reshape(-1)
+    if share:
+        e = e - first
+        ids = torch.where((e >= 0) & (e < n_held), e * B + group, -1)
+    else:
+        ids = e + num_experts * group if on_mesh else e * B + group
+    ids = ids.reshape(-1)
     token = torch.arange(1, B * S + 1, dtype=torch.int32,
                          device=dev).repeat_interleave(k)[:, None]
     (packed,), _, slots = pp_ops.partition_pack_groups(
-        [token], ids, n_parts=B * num_experts, capacity=capacity)
+        [token], ids, n_parts=B * n_held, capacity=capacity)
     if on_mesh:
         return _gather_on_mesh(h, packed, num_experts, capacity, sh), ids, \
             slots
+    if share:
+        # the pack gave an absent expert's entry slot -1
+        slots = torch.where(slots < 0, capacity, slots)
+        ids = ids.clamp(min=0)
     rows = torch.cat([h.new_zeros(1, d), h.reshape(B * S, d)])
     buf = index_select(rows, 0, packed.reshape(-1))
-    return buf.view(num_experts, B * capacity, d), ids, slots
+    return buf.view(n_held, B * capacity, d), ids, slots
 
 
 def combine(eout: torch.Tensor, ids: torch.Tensor, slots: torch.Tensor,
@@ -244,25 +279,33 @@ def _combine_on_mesh(eout: DTensor, ids, slots, weights, S: int, k: int
 
 @spanned("model.ffn")
 def moe_apply(cfg, p, x, sh):
-    """Returns (x + moe_out, aux_loss). While a profiler records, counts
-    the entries that got a slot (``moe.kept``), the slots computed
-    (``moe.slots``, B·E·C) and, on one device, the calls that ran the
-    expert-major buffer (``moe.expert_major``)."""
+    """Returns (x + moe_out, aux_loss); the residual add is
+    ``modules.residual``. While a profiler records, counts the entries
+    that got a slot (``moe.kept``), the slots computed (``moe.slots``,
+    B·E·C, E the experts held), on one device the calls that ran the
+    expert-major buffer (``moe.expert_major``) and, where only a share of
+    the experts is held, the routed entries whose expert is held here
+    (``moe.local``)."""
     m = cfg.moe
     B, S, _ = x.shape
     k = m.top_k
+    E = experts_held(m)
     with span("model.ffn.norm"):
         h = apply_norm(cfg.norm_kind, p["ln"], x, cfg.norm_eps)
     weights, experts, aux = route(cfg, p, h)                     # [T,k]
     C = expert_capacity(S, m.num_experts, k, m.capacity_factor)
 
-    ebuf, ids, slots = dispatch(h, experts, m.num_experts, C, sh)
+    ebuf, ids, slots = dispatch(h, experts, m.num_experts, C, sh,
+                                first=m.first_held, n_held=E)
     on_mesh = isinstance(h, DTensor)
     if recording():
         count("moe.kept", (slots < C).sum())
-        count("moe.slots", B * m.num_experts * C)
+        count("moe.slots", B * E * C)
         if not on_mesh:
             count("moe.expert_major", 1)
+        if E < m.num_experts:
+            count("moe.local", ((experts >= m.first_held)
+                                & (experts < m.first_held + E)).sum())
     # the experts on the buffer as dispatch laid it out; the combine: each
     # entry's row back from its slot (zero where dropped), weighted, then a
     # token's k entries summed in order
@@ -295,4 +338,4 @@ def moe_apply(cfg, p, x, sh):
         z = sh(z, "batch", None, "act_mlp")
         out = out + sh.dot(z, sp["w_down"].to(h.dtype))
 
-    return x + sh(out, "batch", "seq", "act_embed"), aux
+    return residual(cfg, x, sh(out, "batch", "seq", "act_embed")), aux

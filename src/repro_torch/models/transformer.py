@@ -44,7 +44,7 @@ from repro_torch.kernels.flash_gqa import ops as flash_ops
 from repro_torch.models import attention as A
 from repro_torch.models.moe import moe_apply, moe_defs
 from repro_torch.models.modules import (ParamSpec, apply_norm, gelu,
-                                        norm_defs, swiglu)
+                                        norm_defs, residual, swiglu)
 from repro_torch.obs.spans import span, spanned
 
 
@@ -158,27 +158,37 @@ def _qkv(cfg, p, x, sh, positions, mrope_positions=None):
     return q, k, v
 
 
+def _scale(cfg, D: int) -> float:
+    """The softmax scale of the config's attention over heads of ``D``:
+    its ``attention_multiplier``, or 1/sqrt(D) where that is 0 (the value
+    the kernels and ``models/attention`` take by default)."""
+    return cfg.attention_multiplier or 1.0 / math.sqrt(D)
+
+
 def _attend(cfg, q, k, v, *, causal: bool, window: int):
     """Full-sequence attention of q [B,Sq,Hq,hd] against k/v at kv-head
-    layout [B,Skv,Hkv,hd] (Skv differs from Sq only with no mask): the
-    flash_gqa kernel on CUDA (and on meta, the dry run's stand-in for the
-    card) where it takes the shapes (k and v read through ``_kv_map``,
-    never repeated), else the reference's algorithm; such a call sent
-    there is counted in ``FK.routed``."""
+    layout [B,Skv,Hkv,hd] (Skv differs from Sq only with no mask), at the
+    config's softmax scale (``_scale``): the flash_gqa kernel on CUDA (and
+    on meta, the dry run's stand-in for the card) where it takes the
+    shapes (k and v read through ``_kv_map``, never repeated), else the
+    reference's algorithm; such a call sent there is counted in
+    ``FK.routed``."""
     if kernels.kernel_route(q):
         if FK.takes(q.shape, k.shape, v.shape, causal=causal,
                     window=window):
             return flash_ops.flash_gqa(q, k, v, causal=causal,
                                        window=window, kv_head=_kv_map(cfg),
                                        impl=cfg.attn_impl,
-                                       chunk=cfg.attn_chunk)
+                                       chunk=cfg.attn_chunk,
+                                       scale=_scale(cfg, q.shape[-1]))
         FK.count_routed()
     k, v = _expand_kv(cfg, k), _expand_kv(cfg, v)
     if isinstance(q, DTensor):
         return _attention_on_mesh(cfg, q, k, v, causal=causal,
                                   window=window)
     return A.attention(q, k, v, impl=cfg.attn_impl, causal=causal,
-                       window=window, chunk=cfg.attn_chunk)
+                       window=window, chunk=cfg.attn_chunk,
+                       scale=_scale(cfg, q.shape[-1]))
 
 
 def _attention_on_mesh(cfg, q, k, v, *, causal: bool, window: int):
@@ -193,7 +203,8 @@ def _attention_on_mesh(cfg, q, k, v, *, causal: bool, window: int):
     q, k, v = (t.redistribute(mesh, lay) for t in (q, k, v))
     o = A.attention(q.to_local(), k.to_local(), v.to_local(),
                     impl=cfg.attn_impl, causal=causal, window=window,
-                    chunk=cfg.attn_chunk)
+                    chunk=cfg.attn_chunk,
+                    scale=_scale(cfg, q.shape[-1]))
     return kernels.from_local(o, mesh, lay, (*q.shape[:3], v.shape[3]))
 
 
@@ -225,7 +236,7 @@ def attn_apply(cfg, p, x, sh, *, positions, layer_kind: str = "full",
         v = sh.dot(enc, p["wv"].to(h.dtype)).reshape(B, enc.shape[1], Hkv, hd)
         o = _attend(cfg, q, k, v, causal=False, window=0)
         out = sh.dot(o.reshape(B, S, -1), p["wo"].to(h.dtype))
-        return x + sh(out, "batch", "seq", "act_embed"), cache
+        return residual(cfg, x, sh(out, "batch", "seq", "act_embed")), cache
 
     if cache is None:
         q, k, v = _qkv(cfg, p, h, sh, positions, mrope_positions)
@@ -238,7 +249,7 @@ def attn_apply(cfg, p, x, sh, *, positions, layer_kind: str = "full",
                                      None))
         out = sh.dot(o.reshape(B, S, -1), p["wo"].to(h.dtype))
         kv = {"k": k.to(cfg.compute_dtype), "v": v.to(cfg.compute_dtype)}
-        return x + sh(out, "batch", "seq", "act_embed"), kv
+        return residual(cfg, x, sh(out, "batch", "seq", "act_embed")), kv
 
     # ---- decode: single token against a cache ----
     pos = torch.as_tensor(cache_len, dtype=torch.int32, device=x.device)
@@ -257,10 +268,11 @@ def attn_apply(cfg, p, x, sh, *, positions, layer_kind: str = "full",
     cache["k"].index_copy_(1, idx, k.to(cache["k"].dtype))
     cache["v"].index_copy_(1, idx, v.to(cache["v"].dtype))
     o = A.decode_attention(q, _expand_kv(cfg, cache["k"]),
-                           _expand_kv(cfg, cache["v"]), valid)
+                           _expand_kv(cfg, cache["v"]), valid,
+                           _scale(cfg, q.shape[-1]))
     o = _apply_head_mask(cfg, o)
     out = sh.dot(o.reshape(B, S, -1), p["wo"].to(h.dtype))
-    return x + sh(out, "batch", "seq", "act_embed"), cache
+    return residual(cfg, x, sh(out, "batch", "seq", "act_embed")), cache
 
 
 def _chunk_local_attention(cfg, q, k, v):

@@ -25,15 +25,25 @@ The spans, each read by a ``bench/metrics`` reader over the traced turn
   model.ffn.act       every SwiGLU / GELU in it
   model.ffn.dispatch  the MoE dispatch (ids, partition_pack, row gather)
   model.ffn.combine   the MoE combine (unpack, weights, the k-sum)
+  model.mixer         a Mamba-2 mixer, whole (``models/mamba2.py``)
+  model.mixer.norm    its pre-norm
+  model.mixer.conv    the causal conv and its SiLU
+  model.mixer.ssd     the ``ssd_scan`` call and the D skip
+  model.mixer.gate    y * silu(z) and the gated RMSNorm
   model.norm          the final norm
   model.head          the LM head over the last position
   model.cache         the prefill's cache stack and length
 
-and the counters, summed over MoE calls:
+and the counters, summed over MoE calls and prefills:
 
   moe.kept            entries that got a slot (device int64)
-  moe.slots           slots computed, B·E·C (host int); the drop share is
-                      1 - kept / (B·S·k)
+  moe.slots           slots computed, B·E·C (host int; E the experts held
+                      here); the drop share is 1 - kept / (B·S·k)
+  moe.local           routed entries whose expert is held here (device
+                      int64), where only a share of the experts is
+  ssm.state_bytes     bytes of the Mamba layers' states a prefill hands
+                      off (host int; granite-4.0-h's family)
+  attn.kv_bytes       bytes of the attention layers' K/V it hands off
 """
 from __future__ import annotations
 

@@ -76,6 +76,29 @@ def cfg_dict(cfg) -> dict:
     return {k: norm(v) for k, v in dataclasses.asdict(cfg).items()}
 
 
+# the port's own config fields (granite-4.0-h-small's family, which the
+# reference does not have) at the values that leave every other arch as
+# the reference has it
+PORT_FIELDS = {"layer_types": (), "embedding_multiplier": 1.0,
+               "residual_multiplier": 1.0, "logits_scaling": 1.0,
+               "attention_multiplier": 0.0}
+PORT_MOE_FIELDS = {"shared_d_ff": 0, "held_experts": 0, "first_held": 0}
+
+
+def port_fields(got: dict, want: dict) -> dict:
+    """The entries of the port's ``cfg_dict`` ``got`` that the reference's
+    ``want`` lacks, at any depth, taken out of ``got``."""
+    out = {}
+    for k in list(got):
+        if k not in want:
+            out[k] = got.pop(k)
+        elif isinstance(got[k], dict) and isinstance(want[k], dict):
+            sub = port_fields(got[k], want[k])
+            if sub:
+                out[k] = sub
+    return out
+
+
 def spec_rows_ref(defs):
     leaves = jax.tree_util.tree_flatten_with_path(defs, is_leaf=jax_is_spec)
     return [(tuple(getattr(k, "key", getattr(k, "idx", k)) for k in path),

@@ -12,6 +12,8 @@ from repro.models.modules import init_params
 from repro.launch.steps import (init_train_state, make_decode_step,
                                 make_prefill_step, make_train_step)
 
+# the JAX package's archs; the port's own granite-4.0-h-small, which it
+# lacks, is held to its plain reference by bench/tests/test_bench_granite.py
 ARCHS = sorted(registry().keys())
 B, S = 2, 16
 

@@ -47,7 +47,9 @@ from repro_torch.models.modules import (  # noqa: E402
 
 from _torch_parity import BF16_TOL  # noqa: E402
 from _torch_parity import both as _both  # noqa: E402
+from _torch_parity import PORT_FIELDS, PORT_MOE_FIELDS  # noqa: E402
 from _torch_parity import cfg_dict as _cfg_dict  # noqa: E402
+from _torch_parity import port_fields as _port_fields  # noqa: E402
 from _torch_parity import close as _close  # noqa: E402
 from _torch_parity import match as _match  # noqa: E402
 from _torch_parity import perturb as _perturb  # noqa: E402
@@ -70,9 +72,15 @@ def _cfgs(kind: str):
 @pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
 @pytest.mark.parametrize("arch", sorted(jax_registry()))
 def test_config_matches_reference(arch, smoke):
-    want = (jax_smoke_config if smoke else jax_get_config)(arch)
-    got = (smoke_config if smoke else get_config)(arch)
-    assert _cfg_dict(got) == _cfg_dict(want)
+    """Field for field; the port's own fields, which the reference lacks,
+    at the values that leave the arch as the reference has it."""
+    want = _cfg_dict((jax_smoke_config if smoke else jax_get_config)(arch))
+    got = _cfg_dict((smoke_config if smoke else get_config)(arch))
+    own = dict(PORT_FIELDS)
+    if got["moe"] is not None:
+        own["moe"] = PORT_MOE_FIELDS
+    assert _port_fields(got, want) == own
+    assert got == want
 
 
 @pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
@@ -187,7 +195,8 @@ def test_rms_norm_rounds_before_scaling():
 @pytest.mark.parametrize("kind,B,S", [("smoke", 2, 16), ("full", 1, 256)])
 def test_mamba_apply_full_sequence_matches_pallas_reference(kind, B, S):
     """The reference with use_pallas (its Pallas kernel, interpret mode);
-    the port's CPU path (the plain chunked SSD)."""
+    the port's CPU path (the plain chunked SSD), which also returns the
+    state a decode step continues from."""
     jcfg, tcfg = _cfgs(kind)
     jcfg = jcfg.replace(use_pallas=True)
     pj, pt = _both(_perturb(
@@ -197,7 +206,10 @@ def test_mamba_apply_full_sequence_matches_pallas_reference(kind, B, S):
     yj, _ = JM.mamba_apply(jcfg, pj, jnp.asarray(x), JaxSharder())
     before = K.launches
     yt, cache = TM.mamba_apply(tcfg, pt, torch.from_numpy(x), Sharder())
-    assert cache is None and K.launches == before
+    d_in, H, conv_dim = TM.dims(tcfg)
+    assert K.launches == before
+    assert cache["conv"].shape == (B, tcfg.ssm_conv - 1, conv_dim)
+    assert cache["ssm"].shape == (B, H, tcfg.ssm_head_dim, tcfg.ssm_state)
     _close(yt, yj)
 
 
