@@ -124,13 +124,22 @@ Phases, each printing its own lines and seconds:
      expert share of granite-4.0-h-small's cell (top 10 of 72, experts
      0-35 held): ids of -1 for the entries not held over B x 36
      partitions at 8 x 4096 and 2 x 16,384, kernel vs plain exactly, and
-     the dispatch's slots (an entry not held dropped);
+     the dispatch's slots (an entry not held dropped); then the MoE
+     combine (moe_combine, one CUDA kernel a call) at the two MoE cells'
+     shapes in bf16 (deepseek-v2-lite-16b 4 x 4096, top 6 of 64, d 2048;
+     granite-4.0-h-small 8 x 4096, top 10 of 72 with 36 held, d 4096),
+     ids and slots from the dispatch: the kernel's documented order in
+     plain PyTorch bit for bit, the plain combine within one bf16 step at
+     the terms' scale,
+     one launch and one CUDA kernel a call (a CUDA graph of the call);
+     its time (events), its bytes bound and share, the plain combine's
+     time;
  14. moe serve phase: the serve cell deepseek-v2-lite-16b at full width
      and depth (27 layers, 15.7 B parameters drawn in f32 and cast in
      place to bf16), as in phase 8: flash_gqa must launch
      once a layer (27) in the prefill with 0 routed calls, and
-     partition_pack once a MoE layer (26) in the prefill and in every
-     decode step;
+     partition_pack and moe_combine once a MoE layer (26) in the prefill
+     and in every decode step;
  15. moe parity phase: deepseek-v2-lite-16b at full width and 3 layers
      (the dense layer 0 and two MoE layers), one 128-token prompt, card
      prefill against CPU prefill in f32 (1e-3) and bf16 (5 % relative
@@ -224,6 +233,9 @@ from repro_torch.kernels._graph import launched_functions  # noqa: E402
 from repro_torch.kernels.flash_gqa import flash_gqa as FK  # noqa: E402
 from repro_torch.kernels.flash_gqa import ops as FLASH_OPS  # noqa: E402
 from repro_torch.kernels.flash_gqa.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.moe_combine import moe_combine as MCK  # noqa: E402
+from repro_torch.kernels.moe_combine import ops as MC_OPS  # noqa: E402
+from repro_torch.kernels.moe_combine import ref as mc_ref  # noqa: E402
 from repro_torch.kernels.partition_pack import partition_pack as K  # noqa
 from repro_torch.kernels.partition_pack import ref as pp_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as SSD_OPS  # noqa: E402
@@ -360,6 +372,11 @@ MOE_DISPATCH = {"prefill": 512, "decode": 1}
 # cell's batches (B, S): its shortest and longest requests
 SHARE_ARCH, SHARE_HELD = "granite-4.0-h-small", 36
 SHARE_BATCHES = ((8, 4096), (2, 16384))
+# the MoE combine at the two MoE cells' batches of 4096-token requests
+# (bench/: deepseek-v2-lite-16b.prefill_long, all 64 experts held;
+# granite-4.0-h-small.prefill_longdoc, the first 36 of 72 held), in bf16
+COMBINE_CELLS = (("deepseek-v2-lite-16b", 4, 4096, None),
+                 ("granite-4.0-h-small", 8, 4096, SHARE_HELD))
 # this slice's serve cells (launch/serve.CELLS). recurrentgemma-9b and
 # whisper-tiny draw f32 weights and take the f32 answer, as the earlier
 # cells do; llama4 draws bf16 (4 of 48 layers, 70.7 GB) and has no f32
@@ -461,12 +478,12 @@ def phase(name: str, t0: float):
 
 
 def zero_counts():
-    K.launches = SK.launches = FK.launches = FK.routed = 0
+    K.launches = SK.launches = FK.launches = FK.routed = MCK.launches = 0
 
 
 def counts() -> dict:
     return {"partition_pack": K.launches, "ssd_scan": SK.launches,
-            "flash_gqa": FK.launches}
+            "flash_gqa": FK.launches, "moe_combine": MCK.launches}
 
 
 def no_drops(cfg):
@@ -482,11 +499,12 @@ def no_drops(cfg):
 def expected_launches(cfg, decode_steps: int) -> dict:
     """The launches of a prefill and ``decode_steps`` decode steps: decode
     attends over its caches in plain PyTorch, so there the MoE dispatch
-    launches once a MoE layer, and whisper's step launches flash_gqa once
-    an encoder layer (it encodes the frames again) and once a cross
-    attention layer (one query against the frames)."""
+    and combine launch once a MoE layer, and whisper's step launches
+    flash_gqa once an encoder layer (it encodes the frames again) and once
+    a cross attention layer (one query against the frames)."""
     want = prefill_launches(cfg)
     want["partition_pack"] *= 1 + decode_steps
+    want["moe_combine"] *= 1 + decode_steps
     if cfg.family == "audio":
         want["flash_gqa"] += decode_steps * (cfg.encoder_layers
                                              + cfg.num_layers)
@@ -1587,6 +1605,84 @@ def share_pack_phase(dev) -> list[dict]:
     return recs
 
 
+def moe_combine_phase(dev) -> list[dict]:
+    """The MoE combine (``kernels/moe_combine``) at ``COMBINE_CELLS``,
+    experts picked as the router picks them (k distinct), ids and slots
+    from ``models/moe.dispatch``, expert outputs and weights drawn in
+    bf16: the kernel against its documented order in plain PyTorch
+    (``ref.combine_in_order``) bit for bit and the plain combine within
+    one bf16 step at the terms' scale (``ref.term_step``); one launch and
+    one CUDA kernel a call (the functions a CUDA graph of the call holds,
+    ``kernels/_graph.launched_functions``). Times: the kernel by events
+    over back-to-back calls (warm: the 0.6-2 GB expert outputs exceed L2),
+    its bytes bound (``ops.work`` at the kept entries) and share, and the
+    plain combine."""
+    recs = []
+    for arch, B, S, held in COMBINE_CELLS:
+        cfg = get_config(arch)
+        m, d = cfg.moe, cfg.d_model
+        E, k = m.num_experts, m.top_k
+        held = held or E
+        C = MOE.expert_capacity(S, E, k, m.capacity_factor)
+        gen = torch.Generator(dev).manual_seed(B * S + E)
+        experts = torch.topk(torch.randn(B * S, E, generator=gen,
+                                         device=dev), k).indices.to(
+            torch.int32)
+        _, ids, slots = MOE.dispatch(
+            torch.zeros(B, S, 8, dtype=torch.bfloat16, device=dev),
+            experts, E, C, first=0, n_held=held)
+        eout = torch.randn(held, B * C, d, generator=gen, device=dev).to(
+            torch.bfloat16)
+        w = torch.softmax(torch.randn(B * S, k, generator=gen, device=dev),
+                          -1).to(torch.bfloat16)
+        before = MCK.launches
+        got = MC_OPS.moe_combine(eout, ids, slots, w, C, S, k)
+        torch.cuda.synchronize()
+        launched = MCK.launches - before
+        in_order = torch.equal(got, mc_ref.combine_in_order(
+            eout, ids, slots, w, C, S, k))
+        plain = mc_ref.combine(eout, ids, slots, w, C, S, k)
+        off = (got.float() - plain.float()).abs()
+        step = mc_ref.term_step(eout, ids, slots, w, C, S, k)
+        steps = torch.where(off > 0, off / step, 0)
+        kept = int((slots < C).sum())
+        _, moved = MC_OPS.work(B * S, k, d, kept, eout.element_size())
+        label = f"{arch} B={B} S={S}"
+
+        def kernel():
+            MCK.combine(eout, ids, slots, w, C, S, k)
+
+        functions = launched_functions(kernel)
+        kernel_ms = time_ms(kernel)
+        bound_ms = moved / HBM_BYTES_PER_S * 1e3
+        rec = {"case": label, "tokens": B * S, "k": k, "d": d,
+               "experts": E, "held": held, "capacity": C,
+               "entries": B * S * k, "kept": kept, "launches": launched,
+               "cuda_functions": functions,
+               "in_order_bit_for_bit": in_order,
+               "term_steps_from_plain_max": float(steps.max()),
+               "elements_off_plain": int((off > 0).sum()),
+               "elements": got.numel(),
+               "kernel_ms": kernel_ms,
+               "plain_ms": time_ms(lambda: mc_ref.combine(
+                   eout, ids, slots, w, C, S, k), iters=5),
+               "bytes": moved, "bound_ms": bound_ms,
+               "bound_share": bound_ms / kernel_ms}
+        print("[moe-combine] " + json.dumps(rec), flush=True)
+        check(launched == 1 and functions == ["moe_combine_rows"],
+              f"moe combine {label}: {launched} launches, CUDA functions "
+              f"{functions} a call")
+        check(in_order, f"moe combine {label}: the kernel differs from "
+              "its documented order (ref.combine_in_order)")
+        check(rec["term_steps_from_plain_max"] <= 1, f"moe combine "
+              f"{label}: {rec['term_steps_from_plain_max']} bf16 steps at "
+              "the terms' scale from the plain combine")
+        recs.append(rec)
+        del eout, plain, got, off, step, steps
+        release()
+    return recs
+
+
 # ------------------------------------------------------------ flash kernel
 def flash_inputs(B, S, H, Hkv, D, seed, dev, dtype, Dv=None, Sq=None,
                  q_scale=1.0):
@@ -2454,6 +2550,7 @@ def main() -> int:
     release()
     dispatch_recs = moe_dispatch_phase(dev)
     share_pack_phase(dev)
+    combine_recs = moe_combine_phase(dev)
     phase("moe dispatch", t0)
 
     t0 = time.perf_counter()
@@ -2530,6 +2627,13 @@ def main() -> int:
                     "partition_pack"],
                 **{path: n["partition_pack"] for path, n in dryrun.items()
                    if n["partition_pack"]}}
+    combine_paths = {"moe serve": moe_launches["moe_combine"],
+                     f"{LLAMA4_ARCH} serve": new_paths[
+                         f"{LLAMA4_ARCH} serve"]["moe_combine"],
+                     f"train {MOE_ARCH}": train[f"train {MOE_ARCH}"][
+                         "moe_combine"],
+                     **{path: n["moe_combine"] for path, n in dryrun.items()
+                        if n["moe_combine"]}}
     ssd_paths = {"serve": ssd_launches,
                  "train mamba2-2.7b": train["train mamba2-2.7b"]["ssd_scan"],
                  **{path: n["ssd_scan"] for path, n in {
@@ -2583,7 +2687,21 @@ def main() -> int:
         **{name: {key: r[key] for key in (
             "case", "body", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library_backend", "max_abs_err", "f32")}
-           for name, r in flash_new.items()}}]}),
+           for name, r in flash_new.items()}}, {
+        "name": "moe_combine", "route": "cuda",
+        "source": "src/repro_torch/kernels/moe_combine/csrc/moe_combine.cu",
+        "replaces": None,
+        "launches": sum(combine_paths.values()),
+        "launches_by_path": combine_paths,
+        "max_term_steps_from_plain": max(r["term_steps_from_plain_max"]
+                                         for r in combine_recs),
+        "ms": combine_recs[-1]["kernel_ms"],
+        "plain_ms": combine_recs[-1]["plain_ms"],
+        "bound_ms": combine_recs[-1]["bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+        "cells": {r["case"]: {key: r[key] for key in (
+            "kept", "kernel_ms", "plain_ms", "bound_ms", "bound_share")}
+            for r in combine_recs}}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,8 @@ listeners: list = []
 def on_card(t) -> bool:
     """True where tensor ``t`` lies on a CUDA device. The models' kernel
     entry points (``flash_gqa/ops.py``, ``ssd_scan/ops.py``,
-    ``partition_pack/ops.py`` and ``models/transformer.py:_attend``) ask
+    ``partition_pack/ops.py``, ``moe_combine/ops.py`` and
+    ``models/transformer.py:_attend``) ask
     this one question (through ``kernel_route``) and send such tensors to
     the hand-written kernels, others to the plain versions."""
     return t.device.type == "cuda"

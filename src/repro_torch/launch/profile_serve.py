@@ -16,7 +16,8 @@ on the serve path (ssd_scan: its four CUDA kernels ssd_cb,
 ssd_chunk_state, ssd_state_pass and ssd_chunk_scan a call; flash_gqa: one
 a call, two for a call with no mask and at most 16 query rows, whose split
 body is flash_gqa_split and flash_gqa_merge; partition_pack, the MoE dispatch: three a call at B·E = 256 or
-512 partitions, its multi-pass route) and the ten kernels with the most
+512 partitions, its multi-pass route; moe_combine, the MoE combine: one a
+call) and the ten kernels with the most
 device time. The weights are cast to bf16 in place (``cast_params_``),
 so the card holds one copy. Runs on CUDA only.
 """
@@ -39,7 +40,7 @@ from repro_torch.models.modules import init_params
 DECODE_STEPS = 8                                        # traced decode steps
 # the port's kernels on the serve path, by the prefix of their CUDA functions
 KERNELS = {"ssd_scan": "ssd_", "flash_gqa": "flash_gqa_",
-           "partition_pack": "pp_"}
+           "partition_pack": "pp_", "moe_combine": "moe_combine"}
 
 
 def _profiled(name: str, fn, trace: str | None) -> dict:

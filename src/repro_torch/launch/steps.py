@@ -132,10 +132,10 @@ def attention_layers(cfg) -> int:
 
 
 def moe_layers(cfg) -> int:
-    """partition_pack calls of one prefill or decode step of ``cfg``: one
-    a MoE layer (deepseek-v2: every layer after ``first_dense``; llama4:
-    the MoE sub-layers of each super-block, every second one;
-    granite-4.0-h: every layer)."""
+    """partition_pack calls of one prefill or decode step of ``cfg``, and
+    moe_combine calls on one device: one a MoE layer (deepseek-v2: every
+    layer after ``first_dense``; llama4: the MoE sub-layers of each
+    super-block, every second one; granite-4.0-h: every layer)."""
     if cfg.family == "hybrid_moe":
         return cfg.num_layers
     if cfg.family != "moe":
@@ -156,11 +156,12 @@ def mamba_layers(cfg) -> int:
 
 
 def prefill_launches(cfg) -> dict:
-    """The launches of each kernel that one prefill of ``cfg`` makes:
-    ssd_scan once a Mamba layer (``mamba_layers``), flash_gqa once an
-    attention layer (``attention_layers``), partition_pack once a MoE
-    layer (the dispatch, ``moe_layers``)."""
+    """The launches of each kernel that one prefill of ``cfg`` makes on
+    one device: ssd_scan once a Mamba layer (``mamba_layers``), flash_gqa
+    once an attention layer (``attention_layers``), partition_pack (the
+    dispatch) and moe_combine once a MoE layer (``moe_layers``)."""
     return {"partition_pack": moe_layers(cfg),
+            "moe_combine": moe_layers(cfg),
             "ssd_scan": mamba_layers(cfg),
             "flash_gqa": attention_layers(cfg)}
 

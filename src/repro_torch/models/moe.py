@@ -25,14 +25,16 @@ token numbers, as the reference gathers by ``dispatch_indices``.
 On one device the partition of expert e and group b is e·B + b, so the
 packed buffer is expert-major, [E, B, C, d], and nothing permutes it from
 the pack to the combine: the gather writes it as [E, B·C, d], the experts
-are ``torch.bmm`` of it by [E, d, f] weights, and the combine gathers each
-entry's row from the flat [E·B·C, d] output (a dropped entry's row set to
-zero by a select), weights it and sums a token's k entries in a fixed
-order. It uses no ``index_add_``, whose float atomics add in no fixed
-order on CUDA (fault F3). On a mesh the buffer stays batch-major, [B, E,
-C, d] with partitions b·E + e, laid out by ``sh``'s rules (batch and
-experts split); its experts are ``sh.einsum`` and its combine
-``_combine_on_mesh``. The shared experts are plain torch.
+are ``torch.bmm`` of it by [E, d, f] weights, and the combine
+(``kernels/moe_combine``: the hand-written CUDA kernel on a CUDA device,
+its plain version on the CPU) reads each kept entry's row from the flat
+[E·B·C, d] output, weights it and sums a token's k entries in a fixed
+order; a dropped entry adds nothing. It uses no ``index_add_``, whose
+float atomics add in no fixed order on CUDA (fault F3). On a mesh the
+buffer stays batch-major, [B, E, C, d] with partitions b·E + e, laid out
+by ``sh``'s rules (batch and experts split); its experts are
+``sh.einsum`` and its combine ``_combine_on_mesh``. The shared experts
+are plain torch.
 
 The chip's expert share (one device, ``MoEConfig.held_experts``): the
 router keeps all ``num_experts`` outputs and its top k, and the capacity
@@ -53,6 +55,7 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch import kernels
 from repro_torch.kernels._autograd import index_select
+from repro_torch.kernels.moe_combine.ops import moe_combine as combine
 from repro_torch.kernels.partition_pack import ops as pp_ops
 from repro_torch.models.modules import (ParamSpec, apply_norm, norm_defs,
                                         residual, swiglu)
@@ -192,22 +195,6 @@ def dispatch(h: torch.Tensor, experts: torch.Tensor, num_experts: int,
     return buf.view(n_held, B * capacity, d), ids, slots
 
 
-def combine(eout: torch.Tensor, ids: torch.Tensor, slots: torch.Tensor,
-            weights: torch.Tensor, C: int, S: int, k: int) -> torch.Tensor:
-    """The combine on one device: entry i reads row ids[i]·C + slot of
-    the expert outputs eout [E, B*C, d] seen flat (ids e·B + b), by a
-    gather whose backward adds in a fixed order; a dropped entry (slot at
-    or past C) reads its partition's last row and is set to zero by a
-    select, not a multiply, so that no non-finite value there passes.
-    -> [B, S, d]: each entry's row times its router weight (weights
-    [B*S, k] in eout's dtype), a token's k entries summed in order."""
-    d = eout.shape[-1]
-    rows = index_select(eout.view(-1, d), 0,
-                        ids.long() * C + slots.clamp(max=C - 1))
-    rows = torch.where((slots < C)[:, None], rows, 0)
-    return (rows * weights.reshape(-1, 1)).view(-1, S, k, d).sum(dim=2)
-
-
 def _whole(t, grad=None):
     """A DTensor gathered whole, as a local tensor (``grad``: its
     gradient's placements); a plain tensor as it is."""
@@ -283,7 +270,8 @@ def moe_apply(cfg, p, x, sh):
     ``modules.residual``. While a profiler records, counts the entries
     that got a slot (``moe.kept``), the slots computed (``moe.slots``,
     B·E·C, E the experts held), on one device the calls that ran the
-    expert-major buffer (``moe.expert_major``) and, where only a share of
+    expert-major buffer (``moe.expert_major``) and those whose combine
+    took the kernel (``moe.combine_kernel``) and, where only a share of
     the experts is held, the routed entries whose expert is held here
     (``moe.local``)."""
     m = cfg.moe
@@ -303,12 +291,14 @@ def moe_apply(cfg, p, x, sh):
         count("moe.slots", B * E * C)
         if not on_mesh:
             count("moe.expert_major", 1)
+            if kernels.kernel_route(h):
+                count("moe.combine_kernel", 1)
         if E < m.num_experts:
             count("moe.local", ((experts >= m.first_held)
                                 & (experts < m.first_held + E)).sum())
     # the experts on the buffer as dispatch laid it out; the combine: each
-    # entry's row back from its slot (zero where dropped), weighted, then a
-    # token's k entries summed in order
+    # kept entry's row back from its slot, weighted, then a token's k
+    # entries summed in order
     if on_mesh:
         ebuf = sh(ebuf, "batch", "act_experts", None, None)
         g = sh.einsum("becd,edf->becf", ebuf, p["w_gate"].to(h.dtype))

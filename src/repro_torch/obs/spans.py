@@ -24,7 +24,8 @@ The spans, each read by a ``bench/metrics`` reader over the traced turn
   model.ffn.norm      its norm
   model.ffn.act       every SwiGLU / GELU in it
   model.ffn.dispatch  the MoE dispatch (ids, partition_pack, row gather)
-  model.ffn.combine   the MoE combine (unpack, weights, the k-sum)
+  model.ffn.combine   the MoE combine (on one device the moe_combine
+                      kernel on the card, its plain version on the CPU)
   model.mixer         a Mamba-2 mixer, whole (``models/mamba2.py``)
   model.mixer.norm    its pre-norm
   model.mixer.conv    the causal conv and its SiLU
@@ -39,6 +40,8 @@ and the counters, summed over MoE calls and prefills:
   moe.kept            entries that got a slot (device int64)
   moe.slots           slots computed, B·E·C (host int; E the experts held
                       here); the drop share is 1 - kept / (B·S·k)
+  moe.combine_kernel  one-device MoE calls whose combine took the
+                      moe_combine kernel (host int)
   moe.local           routed entries whose expert is held here (device
                       int64), where only a share of the experts is
   ssm.state_bytes     bytes of the Mamba layers' states a prefill hands

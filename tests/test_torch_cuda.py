@@ -14,6 +14,9 @@ from repro_torch.kernels.partition_pack import (  # noqa: E402
     partition_pack as K, ref)
 from repro_torch.kernels.flash_gqa import flash_gqa as FK  # noqa: E402
 from repro_torch.kernels.flash_gqa.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.moe_combine import moe_combine as MK  # noqa: E402
+from repro_torch.kernels.moe_combine import ops as mc_ops  # noqa: E402
+from repro_torch.kernels.moe_combine import ref as mc_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan as SK  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked  # noqa: E402
 
@@ -898,23 +901,167 @@ def _deepseek_cfg(mla_dims: bool):
 @pytest.mark.parametrize("mla_dims", [False, True],
                          ids=["smoke-dims", "mla-dims"])
 def test_deepseek_prefill_on_the_card_matches_the_cpu(card, mla_dims):
-    """A deepseek smoke model prefills on the card with one pack a MoE
-    layer and its MLA attention on the kernel (at the published head
-    dims) or routed to the plain path (at the smoke config's), and equals
-    the CPU's prefill in f32."""
+    """A deepseek smoke model prefills on the card with one pack and one
+    combine a MoE layer and its MLA attention on the kernel (at the
+    published head dims) or routed to the plain path (at the smoke
+    config's), and equals the CPU's prefill in f32."""
     from repro_torch.launch import serve
     from repro_torch.models.modules import tree_map
     cfg = _deepseek_cfg(mla_dims)
     params, tokens, _ = serve.random_request(cfg, 2, 64, 0, card)
-    launches = FK.launches, FK.routed, K.launches
+    launches = FK.launches, FK.routed, K.launches, MK.launches
     got = _dense_prefill(cfg, card, params, tokens)
     n_moe = cfg.num_layers - cfg.moe.first_dense
     attn = (cfg.num_layers, 0) if mla_dims else (0, cfg.num_layers)
     assert (FK.launches - launches[0], FK.routed - launches[1]) == attn
     assert K.launches == launches[2] + n_moe
+    assert MK.launches == launches[3] + n_moe
     want = _dense_prefill(cfg, "cpu", tree_map(lambda t: t.cpu(), params),
                           tokens.cpu())
     assert torch.allclose(got, want, rtol=1e-3, atol=1e-3)
+
+
+# moe_combine: the two MoE cells' shapes (bench/, a batch of 4 x 4096 of
+# deepseek-v2-lite-16b.prefill_long: 64 experts, top 6, d 2048; 8 x 4096 of
+# granite-4.0-h-small.prefill_longdoc: 36 of 72 experts held here, top 10,
+# d 4096), llama4's top 1 at its width 5120, heavy drops, and rows of a
+# few 16-byte vectors (fewer than a warp's lanes)
+COMBINE_CASES = [
+    # B, S, experts routed, held, k, d, capacity factor, dtype
+    (4, 4096, 64, 64, 6, 2048, 1.5, "bfloat16"),
+    (8, 4096, 72, 36, 10, 4096, 1.5, "bfloat16"),
+    (2, 256, 16, 16, 1, 5120, 1.0, "bfloat16"),
+    (3, 40, 4, 4, 2, 64, 0.25, "float32"),
+    (2, 64, 24, 12, 10, 40, 1.0, "bfloat16"),
+    (2, 64, 24, 12, 10, 36, 1.0, "float32"),
+]
+
+
+def _combine_inputs(card, B, S, E, held, k, d, capacity_factor, dtype,
+                    seed=0):
+    """A combine's inputs as the model hands them over: ids and slots
+    from ``dispatch`` (expert 0 hot, so its partitions fill and drop;
+    entries of experts past ``held`` at slot C), eout [held, B*C, d] and
+    router weights drawn from ``seed``; token 0's entries all dropped,
+    and NaN and Inf in the row of a kept entry at a partition's last
+    slot, which is then dropped (only dropped entries read that row)."""
+    from repro_torch.models import moe as TM
+    dt = getattr(torch, dtype)
+    C = TM.expert_capacity(S, E, k, capacity_factor)
+    gen = torch.Generator(card).manual_seed(seed)
+    scores = torch.randn(B * S, E, generator=gen, device=card)
+    scores[:, 0] += 3 * (torch.rand(B * S, generator=gen, device=card) < 0.5)
+    experts = torch.topk(scores, k).indices.to(torch.int32)
+    _, ids, slots = TM.dispatch(torch.zeros(B, S, 8, device=card), experts,
+                                E, C, first=0, n_held=held)
+    eout = torch.randn(held, B * C, d, generator=gen, device=card).to(dt)
+    w = torch.rand(B * S, k, generator=gen, device=card).to(dt)
+    slots[:k] = C
+    last = int(torch.nonzero(slots == C - 1)[0])
+    slots[last] = C
+    row = eout.view(-1, d)[int(ids[last]) * C + C - 1]
+    row.fill_(float("nan"))
+    row[0] = float("inf")
+    return eout, ids, slots, w, C
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,E,held,k,d,capacity_factor,dtype",
+                         COMBINE_CASES)
+def test_moe_combine_kernel_matches_plain(card, B, S, E, held, k, d,
+                                          capacity_factor, dtype):
+    """One launch gives the kernel's documented order in plain PyTorch on
+    the card (``ref.combine_in_order``) bit for bit, and the plain combine
+    (PyTorch's sum over k, in another order) within one step of the last
+    place at the terms' scale in bf16 (``ref.term_step``; k - 1 such steps
+    in f32); finite where a dropped entry's row holds NaN and Inf, zero for
+    a token with every entry dropped."""
+    eout, ids, slots, w, C = _combine_inputs(card, B, S, E, held, k, d,
+                                             capacity_factor, dtype)
+    assert bool((slots >= C).any()) and bool((slots < C).any())
+    before = MK.launches
+    with torch.inference_mode():
+        got = mc_ops.moe_combine(eout, ids, slots, w, C, S, k)
+    torch.cuda.synchronize()
+    assert MK.launches == before + 1
+    assert got.shape == (B, S, d) and got.dtype == eout.dtype
+    assert torch.isfinite(got).all()
+    assert not got[0, 0].any()
+    assert torch.equal(got, mc_ref.combine_in_order(eout, ids, slots, w, C,
+                                                    S, k))
+    want = mc_ref.combine(eout, ids, slots, w, C, S, k)
+    steps = 1 if dtype == "bfloat16" else k - 1
+    step = mc_ref.term_step(eout, ids, slots, w, C, S, k)
+    assert bool(((got.float() - want.float()).abs() <= steps * step).all())
+
+
+@pytest.mark.cuda
+def test_moe_combine_refuses_what_it_does_not_take(card):
+    """Rows that are no whole number of 16-byte vectors, more entries a
+    token than a warp's lanes, ids of another type: refused, nothing
+    launched."""
+    eout, ids, slots, w, C = _combine_inputs(card, 2, 64, 8, 8, 2, 64, 1.0,
+                                             "bfloat16")
+    before = MK.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        MK.combine(eout[..., :36].contiguous(), ids, slots, w, C, 64, 2)
+    with pytest.raises(ValueError, match="entries a token"):
+        MK.combine(eout, ids.repeat(17), slots.repeat(17), w.repeat(1, 17),
+                   C, 64, 34)
+    with pytest.raises(ValueError, match="int32"):
+        MK.combine(eout, ids.long(), slots, w, C, 64, 2)
+    assert MK.launches == before
+
+
+@pytest.mark.cuda
+def test_moe_combine_gives_the_same_bits_every_run(card):
+    eout, ids, slots, w, C = _combine_inputs(card, *COMBINE_CASES[1][:-1],
+                                             "bfloat16", seed=1)
+    S, k = COMBINE_CASES[1][1], COMBINE_CASES[1][4]
+    with torch.inference_mode():
+        a = mc_ops.moe_combine(eout, ids, slots, w, C, S, k)
+        b = mc_ops.moe_combine(eout, ids, slots, w, C, S, k)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_moe_layer_gradients_through_moe_combine_are_the_plain_paths(
+        card, monkeypatch, dtype):
+    """A deepseek smoke MoE layer (capacity factor 0.5: entries drop) on
+    the card: the gradients of every parameter and of the input through
+    the kernel's call equal those with the plain combine in the kernel's
+    place, bit for bit (the loss is linear in the layer's output, whose
+    cotangent is then the same in both)."""
+    from repro_torch.configs.smoke import smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import moe as TM
+    from repro_torch.models.modules import Sharder, tree_leaves, tree_map
+    import dataclasses
+    cfg = smoke_config("deepseek-v2-lite-16b")
+    cfg = cfg.replace(compute_dtype=dtype, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=0.5))
+    params, _, _ = serve.random_request(cfg, 2, 64, 3, card)
+    p = tree_map(lambda t: t[0], params["layers"]["mlp"])
+    gen = torch.Generator(card).manual_seed(4)
+    x = torch.randn(2, 64, cfg.d_model, generator=gen, device=card).to(dtype)
+    cot = torch.randn(2, 64, cfg.d_model, generator=gen, device=card)
+
+    def grads():
+        ps = tree_map(lambda t: t.detach().clone().requires_grad_(), p)
+        xs = x.detach().clone().requires_grad_()
+        out, _ = TM.moe_apply(cfg, ps, xs, Sharder(None, None))
+        leaves = [xs, *tree_leaves(ps, torch.is_tensor)]
+        return torch.autograd.grad((out.float() * cot).sum(), leaves)
+
+    before = MK.launches
+    got = grads()
+    assert MK.launches == before + 1
+    monkeypatch.setattr(TM, "combine", mc_ref.combine)
+    want = grads()
+    assert MK.launches == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want, strict=True))
 
 
 # ------------------------- head dim 256, cross attention (griffin, whisper)
@@ -1185,12 +1332,13 @@ def test_train_step_on_the_card_matches_the_cpu(card, arch):
     opt = make_optimizer(bundle.cfg.optimizer)
     state = {"params": pg, "opt": opt.init(pg),
              "step": torch.zeros((), dtype=torch.int32, device=card)}
-    before = FK.launches, SK.launches, K.launches, FK.routed
+    before = FK.launches, SK.launches, K.launches, FK.routed, MK.launches
     state, m = make_train_step(bundle, opt)[0](state, bg)
     torch.cuda.synchronize()
     assert {"flash_gqa": FK.launches - before[0],
             "ssd_scan": SK.launches - before[1],
-            "partition_pack": K.launches - before[2]} == train_launches(
+            "partition_pack": K.launches - before[2],
+            "moe_combine": MK.launches - before[4]} == train_launches(
                 bundle.cfg)
     assert FK.routed == before[3]
     assert int(state["step"]) == 1 and np.isfinite(float(m["loss"]))
@@ -1223,12 +1371,13 @@ def _elastic_run(arch, dev, fails):
         failure_hook=hook, device=dev)
     steps, step_fn = [], trainer.step_fn
     trainer.step_fn = lambda s, b: (steps.append(1), step_fn(s, b))[1]
-    before = FK.launches, SK.launches, K.launches, FK.routed
+    before = FK.launches, SK.launches, K.launches, FK.routed, MK.launches
     log = trainer.run()
     torch.cuda.synchronize()
     launched = {"flash_gqa": FK.launches - before[0],
                 "ssd_scan": SK.launches - before[1],
-                "partition_pack": K.launches - before[2]}
+                "partition_pack": K.launches - before[2],
+                "moe_combine": MK.launches - before[4]}
     assert not left and FK.routed == before[3]
     return log, launched, len(steps), trainer.bundle.cfg
 

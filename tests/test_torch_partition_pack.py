@@ -105,8 +105,8 @@ def test_cuda_wrapper_refuses_cpu_tensors():
 
 def test_build_names_every_source_by_content():
     srcs = _build.sources()
-    assert [s.name for s in srcs] == ["flash_gqa.cu", "partition_pack.cu",
-                                     "ssd_scan.cu"]
+    assert [s.name for s in srcs] == ["flash_gqa.cu", "moe_combine.cu",
+                                     "partition_pack.cu", "ssd_scan.cu"]
     for src in srcs:
         lib = _build.target(src)
         assert lib.parent == _build.BUILD_DIR and lib.suffix == ".so"

@@ -5,7 +5,8 @@ the shared null context and calls nothing of torch's profiler, and no
 counter moves; the results are the same bits with the profiler on or
 off; ``moe.kept`` counts what the plain ``dispatch_indices`` keeps; and
 ``moe.expert_major`` counts each MoE layer of a one-device prefill
-once."""
+once, and ``moe.combine_kernel`` each one whose combine took the kernel
+(on the card only)."""
 import dataclasses
 import unittest.mock
 
@@ -125,6 +126,30 @@ def test_a_prefill_counts_the_expert_major_path_once_a_moe_layer(model):
     n_moe = cfg.num_layers - cfg.moe.first_dense if cfg.moe else 0
     assert got.get("moe.expert_major", 0) == n_moe
     assert cfg.moe is None or n_moe == 2
+    assert "moe.combine_kernel" not in got          # the CPU's is plain
+
+
+@pytest.mark.cuda
+def test_the_card_counts_the_combine_kernel_once_a_moe_layer():
+    """On the card every MoE layer of a one-device prefill combines on the
+    moe_combine kernel: the counter and the kernel's launches read the
+    number of MoE layers."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is "
+                    "False)")
+    from repro_torch.kernels.moe_combine import moe_combine as MK
+    cfg = smoke_config("deepseek-v2-lite-16b")
+    bundle = build_model(cfg)
+    params, tokens, _ = serve.random_request(cfg, B, S, 7, "cuda")
+    batch = serve.prefill_batch(bundle, tokens)
+    step = steps.make_prefill_step(bundle)
+    spans.counters()
+    before = MK.launches
+    traced(lambda: step(params, batch))
+    got = spans.counters()
+    n_moe = cfg.num_layers - cfg.moe.first_dense
+    assert got["moe.combine_kernel"] == got["moe.expert_major"] == n_moe
+    assert MK.launches - before == n_moe
 
 
 def test_kept_counts_the_plain_dispatch_keep():

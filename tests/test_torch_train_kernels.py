@@ -26,6 +26,8 @@ from repro_torch import kernels  # noqa: E402
 from repro_torch.configs.base import ShapeConfig, registry  # noqa: E402
 from repro_torch.configs.smoke import smoke_config  # noqa: E402
 from repro_torch.kernels.flash_gqa import flash_gqa as FK  # noqa: E402
+from repro_torch.kernels.moe_combine import moe_combine as MK  # noqa
+from repro_torch.kernels.moe_combine.ref import combine  # noqa: E402
 from repro_torch.kernels.partition_pack import \
     partition_pack as PK  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan as SK  # noqa: E402
@@ -53,7 +55,8 @@ def _cfg(arch: str, remat: str):
 def launched(monkeypatch):
     """-> (the launches by kernel, a function that takes the CUDA routing
     from then on)."""
-    n = {"flash_gqa": 0, "ssd_scan": 0, "partition_pack": 0}
+    n = {"flash_gqa": 0, "ssd_scan": 0, "partition_pack": 0,
+         "moe_combine": 0}
 
     def count(name, out):
         n[name] += 1
@@ -69,6 +72,8 @@ def launched(monkeypatch):
         monkeypatch.setattr(
             PK, "_launch_pack_call", lambda g, ids, p, c, clocks: count(
                 "partition_pack", PK.plain_pack(g, ids, p, c)))
+        monkeypatch.setattr(MK, "_launch", lambda *t, C, S, k: count(
+            "moe_combine", combine(*t, C, S, k)))
     return n, take_cuda_routing
 
 
